@@ -1,0 +1,116 @@
+"""The port's HTTP pose service: a round trip over a real socket with a tiny model.
+
+Mirrors tests/engine/test_http_server.py, with the port's ``PoseService`` in
+front of the port's ``TopDownPredictor`` (a reduced HRNet on the CPU).
+"""
+import base64
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from mindpose_tpu_torch.engine import PoseService, TopDownPredictor, build_http_server
+from mindpose_tpu_torch.models.backbones.hrnet import HRNet
+from mindpose_tpu_torch.models.heads import HRNetHead
+from mindpose_tpu_torch.models.networks import Net
+from tests.test_torch_hrnet import CFG
+
+SETTING = {
+    "image_size": [64, 64],
+    "heatmap_size": [16, 16],
+    "pixel_std": 200.0,
+    "scale_padding": 1.25,
+}
+
+
+@pytest.fixture(scope="module")
+def server():
+    torch.manual_seed(0)
+    predictor = TopDownPredictor(Net(HRNet(CFG), HRNetHead(8, 17)), SETTING, batch_size=4)
+    service = PoseService(predictor, mode="topdown", num_joints=17)
+    httpd, port = build_http_server(service, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{port}"
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def _post(url, payload):
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def _jpeg(image):
+    ok, buf = cv2.imencode(".jpg", image)
+    assert ok
+    return base64.b64encode(buf.tobytes()).decode()
+
+
+def test_healthz(server):
+    with urllib.request.urlopen(server + "/healthz", timeout=60) as resp:
+        assert resp.status == 200
+        body = json.loads(resp.read())
+    assert body == {"status": "ok", "mode": "topdown", "num_joints": 17}
+
+
+def test_predict_roundtrip(server):
+    image = np.random.RandomState(0).randint(0, 255, (120, 160, 3), np.uint8)
+    payload = {"image_b64": _jpeg(image), "boxes": [[10, 10, 60, 100], [80, 5, 70, 110]]}
+    status, body = _post(server + "/predict", payload)
+    assert status == 200, body
+    preds = np.asarray(body["predictions"])
+    assert preds.shape == (2, 17, 3)
+    # coordinates map back to the original frame (the 1.25-padded crop can
+    # extend past the image, so allow that margin)
+    assert np.isfinite(preds).all()
+    assert preds[..., 0].min() > -80 and preds[..., 0].max() < 240
+    assert body["latency_ms"] > 0
+
+    # whole-image default box
+    status, body = _post(server + "/predict", {"image_b64": _jpeg(image)})
+    assert status == 200
+    assert np.asarray(body["predictions"]).shape == (1, 17, 3)
+
+
+def test_predict_errors(server):
+    status, body = _post(server + "/predict", {})
+    assert status == 400 and "image_b64" in body["error"]
+
+    status, body = _post(server + "/predict", {"image_b64": "!!!"})
+    assert status == 400 and "base64" in body["error"]
+
+    good = _jpeg(np.zeros((32, 32, 3), np.uint8))
+    status, body = _post(server + "/predict", {"image_b64": good, "boxes": [[1, 2, 3]]})
+    assert status == 400 and "boxes" in body["error"]
+
+    status, body = _post(
+        server + "/predict",
+        {"image_b64": good, "boxes": [[0, 0, 32, 32]], "box_scores": [1, 2]},
+    )
+    assert status == 400 and "box_scores" in body["error"]
+
+
+def test_unknown_path_is_404(server):
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(server + "/nope", timeout=60)
+    assert err.value.code == 404
+
+
+def test_only_the_ported_mode_is_served():
+    with pytest.raises(ValueError, match="bottomup"):
+        PoseService(predictor=None, mode="bottomup", num_joints=17)
