@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's top-down HRNet-W32 serving path once on one CUDA GPU.
+"""Drive the PyTorch port's top-down HRNet-W32 paths once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -18,13 +18,28 @@ no result, when there is no CUDA device or when any phase fails:
    settings, answering requests of 1, 5 and 40 boxes; the kernels' launch
    counts show that the path went through them;
 5. the 5-box request on the GPU, in the full float32 the predictor serves
-   in, against the same port on the CPU.
+   in, against the same port on the CPU;
+6. the conv chain kernel against its plain version (cuDNN) on the GPU, in
+   float32 at depths 1-8 and in bf16 at depth 1, within stated bounds;
+7. the conv chain's own entry point, the go/no-go probe
+   (``tools/ablate_conv_chain.py``), at its three bf16 geometries: both
+   times, and the kernel's launch count on that run;
+8. the train step of hrnet_w32_tpu.yaml (adamw, warmup multi-step schedule,
+   O2) on HRNet-W32 at full width, batch 128 of synthetic crops: 3 warm-up
+   and 20 timed steps, img/s, step times, peak memory, finite losses;
+9. the net learning one fixed batch with its joints painted in, over 30
+   steps at constant lr: the loss falls below a fraction of its first value
+   and of an all-zero prediction's, and the backbone moves;
+10. one full-width train step at batch 2 on the GPU against the port on the
+    CPU, in float64 (loss, gradients, BatchNorm running statistics to 1e-8)
+    and in float32 (gradients against the CPU's float64).
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -34,13 +49,22 @@ import numpy as np
 import torch
 from torch import nn
 
+from mindpose_tpu_torch.data.device_pipeline import (
+    build_topdown_preprocess,
+    strip_host_target_transform,
+)
 from mindpose_tpu_torch.data.transform import box_to_center_scale
 from mindpose_tpu_torch.engine import TopDownPredictor
-from mindpose_tpu_torch.models import create_network
+from mindpose_tpu_torch.models import create_loss, create_network, create_network_with_loss
 from mindpose_tpu_torch.ops.cuda.build import load_library
+from mindpose_tpu_torch.ops.cuda.conv_chain import conv_chain_plain, fused_conv_chain
 from mindpose_tpu_torch.ops.cuda.decode import argmax_shift_decode, argmax_shift_decode_plain
+from mindpose_tpu_torch.optim import create_optimizer
+from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
+from mindpose_tpu_torch.scheduler import create_lr_scheduler
+from mindpose_tpu_torch.tools import ablate_conv_chain as probe
 
-# configs/hrnet/hrnet_w32_tpu.yaml, the keys the serving path reads
+# configs/hrnet/hrnet_w32_tpu.yaml, the keys the serving and train paths read
 # (tests/test_torch_host_copies.py holds this literal equal to the yaml)
 HRNET_W32 = {
     "num_joints": 17,
@@ -61,7 +85,32 @@ HRNET_W32 = {
     },
     "normalize_mean": [0.485, 0.456, 0.406],
     "normalize_std": [0.229, 0.224, 0.225],
+    # the training keys
+    "batch_size": 128,
+    "train_transforms": [
+        "topdown_box_to_center_scale",
+        {"topdown_horizontal_random_flip": {"flip_prob": 0.5}},
+        {"topdown_halfbody_transform": {"prob_half_body": 0.3, "scale_padding": 1.5}},
+        {"topdown_randomscale_rotation": {"rot_factor": 40, "scale_factor": 0.5, "rot_prob": 0.6}},
+        "topdown_affine",
+        {"topdown_generate_target": {"sigma": 2.0}},
+    ],
+    "loss": "joint_mse",
+    "loss_with_extra_input": True,
+    "loss_setting": {"use_target_weight": True},
+    "amp_level": "O2",
+    "scheduler": "warmup_multi_step_decay",
+    "num_epochs": 210,
+    "lr": 0.001,
+    "warmup": 500,
+    "lr_scheduler_setting": {"milestones": [170, 200]},
+    "optimizer": "adamw",
+    "weight_decay": 0.05,
+    "filter_bias_and_bn": True,
+    "optimizer_setting": {},
 }
+# COCO train2017's 149,813 person instances in batches of 128: the schedule's epoch
+STEPS_PER_EPOCH = 1170
 BATCH_SIZE = 32
 SEED = 0
 # GPU float32 (TF32 off) against CPU float32: the sums of ~100 conv layers run
@@ -70,6 +119,37 @@ SEED = 0
 # for a 2-block-per-branch HRNet-W32)
 HEATMAP_RTOL = 2e-5
 REPEATS = 20  # timed runs of each request
+KERNEL_SOURCES = ("decode", "conv_chain")
+PROBE_ITERS = 5  # chains per timing in the probe (each is 1-100 ms)
+TRAIN_WARMUP_STEPS = 3
+TRAIN_TIMED_STEPS = 20
+LOSS_FALL_STEPS = 30
+MARK_SIZE = 11  # pixels a side of a joint's mark in phase 9's crops
+# Phase 9's bounds after 30 steps, set from an exploratory run on the H100:
+# with the backbone learning the loss read 0.774 of the first step's and
+# 0.939 of the all-zero prediction's; with the backbone frozen (the head
+# alone learning) 0.856 and 1.038; on unmarked crops 0.999 of the zero
+# prediction's. The backbone moved ~0.1 of its norm against 1.5e-3 from
+# the decay alone.
+LOSS_FALL_RATIO = 0.85
+LOSS_ZERO_RATIO = 0.97
+BACKBONE_MOVE_FACTOR = 10.0
+TRAIN_CPU_BATCH = 2
+# GPU float32 (TF32 off) train step against the CPU's, full width, batch 2:
+# the same float32 arithmetic summed in other orders. The forward is well
+# conditioned (the serving heatmaps agree to ~3e-6 of their largest value):
+# the loss to rtol 1e-5, each running statistic to 1e-4 of its tensor's
+# largest |entry| (BatchNorm over as few as 96 values per channel in the
+# 1/32-scale branch). Gradients: see compare_train_with_cpu.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_STATS_RTOL = 1e-4
+TRAIN_GRAD_FACTOR = 2.0
+# The same step in float64 on both: float64 rounding (1.1e-16) carried
+# through the net's depth forward and back; measured at worst 1.6e-10 of a
+# gradient tensor's largest entry. The bound leaves 60x room and lies a
+# million times below the float32 gradient's error, so a fault in any one
+# tensor of the GPU's backward down to 1e-8 of its scale shows.
+TRAIN_F64_RTOL = 1e-8
 
 
 def gpu_name_and_power() -> str:
@@ -170,6 +250,108 @@ def check_decode(device: torch.device) -> dict:
     shift = HRNET_W32["decoder_setting"]["shift_coordinate"]
     kernel_ms, plain_ms = times[(BATCH_SIZE, shift, True)]
     return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+
+
+def build_kernels() -> None:
+    """Phase 2: one nvcc per source, all started together; print each ptxas report."""
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        for built in pool.map(load_library, KERNEL_SOURCES):
+            print(f"built {built.path.name} in {built.build_seconds:.2f} s")
+            print(built.log.strip())
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values (8 significand bits) at |v|."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+
+
+def conv_chain_cases(rng: np.random.RandomState):
+    """(name, x, weights) float32 cases: every depth 1-8 at C 4, 8, 32 and sizes
+    that are not multiples of the 16x16 tile. Weights are He-scaled, so each
+    layer keeps activations O(1) and no layer's gain hides another's error."""
+    for c in (4, 8, 32):
+        for h, w in ((1, 1), (3, 5), (16, 16), (65, 49)):
+            for depth in range(1, 9):
+                x = rng.randn(2, h, w, c)
+                ws = rng.randn(depth, 3, 3, c, c) * np.sqrt(2.0 / (9 * c))
+                yield f"C{c} {h}x{w} L{depth}", x, ws
+
+
+def check_conv_chain(device: torch.device) -> None:
+    """Phase 6: the conv chain kernel against its plain version on the GPU.
+
+    float32 with TF32 off: the kernel and cuDNN sum each layer's 9C products
+    in different orders. Two orders of an n-term float32 sum differ by at
+    most about n * eps * sum|terms|, and with He-scaled weights sum|terms| is
+    of the order of the largest output; over L layers of gain about 1 the
+    differences add. So max|diff| <= 9 * C * L * eps * max|plain|.
+
+    bf16 at depth 1: both sum in float32 and round once to bf16, so an
+    element may land on the neighbouring bf16 value: |diff| <= one bf16 ulp
+    of the larger of the two. An output whose float32 sum lies within the
+    float32 order bound of zero may be cut by the ReLU on one side only, so
+    that bound (9 * C * eps * max|plain|) is added as an absolute floor.
+    """
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    eps = torch.finfo(torch.float32).eps
+    worst = {}
+    for name, x_np, ws_np in conv_chain_cases(rng):
+        x = torch.from_numpy(x_np.astype(np.float32)).to(device)
+        ws = torch.from_numpy(ws_np.astype(np.float32)).to(device)
+        depth, c = ws.shape[0], ws.shape[-1]
+        kernel = fused_conv_chain(x, ws)
+        plain = conv_chain_plain(x, ws)
+        err = float((kernel - plain).abs().max())
+        scale = float(plain.abs().max())
+        bound = 9 * c * depth * eps * scale
+        key = name.rsplit(" ", 1)[0]
+        worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-30) / eps)
+        if not (err <= bound and bool(torch.isfinite(kernel).all())):
+            raise AssertionError(f"conv chain f32 {name}: max|diff| {err:.3e} > bound {bound:.3e}")
+    for key, ratio in worst.items():
+        print(f"conv chain f32 {key} depths 1-8: worst max|diff| = {ratio:.2f} eps x max|plain| "
+              f"(bound 9*C*L eps)")
+
+    for c in (4, 8, 32):
+        for h, w in ((1, 1), (3, 5), (65, 49), (64, 48)):
+            x = torch.from_numpy(rng.rand(4, h, w, c).astype(np.float32) * 2 - 1)
+            ws = torch.from_numpy(rng.rand(1, 3, 3, c, c).astype(np.float32) * 0.1 - 0.05)
+            x, ws = x.to(device).bfloat16(), ws.to(device).bfloat16()
+            kernel = fused_conv_chain(x, ws).float()
+            plain = conv_chain_plain(x, ws).float()
+            diff = (kernel - plain).abs()
+            floor = 9 * c * eps * float(plain.abs().max())
+            ok = diff <= bf16_ulp(torch.maximum(kernel.abs(), plain.abs())) + floor
+            ulps = int((diff > 0).sum())
+            print(f"conv chain bf16 C{c} {h}x{w} L1: {ulps} of {diff.numel()} elements differ, "
+                  f"all within one bf16 ulp: {bool(ok.all())}")
+            if not bool(ok.all()):
+                raise AssertionError(f"conv chain bf16 C{c} {h}x{w}: differs by more than one ulp")
+
+
+def drive_probe(device: torch.device) -> dict:
+    """Phase 7: the probe's own run at its three geometries, bf16, depth 8.
+
+    The chain's layers round to bf16 on both sides, so a bf16 ulp of
+    difference may arise in any layer and carry on: reldiff (max|diff| over
+    max|plain|) <= L half-ulps of bf16 = L * 2^-9. The weights are all
+    positive, so the following layers average such a difference rather than
+    amplify it. Counts launches of the kernel on this path.
+    """
+    bound = probe.DEPTH * 2.0**-9
+    rng = np.random.RandomState(0)
+    fused_conv_chain.launches = 0
+    rows = [probe.run(*g, rng=rng, iters=PROBE_ITERS, device=device) for g in probe.GEOMETRIES]
+    launches = fused_conv_chain.launches
+    print(f"conv chain kernel launches on the probe's path: {launches}")
+    for row in rows:
+        if not (row["finite"] and row["reldiff"] <= bound):
+            raise AssertionError(f"probe {row['tag']}: reldiff {row['reldiff']:.3e} > {bound:.3e}")
+    print(f"probe reldiff within {bound:.4e} at every geometry")
+    if launches == 0:
+        raise AssertionError("the probe launched no conv chain kernel")
+    return {"launches": launches, "rows": rows}
 
 
 def random_weights_(net: nn.Module, device: torch.device) -> None:
@@ -305,6 +487,277 @@ def compare_with_cpu(net: nn.Module, predictor: TopDownPredictor, image, boxes) 
         raise AssertionError(f"scores differ by {score_err}")
 
 
+def training_net(device: torch.device) -> nn.Module:
+    """Full-width HRNet-W32 + hrnet_head with ``random_weights_``."""
+    net = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
+                         num_joints=HRNET_W32["num_joints"],
+                         backbone_args=HRNET_W32["backbone_setting"],
+                         head_args=HRNET_W32["head_setting"])
+    random_weights_(net, device)
+    return net
+
+
+def train_batch(rng: np.random.RandomState, n: int, device: torch.device):
+    """Synthetic uint8-range crops [n, H, W, 3] and keypoints [n, 17, 3] inside them.
+
+    What the host pipeline hands the device step after its affine crop
+    (``device_pipeline: true``); 80% of the joints visible.
+    """
+    w, h = HRNET_W32["dataset_setting"]["image_size"]
+    image = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
+    xy = rng.uniform(0, 1, (n, HRNET_W32["num_joints"], 2)) * [w - 1, h - 1]
+    vis = rng.uniform(0, 1, (n, HRNET_W32["num_joints"], 1)) < 0.8
+    keypoints = np.concatenate([xy, vis], axis=-1).astype(np.float32)
+    return torch.from_numpy(image).to(device), torch.from_numpy(keypoints).to(device)
+
+
+def recipe_schedule():
+    cfg = HRNET_W32
+    return create_lr_scheduler(cfg["scheduler"], lr=cfg["lr"], total_epochs=cfg["num_epochs"],
+                               steps_per_epoch=STEPS_PER_EPOCH, warmup=cfg["warmup"],
+                               **cfg["lr_scheduler_setting"])
+
+
+def recipe_preprocess():
+    """The device preprocess: normalize + the yaml's sigma-2 Gaussian targets."""
+    cfg = HRNET_W32
+    ds = cfg["dataset_setting"]
+    _, target_kwargs = strip_host_target_transform(cfg["train_transforms"])
+    return build_topdown_preprocess(ds["image_size"], ds["heatmap_size"],
+                                    cfg["normalize_mean"], cfg["normalize_std"], **target_kwargs)
+
+
+def recipe_net_with_loss(net: nn.Module):
+    cfg = HRNET_W32
+    return create_network_with_loss(net, create_loss(cfg["loss"], **cfg["loss_setting"]),
+                                     has_extra_inputs=cfg["loss_with_extra_input"])
+
+
+def recipe_step(net: nn.Module, amp_level: str, schedule=None):
+    """hrnet_w32_tpu.yaml's train step over ``net``: the device preprocess,
+    joint_mse with target weights, adamw with its decay and grouping.
+    Without a schedule the rate is the yaml's ``lr``, constant."""
+    cfg = HRNET_W32
+    optimizer = create_optimizer(net, cfg["optimizer"], learning_rate=cfg["lr"],
+                                 weight_decay=cfg["weight_decay"],
+                                 filter_bias_and_bn=cfg["filter_bias_and_bn"],
+                                 **cfg["optimizer_setting"])
+    return build_train_step(recipe_net_with_loss(net), optimizer, schedule,
+                            preprocess=recipe_preprocess(), amp_level=amp_level)
+
+
+def train_throughput(device: torch.device) -> None:
+    """Phase 8: the recipe's step at batch 128, O2; warm-up, then timed steps.
+
+    Each step is timed on the host clock up to a ``torch.cuda.synchronize``.
+    """
+    n = HRNET_W32["batch_size"]
+    net = training_net(device)
+    schedule = recipe_schedule()
+    step = recipe_step(net, HRNET_W32["amp_level"], schedule)
+    image, keypoints = train_batch(np.random.RandomState(SEED + 1), n, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
+        start = time.perf_counter()
+        losses.append(step(image, keypoints))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).cpu()
+    timed = ms[TRAIN_WARMUP_STEPS:]
+    img_s = n * len(timed) / (sum(timed) / 1e3)
+    finite = bool(torch.isfinite(losses).all())
+    print(f"train step, batch {n}, {HRNET_W32['amp_level']}: warm-up steps "
+          + ", ".join(f"{t:.1f}" for t in ms[:TRAIN_WARMUP_STEPS]) + " ms")
+    print(f"train step, batch {n}, {HRNET_W32['amp_level']}, {len(timed)} timed steps: "
+          f"median {statistics.median(timed):.3f} ms, min {min(timed):.3f}, "
+          f"max {max(timed):.3f}; {img_s:.1f} img/s")
+    print(f"train step peak torch.cuda.max_memory_allocated: {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"train step losses: first {float(losses[0]):.6g}, last {float(losses[-1]):.6g}, "
+          f"lr of the last step {schedule(step.count - 1):.6g}; all {len(losses)} finite: {finite}")
+    if not finite:
+        raise AssertionError("a train step gave a non-finite loss")
+
+
+def head_init_(net: nn.Module, rng: np.random.RandomState) -> None:
+    """The head's own initialisation, from a numpy seed: a truncated normal of
+    sd 1e-3 (+-2 sd) and a zero bias, so the first heatmaps sit near zero."""
+    with torch.no_grad():
+        w = np.clip(rng.standard_normal(net.head.head.weight.shape), -2.0, 2.0) * 1e-3
+        net.head.head.weight.copy_(torch.from_numpy(w.astype(np.float32)))
+        net.head.head.bias.zero_()
+
+
+def mark_joints(image: torch.Tensor, keypoints: torch.Tensor) -> torch.Tensor:
+    """Paint each visible joint into its crop as a square of that joint's own
+    colour (``MARK_SIZE`` pixels a side), so the targets can be read off the
+    image."""
+    palette = torch.from_numpy(np.random.RandomState(SEED).randint(0, 256, (17, 3))).to(
+        image.device, image.dtype)
+    n, h, w, _ = image.shape
+    ys, xs = torch.arange(h, device=image.device), torch.arange(w, device=image.device)
+    image = image.clone()
+    half = MARK_SIZE // 2
+    for k in range(keypoints.shape[1]):
+        x, y, vis = (keypoints[:, k, i].round().long() for i in range(3))
+        inside = (((ys[None, :, None] - y[:, None, None]).abs() <= half)
+                  & ((xs[None, None, :] - x[:, None, None]).abs() <= half)
+                  & (vis[:, None, None] > 0))
+        image[inside] = palette[k]
+    return image
+
+
+def check_loss_falls(device: torch.device) -> None:
+    """Phase 9: the recipe's optimizer at constant lr on one fixed batch learns.
+
+    The head starts from its own near-zero initialisation and the batch's
+    joints are painted into its crops (``mark_joints``), so the net can
+    learn where the Gaussians lie. After ``LOSS_FALL_STEPS`` steps:
+    - the loss is below ``LOSS_FALL_RATIO`` of the first step's;
+    - it is below ``LOSS_ZERO_RATIO`` of the loss of an all-zero prediction
+      on the same batch, ``mean(target^2 * w)``: the net predicts the
+      targets better than no heatmap at all, which shrinking the head's
+      output alone cannot do;
+    - the backbone's parameters moved, as a whole, more than
+      ``BACKBONE_MOVE_FACTOR`` times what the weight decay alone would move
+      them (lr * wd per step): the backward reaches the backbone.
+    """
+    cfg = HRNET_W32
+    net = training_net(device)
+    head_init_(net, np.random.RandomState(SEED + 4))
+    step = recipe_step(net, cfg["amp_level"])
+    image, keypoints = train_batch(np.random.RandomState(SEED + 2), cfg["batch_size"], device)
+    image = mark_joints(image, keypoints)
+    _, target, weight = recipe_preprocess()(image, keypoints)
+    zero_loss = float(create_loss(cfg["loss"], **cfg["loss_setting"])(
+        torch.zeros_like(target), target, weight))
+    start = [p.detach().clone() for p in net.backbone.parameters()]
+    losses = [float(step(image, keypoints).sum()) for _ in range(LOSS_FALL_STEPS)]
+    with torch.no_grad():
+        moved = float(torch.stack([(p - p0).square().sum()
+                                   for p, p0 in zip(net.backbone.parameters(), start)]).sum())
+        norm = float(torch.stack([p0.square().sum() for p0 in start]).sum())
+    moved = (moved / norm) ** 0.5
+    decay_alone = cfg["lr"] * cfg["weight_decay"] * LOSS_FALL_STEPS
+    print(f"loss on one fixed batch at lr {cfg['lr']}: "
+          + ", ".join(f"{v:.5g}" for v in losses[::5]) + f", ..., {losses[-1]:.5g}")
+    print(f"  step {LOSS_FALL_STEPS} / step 1 = {losses[-1] / losses[0]:.4f} (bound "
+          f"{LOSS_FALL_RATIO}); / all-zero prediction's loss {zero_loss:.6g} = "
+          f"{losses[-1] / zero_loss:.4f} (bound {LOSS_ZERO_RATIO}); backbone |p - p0| / |p0| = "
+          f"{moved:.4e} (bound {BACKBONE_MOVE_FACTOR} x decay alone, {decay_alone:.1e})")
+    if not (np.isfinite(losses).all() and losses[-1] < LOSS_FALL_RATIO * losses[0]
+            and losses[-1] < LOSS_ZERO_RATIO * zero_loss
+            and moved > BACKBONE_MOVE_FACTOR * decay_alone):
+        raise AssertionError("the train step did not learn the fixed batch")
+
+
+def _errors(got: dict, want: dict) -> dict:
+    """Per tensor: max|got - want| / max|want|."""
+    return {k: float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-300)
+            for k in want}
+
+
+def _summary(errs: dict) -> str:
+    worst = max(errs, key=errs.get)
+    return f"median {statistics.median(errs.values()):.3e}, worst {errs[worst]:.3e} ({worst})"
+
+
+def _grads_and_stats(net: nn.Module):
+    grads = {k: p.grad.detach().double().cpu() for k, p in net.named_parameters()}
+    stats = {k: b.double().cpu() for k, b in net.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    return grads, stats
+
+
+def _worst(errs: dict, n: int = 3) -> str:
+    return "; ".join(f"{k} {errs[k]:.3e}" for k in sorted(errs, key=errs.get, reverse=True)[:n])
+
+
+def compare_train_with_cpu(device: torch.device) -> None:
+    """Phase 10: one train step at full width, batch 2, GPU against the port on the CPU.
+
+    The recipe's schedule gives the first step lr 0, so the step computes the
+    loss, gradients and BatchNorm statistics and moves no parameter.
+
+    float64 on both (cuDNN has float64 convolutions; BatchNorm keeps float64):
+    the same arithmetic summed in other orders, so the loss, every gradient
+    tensor and every running statistic must agree to ``TRAIN_F64_RTOL`` of
+    that tensor's largest |entry|. This holds the GPU's forward and backward
+    to a well-conditioned answer.
+
+    float32 (TF32 off), the precision the step runs in without autocast:
+    the loss and the running statistics (forward quantities) are compared
+    with the CPU's float32. The float32 gradient is not continuous in the
+    rounding: of the ~37 M ReLU inputs of this step, ~90 lie within float32
+    rounding of 0 and switch side between float32 and float64, and each
+    switch adds or drops one pixel's share of a channel's gradient, up to
+    1/96 of it in the 8x6 branch. So the CPU's own float32 gradient is off
+    its float64 one by ~1e-2 of a tensor's largest entry (median over
+    tensors) and up to ~0.25, worst in the 1/16- and 1/32-scale branches;
+    with a smooth activation in place of ReLU the same comparison reads
+    ~5e-5. So each float32 gradient is held against the CPU's float64 one,
+    and the GPU's may be at most ``TRAIN_GRAD_FACTOR`` times as far from it
+    as the CPU's float32 is, in the median over tensors and in the worst
+    tensor.
+    """
+    cpu = torch.device("cpu")
+    gpu_net = training_net(device)
+    cpu_net = copy.deepcopy(gpu_net).cpu()
+    image, keypoints = train_batch(np.random.RandomState(SEED + 3), TRAIN_CPU_BATCH, cpu)
+    # PyTorch's default, set here so that the run shows the float32 step turns it off
+    torch.backends.cudnn.allow_tf32 = True
+    out = {}
+    for name, net, dev in (("gpu32", copy.deepcopy(gpu_net), device),
+                           ("cpu32", copy.deepcopy(cpu_net), cpu)):
+        loss = recipe_step(net, "O0", recipe_schedule())(image.to(dev), keypoints.to(dev))
+        out[name] = (loss.double().cpu(), *_grads_and_stats(net))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if any(tf32):
+        raise AssertionError(f"the float32 train step left TF32 on: {tf32}")
+    preprocess = recipe_preprocess()
+    for name, net, dev in (("gpu64", gpu_net, device), ("cpu64", cpu_net, cpu)):
+        net.double()
+        loss = accum_loss_and_grads(
+            recipe_net_with_loss(net), (image.to(dev), keypoints.to(dev)),
+            preprocess=lambda *b: tuple(t.double() for t in preprocess(*b)))
+        out[name] = (loss.cpu(), *_grads_and_stats(net))
+
+    def loss_err(a, b):
+        return float(((out[a][0] - out[b][0]).abs() / out[b][0].abs()).max())
+
+    grads64 = _errors(out["gpu64"][1], out["cpu64"][1])
+    f64 = {"loss": loss_err("gpu64", "cpu64"), "gradients": max(grads64.values()),
+           "statistics": max(_errors(out["gpu64"][2], out["cpu64"][2]).values())}
+    print(f"train step card-vs-CPU, float64, batch {TRAIN_CPU_BATCH}: loss {out['gpu64'][0].tolist()} "
+          f"against {out['cpu64'][0].tolist()}; max|diff|/max|x| of the loss "
+          f"{f64['loss']:.3e}, {len(grads64)} gradients {_summary(grads64)}, "
+          f"{len(out['cpu64'][2])} running statistics {f64['statistics']:.3e}; "
+          f"bound {TRAIN_F64_RTOL} each")
+    f32_loss = loss_err("gpu32", "cpu32")
+    stats_err = _errors(out["gpu32"][2], out["cpu32"][2])
+    want = out["cpu64"][1]
+    gpu_err, cpu_err = _errors(out["gpu32"][1], want), _errors(out["cpu32"][1], want)
+    print(f"train step card-vs-CPU, float32, batch {TRAIN_CPU_BATCH}: loss "
+          f"{out['gpu32'][0].tolist()} against {out['cpu32'][0].tolist()}, rel diff "
+          f"{f32_loss:.3e} (rtol {TRAIN_LOSS_RTOL})")
+    print(f"  BN running statistics against the CPU's float32, max|diff|/max|stat|: "
+          f"{_summary(stats_err)}; bound {TRAIN_STATS_RTOL}")
+    print(f"  gradients against the CPU's float64, max|diff|/max|g|: GPU {_summary(gpu_err)}; "
+          f"CPU {_summary(cpu_err)}; bound {TRAIN_GRAD_FACTOR} x the CPU's")
+    print(f"  worst float32 gradients, GPU: {_worst(gpu_err)}; CPU: {_worst(cpu_err)}")
+    grads_ok = all(
+        agg(gpu_err.values()) <= TRAIN_GRAD_FACTOR * agg(cpu_err.values())
+        for agg in (statistics.median, max))
+    if max(f64.values()) > TRAIN_F64_RTOL:
+        raise AssertionError(f"the float64 GPU train step disagrees with the CPU's: {f64}")
+    if not (f32_loss <= TRAIN_LOSS_RTOL and max(stats_err.values()) <= TRAIN_STATS_RTOL
+            and grads_ok):
+        raise AssertionError("the float32 GPU train step disagrees with the CPU beyond the "
+                             "tolerances")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -315,9 +768,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    built = load_library("decode")
-    print(f"built {built.path.name} in {built.build_seconds:.2f} s")
-    print(built.log.strip())
+    build_kernels()
 
     decode = check_decode(device)
 
@@ -336,7 +787,18 @@ def main() -> int:
     served = serve(predictor, image, requests)
 
     compare_with_cpu(net, predictor, image, requests[1])
+    del predictor, net
+    torch.cuda.empty_cache()
 
+    check_conv_chain(device)
+    probed = drive_probe(device)
+
+    train_throughput(device)
+    check_loss_falls(device)
+    compare_train_with_cpu(device)
+
+    # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
+    chain = next(r for r in probed["rows"] if r["b"] == HRNET_W32["batch_size"])
     kernels = [{
         "name": "argmax_shift_decode",
         "route": "cuda",
@@ -346,6 +808,16 @@ def main() -> int:
         "max_abs_err": decode["max_abs_err"],
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
+    }, {
+        "name": "fused_conv_chain",
+        "route": "cuda",
+        "source": "mindpose_tpu_torch/csrc/conv_chain.cu",
+        "replaces": "mindpose_tpu/ops/pallas/conv_chain.py:36",
+        "launches": probed["launches"],
+        "max_abs_err": max(r["max_abs_diff"] for r in probed["rows"]),
+        "max_rel_err": max(r["reldiff"] for r in probed["rows"]),
+        "ms": chain["kernel_ms"],
+        "plain_ms": chain["plain_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(gpu)

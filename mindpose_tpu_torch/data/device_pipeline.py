@@ -1,0 +1,80 @@
+"""On-device input pipeline: normalize + target encode inside the train step.
+
+Counterpart of mindpose_tpu/data/device_pipeline.py for ``device_pipeline:
+true`` on the top-down path: host workers stop at the affine crop, and raw
+uint8-range crops with post-affine keypoints go to the device, where the
+train step normalizes them and renders the Gaussian targets
+(``ops/target.py``). The model takes NCHW, so the preprocess returns the
+image NCHW; targets are NCHW too.
+"""
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from ..ops.image import normalize_image
+from ..ops.target import generate_topdown_targets
+
+__all__ = ["strip_host_target_transform", "build_topdown_preprocess"]
+
+
+def strip_host_target_transform(
+    transforms: List[Any],
+) -> Tuple[List[Any], Dict[str, Any]]:
+    """Remove the host target-encode transform from the list.
+
+    Returns its kwargs; for the SimCC / regression variants a
+    ``target_type`` marker is added so build_topdown_preprocess renders bin
+    labels / normalized coordinates instead of heatmaps.
+    """
+    kept = []
+    target_kwargs: Dict[str, Any] = {}
+    for t in transforms:
+        name = t if isinstance(t, str) else list(t.keys())[0]
+        if name == "topdown_generate_target":
+            if isinstance(t, dict):
+                target_kwargs = dict(list(t.values())[0] or {})
+            continue
+        if name == "topdown_generate_simcc_target":
+            if isinstance(t, dict):
+                target_kwargs = dict(list(t.values())[0] or {})
+            target_kwargs["target_type"] = "simcc"
+            continue
+        if name == "topdown_generate_regression_target":
+            if isinstance(t, dict):
+                target_kwargs = dict(list(t.values())[0] or {})
+            target_kwargs["target_type"] = "regression"
+            continue
+        kept.append(t)
+    return kept, target_kwargs
+
+
+def build_topdown_preprocess(
+    image_size,
+    heatmap_size,
+    normalize_mean,
+    normalize_std,
+    sigma: float = 2.0,
+    use_udp: bool = False,
+    target_type: str = "heatmap",
+) -> Callable:
+    """Preprocess for build_train_step: (image [N, H, W, 3] uint8-range,
+    keypoints [N, K, 3]) -> (normalized image [N, 3, H, W] float32,
+    target [N, K, h, w], target_weight [N, K]).
+
+    Only ``target_type="heatmap"`` is ported; SimCC and regression targets
+    come with their heads (ROADMAP Queue 1 #7).
+    """
+    if target_type != "heatmap":
+        raise NotImplementedError(
+            f"target_type={target_type!r} is not ported yet (ROADMAP Queue 1 #7: SimCC and RLE)")
+    mean, std = tuple(normalize_mean), tuple(normalize_std)
+    hm = (int(heatmap_size[0]), int(heatmap_size[1]))
+    im = (int(image_size[0]), int(image_size[1]))
+
+    def preprocess(image: torch.Tensor, keypoints: torch.Tensor):
+        image = normalize_image(image, mean, std).permute(0, 3, 1, 2).contiguous()
+        target, weight = generate_topdown_targets(
+            keypoints, heatmap_size=hm, image_size=im, sigma=sigma, use_udp=use_udp)
+        return image, target, weight
+
+    return preprocess

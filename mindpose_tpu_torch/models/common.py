@@ -43,9 +43,14 @@ def conv1x1(in_channels: int, out_channels: int, stride: int = 1) -> nn.Conv2d:
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's semantics: eps 1e-5, running = 0.9 * running + 0.1 * batch.
 
-    Eval mode is torch's. Train mode updates ``running_var`` with the
-    biased batch variance E[x^2] - E[x]^2, as flax does, where torch would
-    use the unbiased one. (Flax momentum 0.9 is torch momentum 0.1.)
+    Eval mode is torch's. Train mode follows flax ``nn.BatchNorm`` with a
+    compute dtype: the statistics E[x], E[x^2] - E[x]^2 (the biased
+    variance, where torch would use the unbiased one; clamped at 0) and the
+    normalization are taken in ``x.dtype`` promoted to at least float32
+    (float64 stays float64), and only the output is cast back to
+    ``x.dtype``. bf16 statistics would lose a channel's variance whenever it
+    is small against its mean. The running statistics keep their own dtype.
+    (Flax momentum 0.9 is torch momentum 0.1.)
     """
 
     def __init__(self, num_features: int) -> None:
@@ -54,14 +59,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            # flax's order of operations: 0.9 * running + 0.1 * batch
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked += 1
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        return x * inv[None, :, None, None] + (self.bias - mean * inv)[None, :, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype)
 
 
 def resize_nearest(x: torch.Tensor, height: int, width: int) -> torch.Tensor:

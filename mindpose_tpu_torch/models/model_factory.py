@@ -1,20 +1,22 @@
 """Model factories: create_* entry points resolving registry names.
 
 Counterpart of mindpose_tpu/models/model_factory.py for what the top-down
-serving path uses. The factory wires ``backbone.out_channels`` into the head's
-input width. Necks, losses and ``create_network_with_loss`` are not ported yet.
+top-down path uses. The factory wires ``backbone.out_channels`` into the
+head's input width. Necks are not ported yet.
 """
 from typing import Any, Dict, Optional
 
 from ..register import entrypoint
-from .networks import EvalNet, Net
+from .networks import EvalNet, Net, NetWithLoss
 
 __all__ = [
     "create_backbone",
     "create_head",
     "create_decoder",
+    "create_loss",
     "create_network",
     "create_eval_network",
+    "create_network_with_loss",
 ]
 
 
@@ -32,6 +34,10 @@ def create_head(name: str, in_channels: int, num_joints: int = 17, **kwargs: Any
 
 def create_decoder(name: str, **kwargs: Any):
     return entrypoint("decoder", name)(**kwargs)
+
+
+def create_loss(name: str, **kwargs: Any):
+    return entrypoint("loss", name)(**kwargs)
 
 
 def create_network(
@@ -62,3 +68,7 @@ def create_network(
 
 def create_eval_network(net: Net, decoder: Any, output_raw: bool = True) -> EvalNet:
     return EvalNet(net=net, decoder=decoder, output_raw=output_raw)
+
+
+def create_network_with_loss(net: Net, loss: Any, has_extra_inputs: bool = False) -> NetWithLoss:
+    return NetWithLoss(net=net, loss=loss, has_extra_inputs=has_extra_inputs)

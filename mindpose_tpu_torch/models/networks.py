@@ -1,8 +1,8 @@
-"""Network composition: Net and EvalNet.
+"""Network composition: Net, EvalNet and NetWithLoss.
 
 Counterpart of mindpose_tpu/models/networks.py. ``Net`` (backbone -> neck?
--> head) owns the parameters; ``EvalNet`` runs it in eval mode and decodes.
-``NetWithLoss`` is not ported yet (training comes in a later slice).
+-> head) owns the parameters; ``EvalNet`` runs it in eval mode and decodes;
+``NetWithLoss`` runs it in train mode and takes the loss.
 """
 from typing import Any, Optional
 
@@ -46,3 +46,30 @@ class EvalNet:
         if self.output_raw:
             return result, x
         return result
+
+
+class NetWithLoss(nn.Module):
+    """Train-mode forward + loss: ``net_with_loss(data, label, *extra)``.
+
+    Returns the loss as a 1-D vector (one entry per loss component), as the
+    JAX package's train step sees it. The BatchNorm running statistics update
+    in place during the forward, where the JAX package returns them.
+    """
+
+    def __init__(self, net: Net, loss: Any, has_extra_inputs: bool = False) -> None:
+        super().__init__()
+        self.net = net
+        self.loss = loss
+        self.has_extra_inputs = has_extra_inputs
+
+    def forward(self, data: torch.Tensor, label: torch.Tensor,
+                *extra_inputs: torch.Tensor) -> torch.Tensor:
+        if not self.net.training:
+            # EvalNet may have put the shared net in eval mode
+            self.net.train()
+        out = self.net(data)
+        if self.has_extra_inputs:
+            loss = self.loss(out, label, *extra_inputs)
+        else:
+            loss = self.loss(out, label)
+        return torch.atleast_1d(loss)

@@ -169,3 +169,94 @@ def test_eval_net_runs_eval_mode_and_returns_the_raw_heatmap(pair):
     with torch.no_grad():
         np.testing.assert_array_equal(heat.numpy(), port(image).numpy())
     assert preds.shape == (n, 17, 3) and boxes.shape == (n, 6)
+
+
+@pytest.mark.parametrize("case", ["normal", "large_mean"])
+def test_bf16_train_batch_norm_matches_flax(case):
+    """Train-mode BN on bf16 input: float32 statistics, bf16 output, as flax.
+
+    ``large_mean`` is x = 10 + 0.1 N(0, 1): statistics taken in bf16 read
+    variance 0 there. Tolerances: the output is float32 arithmetic rounded
+    to bf16 on both sides, and the two sum in different orders, so an
+    element may round to the neighbouring bf16 value (one ulp). The running
+    variance E[x^2] - E[x]^2 cancels E[x^2] ~ 100 down to ~0.01, so it agrees
+    to a few float32 ulps of E[x^2], not of the variance.
+    """
+    from flax import linen as fnn
+
+    from mindpose_tpu_torch.models.common import BatchNorm2d
+
+    rng = np.random.RandomState(3)
+    x = rng.standard_normal((4, 8, 8, 3)).astype(np.float32)  # NHWC
+    if case == "large_mean":
+        x = 10.0 + 0.1 * x
+    else:
+        x = 0.5 + 2.0 * x
+    scale = rng.uniform(0.5, 1.5, 3).astype(np.float32)
+    bias = (0.2 * rng.standard_normal(3)).astype(np.float32)
+    ra_mean = (0.2 * rng.standard_normal(3)).astype(np.float32)
+    ra_var = rng.uniform(0.5, 1.5, 3).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
+                       dtype=jnp.bfloat16)
+    variables = {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+                 "batch_stats": {"mean": jnp.asarray(ra_mean), "var": jnp.asarray(ra_var)}}
+    want, updates = bn.apply(variables, xb, mutable=["batch_stats"])
+    assert want.dtype == jnp.bfloat16
+
+    port = BatchNorm2d(3).train()
+    with torch.no_grad():
+        port.weight.copy_(torch.from_numpy(scale))
+        port.bias.copy_(torch.from_numpy(bias))
+        port.running_mean.copy_(torch.from_numpy(ra_mean))
+        port.running_var.copy_(torch.from_numpy(ra_var))
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).permute(0, 3, 1, 2).bfloat16()
+    got = port(xt)
+    assert got.dtype == torch.bfloat16
+
+    got_f = got.float().permute(0, 2, 3, 1).detach().numpy()
+    want_f = np.asarray(want.astype(jnp.float32))
+    ulp = np.maximum(np.abs(want_f), np.abs(got_f))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(ulp, 1e-30))) - 7)  # bf16: 8 significand bits
+    assert np.all(np.abs(got_f - want_f) <= ulp)
+
+    stats = updates["batch_stats"]
+    np.testing.assert_allclose(port.running_mean.numpy(), np.asarray(stats["mean"]),
+                               rtol=1e-6, atol=1e-7)
+    x2 = float(np.mean(np.square(np.asarray(xb.astype(jnp.float32)))))
+    np.testing.assert_allclose(port.running_var.numpy(), np.asarray(stats["var"]),
+                               rtol=0, atol=0.1 * 8 * np.finfo(np.float32).eps * x2)
+    # the batch variance really is there: bf16 statistics would read 0
+    batch_var = (port.running_var.numpy() - 0.9 * ra_var) / 0.1
+    assert np.all(batch_var > 0.005 if case == "large_mean" else batch_var > 1.0)
+
+
+@pytest.mark.parametrize("case", ["normal", "large_mean"])
+def test_float64_train_batch_norm_stays_float64(case):
+    """Train-mode BN on a float64 net takes its statistics in float64, as
+    flax does (statistics in ``promote_types(float32, x.dtype)``): the
+    output and running statistics agree with numpy's float64 to 1e-12,
+    where float32 statistics would be off by ~1e-6 (``large_mean`` cancels
+    E[x^2] ~ 100 down to a variance of ~0.01)."""
+    from mindpose_tpu_torch.models.common import BatchNorm2d
+
+    rng = np.random.RandomState(4)
+    x = rng.standard_normal((4, 3, 8, 8))  # NCHW, float64
+    x = 10.0 + 0.1 * x if case == "large_mean" else 0.5 + 2.0 * x
+    scale = rng.uniform(0.5, 1.5, 3)
+    bias = 0.2 * rng.standard_normal(3)
+    port = BatchNorm2d(3).double().train()
+    with torch.no_grad():
+        port.weight.copy_(torch.from_numpy(scale))
+        port.bias.copy_(torch.from_numpy(bias))
+    got = port(torch.from_numpy(x))
+    assert got.dtype == torch.float64 and port.running_var.dtype == torch.float64
+
+    mean = x.mean(axis=(0, 2, 3))
+    var = (x * x).mean(axis=(0, 2, 3)) - mean * mean
+    want = ((x - mean[None, :, None, None]) * (scale / np.sqrt(var + 1e-5))[None, :, None, None]
+            + bias[None, :, None, None])
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(port.running_mean.numpy(), 0.1 * mean, rtol=1e-14)
+    np.testing.assert_allclose(port.running_var.numpy(), 0.9 + 0.1 * var, rtol=1e-14)

@@ -12,7 +12,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mindpose_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "profile_serving.py")]
+    files = [os.path.join(ROOT, name) for name in
+             ("chip_smoke.py", "profile_serving.py", "profile_train.py", "grad_precision.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "mindpose_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
