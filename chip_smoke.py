@@ -19,11 +19,14 @@ no result, when there is no CUDA device or when any phase fails:
    counts show that the path went through them;
 5. the 5-box request on the GPU, in the full float32 the predictor serves
    in, against the same port on the CPU;
-6. the conv chain kernel against its plain version (cuDNN) on the GPU, in
-   float32 at depths 1-8 and in bf16 at depth 1, within stated bounds;
+6. the conv chain's two kernels against their plain version (cuDNN) on the
+   GPU, within stated bounds: float32 (CUDA cores) at depths 1-8; bf16
+   (tensor cores) at depths 1-8 and C 4-64, each chain also bit for bit
+   equal whatever number of layers a launch fuses; bf16 at depth 1 within
+   one ulp;
 7. the conv chain's own entry point, the go/no-go probe
    (``tools/ablate_conv_chain.py``), at its three bf16 geometries: both
-   times, and the kernel's launch count on that run;
+   device times, and the launch counts on that run, all on the tensor cores;
 8. the train step of hrnet_w32_tpu.yaml (adamw, warmup multi-step schedule,
    O2) on HRNet-W32 at full width, batch 128 of synthetic crops: 3 warm-up
    and 20 timed steps, img/s, step times, peak memory, finite losses;
@@ -57,7 +60,14 @@ from mindpose_tpu_torch.data.transform import box_to_center_scale
 from mindpose_tpu_torch.engine import TopDownPredictor
 from mindpose_tpu_torch.models import create_loss, create_network, create_network_with_loss
 from mindpose_tpu_torch.ops.cuda.build import load_library
-from mindpose_tpu_torch.ops.cuda.conv_chain import conv_chain_plain, fused_conv_chain
+from mindpose_tpu_torch.ops.cuda.conv_chain import (
+    _launch as conv_chain_launch,
+    conv_chain_plain,
+    FUSED_LAYERS,
+    fused_conv_chain,
+    smem_bytes,
+    split_layers,
+)
 from mindpose_tpu_torch.ops.cuda.decode import argmax_shift_decode, argmax_shift_decode_plain
 from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
@@ -119,6 +129,8 @@ SEED = 0
 # for a 2-block-per-branch HRNet-W32)
 HEATMAP_RTOL = 2e-5
 REPEATS = 20  # timed runs of each request
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
+MAX_SMEM_PER_BLOCK = 232448  # Hopper, 227 KB
 KERNEL_SOURCES = ("decode", "conv_chain")
 PROBE_ITERS = 5  # chains per timing in the probe (each is 1-100 ms)
 TRAIN_WARMUP_STEPS = 3
@@ -249,7 +261,13 @@ def check_decode(device: torch.device) -> dict:
                       f"kernel {kernel:.5f} ms, plain {plain:.5f} ms")
     shift = HRNET_W32["decoder_setting"]["shift_coordinate"]
     kernel_ms, plain_ms = times[(BATCH_SIZE, shift, True)]
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+    # the least time: one read of the float32 heatmaps and one write of the
+    # coordinates and maxima; the argmax's compares are far below the bytes
+    rows = BATCH_SIZE * 17
+    bound_ms = 4 * (rows * 64 * 48 + rows * 3) / HBM_BYTES_PER_MS
+    print(f"decode [{BATCH_SIZE},17,64,48] bound (HBM bytes): {bound_ms:.5f} ms; kernel at "
+          f"{bound_ms / kernel_ms:.3f} of it")
+    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def build_kernels() -> None:
@@ -329,6 +347,81 @@ def check_conv_chain(device: torch.device) -> None:
             if not bool(ok.all()):
                 raise AssertionError(f"conv chain bf16 C{c} {h}x{w}: differs by more than one ulp")
 
+    check_bf16_chains(device, rng)
+
+
+def bf16_chain_cases(rng: np.random.RandomState):
+    """(name, x, weights) bf16 cases of the tensor-core kernel: depths 1-8 at
+    C 4, 8, 16, 32, 64, on sizes that are smaller than its 16x16 tile, ragged,
+    one tile, and the probe's 64x48. He-scaled weights of random sign, as in
+    the float32 cases."""
+    for c in (4, 8, 16, 32, 64):
+        for h, w in ((1, 1), (3, 5), (16, 16), (65, 49), (64, 48)):
+            for depth in range(1, 9):
+                x = rng.randn(2, h, w, c)
+                ws = rng.randn(depth, 3, 3, c, c) * np.sqrt(2.0 / (9 * c))
+                yield f"C{c} {h}x{w} L{depth}", x, ws
+
+
+def check_bf16_chains(device: torch.device, rng: np.random.RandomState) -> None:
+    """Phase 6, bf16: the tensor-core kernel against cuDNN, depths 1-8.
+
+    Both sum each layer in float32 and round once to bf16, in different
+    orders, so after a layer an element may sit on the neighbouring bf16
+    value: one ulp. A bf16 ulp at |v| is 2^(floor(log2|v|) - 7), between
+    2^-8 and 2^-7 of |v|; at most one ulp of the largest output m is
+    ulp(m) <= 2^-7 m. The He-scaled next layer carries such a difference on
+    at the activations' scale and adds its own, so over L layers
+    max|diff| <= L * ulp(m), m = max(max|kernel|, max|plain|). A float32
+    sum that lies within rounding of 0 may be cut by the ReLU on one side
+    only, so the float32 order bound 9 * C * L * eps * m is added as a floor.
+    The worst max|diff| is also printed in units of L * 2^-8 * m.
+
+    Each chain must count one tensor-core launch, and the kernel fusing 1, 2
+    or 4 layers per launch (each that fits shared memory) must give the same
+    bits: every output pixel sums its taps and channels in one order whatever
+    the grouping, and a pixel outside the image is 0 between fused layers as
+    between launches. An input whose base is not 16 B aligned, which the
+    kernel stages without TMA, must give the bits of an aligned copy.
+    """
+    eps = torch.finfo(torch.float32).eps
+    worst = {}
+    for name, x_np, ws_np in bf16_chain_cases(rng):
+        x = torch.from_numpy(x_np.astype(np.float32)).to(device).bfloat16()
+        ws = torch.from_numpy(ws_np.astype(np.float32)).to(device).bfloat16()
+        depth, c = ws.shape[0], ws.shape[-1]
+        tensor_core = fused_conv_chain.tensor_core_launches
+        out = fused_conv_chain(x, ws)
+        if fused_conv_chain.tensor_core_launches != tensor_core + 1:
+            raise AssertionError(f"conv chain bf16 {name} did not run on the tensor cores")
+        for g in (1, 2, 4):
+            if smem_bytes(torch.bfloat16, c, g) <= MAX_SMEM_PER_BLOCK:
+                other = conv_chain_launch(x, ws, split_layers(depth, g))
+                if not torch.equal(other, out):
+                    raise AssertionError(f"conv chain bf16 {name}: {g} layers per launch "
+                                         f"differ from {FUSED_LAYERS}")
+        kernel = out.float()
+        plain = conv_chain_plain(x, ws).float()
+        err = float((kernel - plain).abs().max())
+        m = max(float(kernel.abs().max()), float(plain.abs().max()))
+        bound = depth * float(bf16_ulp(torch.tensor(m))) + 9 * c * depth * eps * m
+        key = f"C{c}"
+        worst[key] = max(worst.get(key, 0.0), err / max(depth * 2.0**-8 * m, 1e-30))
+        if not (err <= bound and bool(torch.isfinite(kernel).all())):
+            raise AssertionError(f"conv chain bf16 {name}: max|diff| {err:.3e} > bound {bound:.3e}")
+    # a base that is not 16 B aligned: the kernel stages and stores without TMA
+    flat = torch.from_numpy(rng.randn(2 * 64 * 48 * 32 + 1).astype(np.float32)).to(device)
+    x = flat.bfloat16()[1:].view(2, 64, 48, 32)
+    ws = torch.from_numpy((rng.randn(3, 3, 3, 32, 32) * np.sqrt(2.0 / (9 * 32))).astype(
+        np.float32)).to(device).bfloat16()
+    if not torch.equal(fused_conv_chain(x, ws), fused_conv_chain(x.clone(), ws)):
+        raise AssertionError("conv chain bf16: an unaligned input gives other bits than an aligned one")
+    print("conv chain bf16 C32 64x48 L3 from an unaligned base: bit for bit equal to the aligned run")
+    for key, ratio in worst.items():
+        print(f"conv chain bf16 {key} depths 1-8, 5 sizes: worst max|diff| = {ratio:.3f} x "
+              f"L*2^-8*max|out| (bound L ulp(max|out|) <= 2 of these); every grouping bit for bit "
+              f"equal; every chain on the tensor cores")
+
 
 def drive_probe(device: torch.device) -> dict:
     """Phase 7: the probe's own run at its three geometries, bf16, depth 8.
@@ -342,16 +435,22 @@ def drive_probe(device: torch.device) -> dict:
     bound = probe.DEPTH * 2.0**-9
     rng = np.random.RandomState(0)
     fused_conv_chain.launches = 0
+    fused_conv_chain.tensor_core_launches = 0
     rows = [probe.run(*g, rng=rng, iters=PROBE_ITERS, device=device) for g in probe.GEOMETRIES]
     launches = fused_conv_chain.launches
-    print(f"conv chain kernel launches on the probe's path: {launches}")
+    tensor_core = fused_conv_chain.tensor_core_launches
+    print(f"conv chain kernel launches on the probe's path: {launches}, of them on the tensor "
+          f"cores: {tensor_core}")
     for row in rows:
         if not (row["finite"] and row["reldiff"] <= bound):
             raise AssertionError(f"probe {row['tag']}: reldiff {row['reldiff']:.3e} > {bound:.3e}")
     print(f"probe reldiff within {bound:.4e} at every geometry")
     if launches == 0:
         raise AssertionError("the probe launched no conv chain kernel")
-    return {"launches": launches, "rows": rows}
+    if tensor_core != launches:
+        raise AssertionError(f"{launches - tensor_core} of the probe's chains did not run on "
+                             f"the tensor cores")
+    return {"launches": launches, "tensor_core_launches": tensor_core, "rows": rows}
 
 
 def random_weights_(net: nn.Module, device: torch.device) -> None:
@@ -808,16 +907,25 @@ def main() -> int:
         "max_abs_err": decode["max_abs_err"],
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"],
+        "bound_by": "bytes",
+        # no one PyTorch call computes the argmax with its quarter-pixel shift
+        "library_ms": None,
     }, {
         "name": "fused_conv_chain",
         "route": "cuda",
         "source": "mindpose_tpu_torch/csrc/conv_chain.cu",
         "replaces": "mindpose_tpu/ops/pallas/conv_chain.py:36",
         "launches": probed["launches"],
+        "tensor_core_launches": probed["tensor_core_launches"],
         "max_abs_err": max(r["max_abs_diff"] for r in probed["rows"]),
         "max_rel_err": max(r["reldiff"] for r in probed["rows"]),
-        "ms": chain["kernel_ms"],
-        "plain_ms": chain["plain_ms"],
+        "ms": chain["kernel_device_ms"],
+        "plain_ms": chain["plain_device_ms"],
+        "bound_ms": chain["bound_ms"],
+        "bound_by": chain["bound_by"],
+        # the plain version is the library's: cuDNN's conv per layer, then ReLU
+        "library_ms": chain["plain_device_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(gpu)

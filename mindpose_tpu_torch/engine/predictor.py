@@ -34,7 +34,9 @@ class TopDownPredictor:
             that XLA never recompiles, and eval-mode rows are independent, so
             padding would change nothing here but the work done.
         quantize: only "" (float32); int8 weights are not ported yet.
-        device: where crop, forward and decode run (default: the net's).
+        device: where crop, forward and decode run. Default: the current
+            CUDA device; without CUDA the default raises, and a caller who
+            wants the CPU passes ``device="cpu"``.
 
     The predictor serves in full float32, as the configs state. PyTorch lets
     cuDNN run float32 convolutions in TF32 by default, so on a CUDA device
@@ -58,7 +60,12 @@ class TopDownPredictor:
             raise NotImplementedError(f"quantize={quantize!r} is not ported yet")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        self.device = torch.device(device) if device is not None else next(net.parameters()).device
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("TopDownPredictor serves on the GPU by default, and CUDA is "
+                                   "not available; pass device='cpu' to serve on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
         self.batch_size = batch_size
         self.mean = tuple(normalize_mean)
         self.std = tuple(normalize_std)

@@ -15,7 +15,12 @@ import torch
 
 from mindpose_tpu.ops.pallas.conv_chain import fused_conv_chain as jax_fused_conv_chain
 from mindpose_tpu.ops.pallas.conv_chain import xla_conv_chain
-from mindpose_tpu_torch.ops.cuda.conv_chain import conv_chain_plain, fused_conv_chain
+from mindpose_tpu_torch.ops.cuda.conv_chain import (
+    conv_chain_plain,
+    conv_chain_route,
+    fused_conv_chain,
+    split_layers,
+)
 
 
 def _inputs(b, h, w, c, depth):
@@ -69,6 +74,71 @@ def test_bf16_matches_xla():
     assert np.abs(got.float().numpy() - want).max() <= 3 * 2.0**-8 * scale
 
 
+def test_bf16_c64_matches_xla():
+    """bf16 at C=64, the widest chain the tensor-core route takes; depth 2,
+    He-scaled weights of random sign. Bound as in ``test_bf16_matches_xla``:
+    one bf16 ulp of the largest output per layer, 2 * 2^-8 * max|xla|, with
+    the ulp's upper end 2^-7 of a value allowed for the one element that may
+    sit in the top binade."""
+    rng = np.random.RandomState(1)
+    x = rng.randn(1, 9, 7, 64).astype(np.float32)
+    ws = (rng.randn(2, 3, 3, 64, 64) * np.sqrt(2.0 / (9 * 64))).astype(np.float32)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(ws, jnp.bfloat16)
+    want = np.asarray(xla_conv_chain(xb, wb).astype(jnp.float32))
+    got = fused_conv_chain(torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16(),
+                           torch.from_numpy(np.array(wb.astype(jnp.float32))).bfloat16())
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 9, 7, 64)
+    scale = np.abs(want).max()
+    assert scale > 0.5
+    assert np.abs(got.float().numpy() - want).max() <= 2 * 2.0**-7 * scale
+
+
+@pytest.mark.parametrize("dtype,channels,route", [
+    (torch.float32, 1, "cuda_core"),
+    (torch.float32, 32, "cuda_core"),
+    (torch.float32, 128, "cuda_core"),
+    (torch.bfloat16, 1, "tensor_core"),
+    (torch.bfloat16, 4, "tensor_core"),
+    (torch.bfloat16, 17, "tensor_core"),
+    (torch.bfloat16, 32, "tensor_core"),
+    (torch.bfloat16, 64, "tensor_core"),
+])
+def test_route_is_chosen_by_dtype(dtype, channels, route):
+    assert conv_chain_route(dtype, channels) == route
+
+
+@pytest.mark.parametrize("dtype,channels", [
+    (torch.bfloat16, 65), (torch.bfloat16, 128), (torch.bfloat16, 0), (torch.float16, 32)])
+def test_route_refuses(dtype, channels):
+    with pytest.raises(ValueError):
+        conv_chain_route(dtype, channels)
+
+
+def test_wide_bf16_chain_raises_on_every_device():
+    # the route is checked before the device: a CPU call refuses what the GPU would
+    with pytest.raises(ValueError, match="C <= 64"):
+        fused_conv_chain(torch.zeros(1, 4, 4, 65, dtype=torch.bfloat16),
+                         torch.zeros(1, 3, 3, 65, 65, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("depth", range(1, 10))
+@pytest.mark.parametrize("group", [1, 2, 3, 4])
+def test_split_layers_covers_the_chain_in_order(depth, group):
+    groups = split_layers(depth, group)
+    firsts = np.cumsum((0,) + groups[:-1])
+    # launch k runs layers firsts[k] .. firsts[k] + groups[k] - 1: together 0..L-1, in order
+    layers = [layer for f, n in zip(firsts, groups) for layer in range(f, f + n)]
+    assert layers == list(range(depth))
+    assert all(n == group for n in groups[:-1]) and 1 <= groups[-1] <= group
+
+
+def test_split_layers_refuses_empty_groups():
+    with pytest.raises(ValueError):
+        split_layers(0, 2)
+    with pytest.raises(ValueError):
+        split_layers(4, 0)
+
+
 def test_plain_version_is_the_cpu_path():
     x, ws = _inputs(1, 5, 6, 4, 2)
     xt, wt = torch.from_numpy(x), torch.from_numpy(ws)
@@ -104,3 +174,14 @@ def test_probe_imports_on_the_cpu_and_refuses_to_time_it():
     assert probe.DEFAULT_OUT.parent.name == "chiprun_out"
     with pytest.raises(ValueError, match="CUDA"):
         probe.run("cpu", 1, 4, 4, 4, np.random.RandomState(0), device=torch.device("cpu"))
+
+
+def test_probe_bound_is_the_chains_compute():
+    from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+
+    # depth 8, C=32: 57.98 GFLOP at 989 TFLOP/s; one pass over 25.17 MB each way takes a quarter
+    for geometry, want in (((128, 64, 48, 32), 0.0586), ((24, 128, 128, 32), 0.0586),
+                           ((24, 256, 256, 32), 0.2345)):
+        ms, by = probe.bound(*geometry)
+        assert by == "operations" and abs(ms - want) < 5e-5
+    assert probe.bound(1, 64, 48, 1, depth=1)[1] == "bytes"

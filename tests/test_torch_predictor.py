@@ -82,7 +82,8 @@ def test_predictor_matches_the_jax_composition(pair, decoder_setting):  # noqa: 
     image, boxes = _request()
     want, heat = _jax_composition(jax_net, variables, image, boxes, decoder_setting)
 
-    predictor = TopDownPredictor(port, SETTING, decoder_setting, MEAN, STD, batch_size=2)
+    predictor = TopDownPredictor(port, SETTING, decoder_setting, MEAN, STD, batch_size=2,
+                                 device=torch.device("cpu"))
     got = predictor(image, boxes)
     assert got.shape == (5, 17, 3)
 
@@ -98,7 +99,8 @@ def test_crops_and_keypoints_near_the_cv2_predictor(pair):  # noqa: F811
     jax_predictor = JaxTopDownPredictor(jax_net, variables, dataset_setting=SETTING,
                                         decoder_setting={"shift_coordinate": True}, batch_size=4)
     want = jax_predictor(image, boxes)
-    predictor = TopDownPredictor(port, SETTING, {"shift_coordinate": True}, MEAN, STD)
+    predictor = TopDownPredictor(port, SETTING, {"shift_coordinate": True}, MEAN, STD,
+                                 device=torch.device("cpu"))
     got = predictor(image, boxes)
 
     crops, centers, scales = predictor.preprocess(image, boxes)
@@ -117,3 +119,12 @@ def test_crops_and_keypoints_near_the_cv2_predictor(pair):  # noqa: F811
     dist = np.linalg.norm(got[..., :2] - want[..., :2], axis=-1)
     assert np.median(dist) < 0.1
     assert np.abs(got[..., 2] - want[..., 2]).mean() < 0.5 * np.abs(want[..., 2]).mean()
+
+
+def test_default_device_is_the_gpu_and_raises_without_cuda(pair, monkeypatch):  # noqa: F811
+    # an entry point runs on the card unless the caller asks for the CPU
+    port = pair[2]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TopDownPredictor(port, SETTING)
+    assert TopDownPredictor(port, SETTING, device="cpu").device == torch.device("cpu")

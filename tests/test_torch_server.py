@@ -31,7 +31,8 @@ SETTING = {
 @pytest.fixture(scope="module")
 def server():
     torch.manual_seed(0)
-    predictor = TopDownPredictor(Net(HRNet(CFG), HRNetHead(8, 17)), SETTING, batch_size=4)
+    predictor = TopDownPredictor(Net(HRNet(CFG), HRNetHead(8, 17)), SETTING, batch_size=4,
+                                 device=torch.device("cpu"))
     service = PoseService(predictor, mode="topdown", num_joints=17)
     httpd, port = build_http_server(service, port=0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
