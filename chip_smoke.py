@@ -11,8 +11,14 @@ no result, when there is no CUDA device or when any phase fails:
 
 1. the GPU's name and power limit (nvidia-smi);
 2. build every kernel of the path from csrc/ (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the GPU, bitwise, on
-   random heatmaps at the path's shapes and on planted cases; both timed;
+3. the decode kernel, through both its wrappers, against their plain
+   PyTorch versions on the GPU, bitwise, on random heatmaps at the path's
+   shapes (also from an unaligned base) and on planted cases, shift off and
+   on, the whole decoder with its back-projection off, on and on with UDP;
+   then timed: the kernel warm and cold in L2, its launch floor,
+   ``torch.max(dim=1)`` as the library call, the decoder per chunk through
+   the kernel against the plain composition, and the device operations of
+   one decoder call under torch.profiler (must be 1);
 4. the slice: HRNet-W32 + hrnet_head at full width (random weights from a
    numpy seed) behind ``TopDownPredictor`` with hrnet_w32_tpu.yaml's
    settings, answering requests of 1, 5 and 40 boxes; the kernels' launch
@@ -41,6 +47,7 @@ The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import copy
+import itertools
 import json
 from concurrent.futures import ThreadPoolExecutor
 import statistics
@@ -51,6 +58,7 @@ import time
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import ProfilerActivity, profile
 
 from mindpose_tpu_torch.data.device_pipeline import (
     build_topdown_preprocess,
@@ -58,7 +66,12 @@ from mindpose_tpu_torch.data.device_pipeline import (
 )
 from mindpose_tpu_torch.data.transform import box_to_center_scale
 from mindpose_tpu_torch.engine import TopDownPredictor
-from mindpose_tpu_torch.models import create_loss, create_network, create_network_with_loss
+from mindpose_tpu_torch.models import (
+    create_decoder,
+    create_loss,
+    create_network,
+    create_network_with_loss,
+)
 from mindpose_tpu_torch.ops.cuda.build import load_library
 from mindpose_tpu_torch.ops.cuda.conv_chain import (
     _launch as conv_chain_launch,
@@ -68,7 +81,12 @@ from mindpose_tpu_torch.ops.cuda.conv_chain import (
     smem_bytes,
     split_layers,
 )
-from mindpose_tpu_torch.ops.cuda.decode import argmax_shift_decode, argmax_shift_decode_plain
+from mindpose_tpu_torch.ops.cuda.decode import (
+    argmax_shift_decode,
+    argmax_shift_decode_plain,
+    decode_heatmap,
+    decode_heatmap_plain,
+)
 from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
@@ -132,6 +150,12 @@ REPEATS = 20  # timed runs of each request
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
 MAX_SMEM_PER_BLOCK = 232448  # Hopper, 227 KB
 KERNEL_SOURCES = ("decode", "conv_chain")
+# the decoder's back-projection settings held bitwise to the plain version
+DECODE_MODES = (("to_original off", {"to_original": False, "use_udp": False}),
+                ("to_original on", {"to_original": True, "use_udp": False}),
+                ("to_original on, UDP", {"to_original": True, "use_udp": True}))
+COLD_HEATMAPS = 16  # heatmaps the cold-L2 timing rotates over (> 50 MB at 32 crops)
+PLAIN_ITERS = 20  # queued calls per timing of a plain composition (tens of kernels each)
 PROBE_ITERS = 5  # chains per timing in the probe (each is 1-100 ms)
 TRAIN_WARMUP_STEPS = 3
 TRAIN_TIMED_STEPS = 20
@@ -231,43 +255,156 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32))
 
 
-def check_decode(device: torch.device) -> dict:
-    """Phase 3: the decode kernel equals its plain version bitwise; both timed."""
-    rng = np.random.RandomState(SEED)
+def on_device(hm: np.ndarray, device: torch.device, offset: int = 0) -> torch.Tensor:
+    """``hm`` as float32 on ``device``; with ``offset``, a contiguous view that
+    many floats into a larger buffer, so not 16 B aligned (the scalar loads)."""
+    flat = torch.from_numpy(np.ascontiguousarray(hm, np.float32).ravel()).to(device)
+    buf = torch.zeros(flat.numel() + offset, device=device)
+    buf[offset:] = flat
+    return buf[offset:].view(hm.shape)
+
+
+def crop_inputs(rng: np.random.RandomState, n: int, device: torch.device):
+    """Centers (0-2000 px), scales (0.2-3.0) and box scores of ``n`` crops."""
+    arrays = (rng.uniform(0, 2000, (n, 2)), rng.uniform(0.2, 3.0, (n, 2)), rng.uniform(0, 1, n))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays)
+
+
+def check_decode_bitwise(device: torch.device) -> float:
+    """Phase 3: each wrapper of the decode kernel equals its plain version
+    bitwise, on every case, shift off and on, and, for the whole decoder,
+    with the back-projection off, on, and on with UDP. Returns the largest
+    |kernel - plain| over the finite outputs (0 when all are equal)."""
     max_err = 0.0
+    rng = np.random.RandomState(SEED)
+    crop_rng = np.random.RandomState(SEED + 5)
+    pixel_std = HRNET_W32["dataset_setting"]["pixel_std"]
     for name, hm in decode_cases(rng):
-        x = torch.from_numpy(np.ascontiguousarray(hm, np.float32)).to(device)
-        for shift in (False, True):
-            kc, km = argmax_shift_decode(x, shift)
-            pc, pm = argmax_shift_decode_plain(x, shift)
-            torch.cuda.synchronize()
-            equal = bitwise_equal(kc, pc) and bitwise_equal(km, pm)
-            for k, p in ((kc, pc), (km, pm)):
-                finite = k.isfinite() & p.isfinite()
-                max_err = max(max_err, float(torch.where(finite, k - p, 0.0).abs().max()))
-            print(f"decode {name} shift={shift}: bitwise equal {equal}")
-            if not equal:
-                raise AssertionError(f"decode kernel differs from the plain version on {name}")
-    times = {}
-    for n in (32, 128):
+        # the path's chunk also from an unaligned base, through the scalar loads
+        for offset in ((0, 1) if name == f"random {BATCH_SIZE}x17x64x48" else (0,)):
+            x = on_device(hm, device, offset)
+            label = name + (" at an unaligned base" if offset else "")
+            crops = crop_inputs(crop_rng, x.shape[0], device)
+            for shift in (False, True):
+                runs = [("argmax_shift_decode", argmax_shift_decode(x, shift),
+                         argmax_shift_decode_plain(x, shift))]
+                for mode, kw in DECODE_MODES:
+                    kw = dict(kw, shift=shift, pixel_std=pixel_std)
+                    runs.append((f"decode_heatmap {mode}", decode_heatmap(x, *crops, **kw),
+                                 decode_heatmap_plain(x, *crops, **kw)))
+                torch.cuda.synchronize()
+                for what, got, want in runs:
+                    equal = all(bitwise_equal(g, w) for g, w in zip(got, want))
+                    for g, w in zip(got, want):
+                        finite = g.isfinite() & w.isfinite()
+                        max_err = max(max_err, float(torch.where(finite, g - w, 0.0).abs().max()))
+                    print(f"decode {label} shift={shift} {what}: bitwise equal {equal}")
+                    if not equal:
+                        for i, (g, w) in enumerate(zip(got, want)):
+                            bad = (g != w) & ~(g.isnan() & w.isnan())
+                            print(f"  output {i}: {int(bad.sum())} of {g.numel()} differ, first "
+                                  f"at {bad.nonzero()[:3].tolist()}: kernel {g[bad][:3].tolist()}, "
+                                  f"plain {w[bad][:3].tolist()}")
+                        raise AssertionError(f"decode kernel ({what}) differs from the plain "
+                                             f"version on {label}, shift={shift}")
+    return max_err
+
+
+def cycling(fn, inputs):
+    """A call of ``fn`` on the next of ``inputs`` in turn."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(next(it))
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, copies) of one call of ``fn``,
+    from torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def decode_bound_ms(n: int) -> float:
+    """argmax_shift_decode's least time at [n, 17, 64, 48]: one read of the
+    float32 heatmaps and one write of the coordinates and maxima; the
+    argmax's compares are far below the bytes."""
+    rows = n * 17
+    return 4 * (rows * 64 * 48 + rows * 3) / HBM_BYTES_PER_MS
+
+
+def time_decode(device: torch.device) -> dict:
+    """Phase 3, times: all device times with the calls queued (CUDA events),
+    beside the per-call time back to back where it says so.
+
+    The kernel and its plain version warm in L2; the kernel cold in L2,
+    rotating over ``COLD_HEATMAPS`` heatmaps of more than 50 MB together; the
+    launch floor (the kernel on a [1, 1, 1, 1] heatmap, and an empty kernel);
+    ``torch.max(dim=1)``, the one PyTorch call that gives each row's maximum
+    and its first index (the kernel's function at shift off); and the
+    serving decoder per chunk through the kernel against the plain
+    composition. The plain compositions launch tens of small kernels per
+    call, so they are queued ``PLAIN_ITERS`` calls at a time, under the
+    launch queue's depth.
+    """
+    rng = np.random.RandomState(SEED + 6)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    for n in (BATCH_SIZE, 128):
         x = torch.from_numpy(rng.randn(n, 17, 64, 48).astype(np.float32)).to(device)
+        cold = [torch.randn((n, 17, 64, 48), generator=gen, device=device)
+                for _ in range(COLD_HEATMAPS)]
+        bound = decode_bound_ms(n)
         for shift in (False, True):
             for queued in (True, False):
                 kernel = time_ms(lambda: argmax_shift_decode(x, shift), queued)
-                plain = time_ms(lambda: argmax_shift_decode_plain(x, shift), queued)
-                times[(n, shift, queued)] = (kernel, plain)
+                plain = time_ms(lambda: argmax_shift_decode_plain(x, shift), queued,
+                                iters=PLAIN_ITERS if queued else 100)
                 what = "device time" if queued else "per call, back to back"
-                print(f"decode [{n},17,64,48] shift={shift} {what}: "
-                      f"kernel {kernel:.5f} ms, plain {plain:.5f} ms")
-    shift = HRNET_W32["decoder_setting"]["shift_coordinate"]
-    kernel_ms, plain_ms = times[(BATCH_SIZE, shift, True)]
-    # the least time: one read of the float32 heatmaps and one write of the
-    # coordinates and maxima; the argmax's compares are far below the bytes
-    rows = BATCH_SIZE * 17
-    bound_ms = 4 * (rows * 64 * 48 + rows * 3) / HBM_BYTES_PER_MS
-    print(f"decode [{BATCH_SIZE},17,64,48] bound (HBM bytes): {bound_ms:.5f} ms; kernel at "
-          f"{bound_ms / kernel_ms:.3f} of it")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+                print(f"decode [{n},17,64,48] shift={shift} {what}: kernel {kernel:.5f} ms, "
+                      f"plain {plain:.5f} ms")
+                out[(n, shift, queued)] = (kernel, plain)
+            cold_ms = time_ms(cycling(lambda h: argmax_shift_decode(h, shift), cold), True)
+            warm_ms = out[(n, shift, True)][0]
+            print(f"decode [{n},17,64,48] shift={shift} cold in L2 ({COLD_HEATMAPS} heatmaps, "
+                  f"{COLD_HEATMAPS * x.numel() * 4 / 1e6:.1f} MB in turn): kernel {cold_ms:.5f} ms; "
+                  f"bound {bound:.5f} ms (HBM bytes); kernel at {bound / warm_ms:.3f} of it warm, "
+                  f"{bound / cold_ms:.3f} cold")
+            out[(n, shift, "cold")] = cold_ms
+        library = time_ms(lambda: torch.max(x.view(n * 17, 64 * 48), dim=1), True)
+        print(f"decode [{n},17,64,48] library call torch.max(x.view(N*K, H*W), dim=1) device "
+              f"time: {library:.5f} ms (kernel at shift=False {out[(n, False, True)][0]:.5f} ms)")
+        out[(n, "library")] = library
+        del cold
+    one = torch.from_numpy(rng.randn(1, 1, 1, 1).astype(np.float32)).to(device)
+    out["floor"] = time_ms(lambda: argmax_shift_decode(one, False), True)
+    # one block of one thread that returns at once: the cost of a launch alone
+    out["empty"] = time_ms(lambda: torch.cuda._sleep(0), True)
+    print(f"decode launch floor, the kernel on a [1,1,1,1] heatmap, device time: "
+          f"{out['floor']:.5f} ms; an empty kernel (torch.cuda._sleep(0)): {out['empty']:.5f} ms")
+
+    decoder = create_decoder(HRNET_W32["decoder_name"], **HRNET_W32["decoder_setting"])
+    kw = {"shift": decoder.shift_coordinate, "to_original": decoder.to_original,
+          "use_udp": decoder.use_udp, "pixel_std": decoder.pixel_std}
+    x = torch.from_numpy(rng.randn(BATCH_SIZE, 17, 64, 48).astype(np.float32)).to(device)
+    crops = crop_inputs(rng, BATCH_SIZE, device)
+    for queued in (True, False):
+        fused = time_ms(lambda: decoder(x, *crops), queued)
+        plain = time_ms(lambda: decode_heatmap_plain(x, *crops, **kw), queued,
+                        iters=PLAIN_ITERS if queued else 100)
+        what = "device time" if queued else "per call, back to back"
+        print(f"decoder per {BATCH_SIZE}-crop chunk, {what}: through the kernel {fused:.5f} ms, "
+              f"plain composition {plain:.5f} ms")
+        out[("decoder", queued)] = (fused, plain)
+    ops = device_ops(lambda: decoder(x, *crops))
+    plain_ops = device_ops(lambda: decode_heatmap_plain(x, *crops, **kw))
+    print(f"decoder call on a CUDA heatmap under torch.profiler: {len(ops)} device operation(s) "
+          f"{ops}; the plain composition: {len(plain_ops)}")
+    if len(ops) != 1:
+        raise AssertionError(f"one decoder call ran {len(ops)} device operations, not 1: {ops}")
+    out["decoder_ops"] = len(ops)
+    return out
 
 
 def build_kernels() -> None:
@@ -869,7 +1006,8 @@ def main() -> int:
 
     build_kernels()
 
-    decode = check_decode(device)
+    decode_err = check_decode_bitwise(device)
+    decode = time_decode(device)
 
     net = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
                          num_joints=HRNET_W32["num_joints"],
@@ -898,19 +1036,30 @@ def main() -> int:
 
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
     chain = next(r for r in probed["rows"] if r["b"] == HRNET_W32["batch_size"])
+    warm_ms, plain_ms = decode[(BATCH_SIZE, False, True)]
     kernels = [{
         "name": "argmax_shift_decode",
         "route": "cuda",
         "source": "mindpose_tpu_torch/csrc/decode.cu",
         "replaces": "mindpose_tpu/ops/pallas/decode.py:27",
         "launches": served["launches"],
-        "max_abs_err": decode["max_abs_err"],
-        "ms": decode["ms"],
-        "plain_ms": decode["plain_ms"],
-        "bound_ms": decode["bound_ms"],
+        "max_abs_err": decode_err,
+        # [32,17,64,48] as served, shift off (hrnet_w32_tpu.yaml), warm in L2
+        "ms": warm_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": decode_bound_ms(BATCH_SIZE),
         "bound_by": "bytes",
-        # no one PyTorch call computes the argmax with its quarter-pixel shift
-        "library_ms": None,
+        # torch.max(dim=1): each row's maximum and its first index, the
+        # kernel's function at shift off
+        "library_ms": decode[(BATCH_SIZE, "library")],
+        "cold_ms": decode[(BATCH_SIZE, False, "cold")],
+        "floor_ms": decode["floor"],
+        "empty_kernel_ms": decode["empty"],
+        # the serving decoder per chunk, device time: one launch of the
+        # kernel against the plain composition
+        "decoder_ms": decode[("decoder", True)][0],
+        "decoder_plain_ms": decode[("decoder", True)][1],
+        "decoder_device_ops": decode["decoder_ops"],
     }, {
         "name": "fused_conv_chain",
         "route": "cuda",

@@ -1,16 +1,16 @@
 """Top-down heatmap decoder: argmax -> quarter-pixel shift -> original frame.
 
 Counterpart of mindpose_tpu/models/decoders/top_down_decoder.py for NCHW
-heatmaps. The argmax and shift go through ``ops/cuda/decode.argmax_shift_decode``:
-on a CUDA heatmap that is the hand-written kernel, on a CPU heatmap its plain
-PyTorch version. DARK/UDP refinement is not ported yet.
+heatmaps. The whole decode goes through ``ops/cuda/decode.decode_heatmap``:
+on a CUDA heatmap that is one launch of the hand-written kernel per call, on
+a CPU heatmap its plain PyTorch version. DARK/UDP refinement is not ported yet.
 """
 import dataclasses
 from typing import Tuple
 
 import torch
 
-from ...ops.cuda.decode import argmax_shift_decode
+from ...ops.cuda.decode import decode_heatmap
 from ...register import register
 from .decoder import Decoder
 
@@ -54,36 +54,10 @@ class TopDownHeatMapDecoder(Decoder):
         scale: torch.Tensor,
         score: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        heatmap = heatmap.to(torch.float32)
-        center = center.to(torch.float32)
-        scale = scale.to(torch.float32)
-        score = score.to(torch.float32).reshape(heatmap.shape[0])
-
-        coords, maxvals = argmax_shift_decode(heatmap, self.shift_coordinate)
-        if self.to_original:
-            coords = self._transform_preds(coords, center, scale, heatmap.shape[2:4])
-
-        preds = torch.cat([coords[..., :2], maxvals[..., None]], dim=-1)
-        area = torch.prod(scale * self.pixel_std, dim=1)
-        boxes = torch.cat([center, scale, area[:, None], score[:, None]], dim=1)
-        return preds, boxes
-
-    def _transform_preds(
-        self,
-        coords: torch.Tensor,
-        center: torch.Tensor,
-        scale: torch.Tensor,
-        heatmap_hw: Tuple[int, int],
-    ) -> torch.Tensor:
-        """Map heatmap coords back to the raw-image frame."""
-        h, w = heatmap_hw
-        scale = scale * self.pixel_std
-        if self.use_udp:
-            scale_x = scale[:, 0:1] / (w - 1.0)
-            scale_y = scale[:, 1:2] / (h - 1.0)
-        else:
-            scale_x = scale[:, 0:1] / w
-            scale_y = scale[:, 1:2] / h
-        x = coords[..., 0] * scale_x + center[:, 0:1] - scale[:, 0:1] * 0.5
-        y = coords[..., 1] * scale_y + center[:, 1:2] - scale[:, 1:2] * 0.5
-        return torch.stack([x, y], dim=-1)
+        heatmap = heatmap.to(torch.float32).contiguous()
+        center = center.to(torch.float32).contiguous()
+        scale = scale.to(torch.float32).contiguous()
+        score = score.to(torch.float32).reshape(heatmap.shape[0]).contiguous()
+        return decode_heatmap(heatmap, center, scale, score, shift=self.shift_coordinate,
+                              to_original=self.to_original, use_udp=self.use_udp,
+                              pixel_std=self.pixel_std)

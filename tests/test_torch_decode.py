@@ -5,6 +5,11 @@ and what chip_smoke.py holds the CUDA kernel to, bit for bit) must equal the
 Pallas kernel run in interpret mode and the XLA path (``argmax_coords`` +
 ``quarter_offset``) with tolerance 0: the argmax is an index, and the shift
 is a sum of an integer and +-0.25, both exact in float32.
+
+The fused decode (``decode_heatmap``: the whole decoder in one launch on the
+card) keeps as its plain version the decoder's composition of small ops: it
+is held to the JAX decoder at that decoder's tolerance, and bit for bit on
+the CPU to the composition it replaced.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +21,12 @@ from mindpose_tpu.ops.heatmap import argmax_coords as jax_argmax_coords
 from mindpose_tpu.ops.heatmap import quarter_offset as jax_quarter_offset
 from mindpose_tpu.ops.pallas.decode import argmax_shift_decode as pallas_decode
 from mindpose_tpu_torch.models import create_decoder
-from mindpose_tpu_torch.ops.cuda.decode import argmax_shift_decode, argmax_shift_decode_plain
+from mindpose_tpu_torch.ops.cuda.decode import (
+    argmax_shift_decode,
+    argmax_shift_decode_plain,
+    decode_heatmap,
+    decode_heatmap_plain,
+)
 from mindpose_tpu_torch.ops.heatmap import argmax_coords, quarter_offset
 
 
@@ -110,16 +120,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         argmax_shift_decode(bad, False)
 
 
-@pytest.mark.parametrize("setting", [
+DECODER_SETTINGS = [
     {}, {"shift_coordinate": True}, {"use_udp": True}, {"to_original": False},
     {"shift_coordinate": True, "backend": "pallas"},
-])
-def test_decoder_matches_jax_decoder(setting):
+]
+
+
+def _decoder_inputs():
     rng = np.random.RandomState(4)
     hm = rng.randn(6, 17, 64, 48).astype(np.float32)
     center = rng.uniform(0, 600, (6, 2)).astype(np.float32)
     scale = rng.uniform(0.2, 3.0, (6, 2)).astype(np.float32)
     score = rng.uniform(0, 1, 6).astype(np.float32)
+    return hm, center, scale, score
+
+
+def _fused_kwargs(setting):
+    """The decoder's settings as ``decode_heatmap``'s keywords."""
+    return {"shift": setting.get("shift_coordinate", False),
+            "to_original": setting.get("to_original", True),
+            "use_udp": setting.get("use_udp", False), "pixel_std": 200.0}
+
+
+@pytest.mark.parametrize("setting", DECODER_SETTINGS)
+def test_decoder_matches_jax_decoder(setting):
+    hm, center, scale, score = _decoder_inputs()
     want_p, want_b = JaxDecoder(**setting)(jnp.asarray(hm.transpose(0, 2, 3, 1)), center, scale, score)
     # ``backend`` has no effect in the port: the heatmap's device picks the decode
     got_p, got_b = create_decoder("topdown_heatmap", **setting)(
@@ -135,3 +160,82 @@ def test_decoder_refuses_what_is_not_ported():
         create_decoder("topdown_heatmap", dark_udp_refine=True)
     with pytest.raises(ValueError):
         create_decoder("topdown_heatmap", dark_udp_refine=True, shift_coordinate=True)
+
+
+@pytest.mark.parametrize("setting", DECODER_SETTINGS)
+def test_fused_plain_decode_matches_jax_decoder(setting):
+    hm, center, scale, score = _decoder_inputs()
+    want_p, want_b = JaxDecoder(**setting)(jnp.asarray(hm.transpose(0, 2, 3, 1)), center, scale, score)
+    got_p, got_b = decode_heatmap_plain(
+        torch.from_numpy(hm), torch.from_numpy(center), torch.from_numpy(scale),
+        torch.from_numpy(score), **_fused_kwargs(setting))
+    # the tolerance of test_decoder_matches_jax_decoder, for the same reason
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), rtol=1e-6, atol=1e-4)
+
+
+def _composition(heatmap, center, scale, score, shift, to_original, use_udp, pixel_std):
+    """The decoder as it was composed before the fused wrapper: the argmax and
+    shift, then the back-projection, preds and boxes as separate ops."""
+    coords, maxvals = argmax_shift_decode(heatmap, shift)
+    if to_original:
+        h, w = heatmap.shape[2:4]
+        big = scale * pixel_std
+        scale_x = big[:, 0:1] / (w - 1.0) if use_udp else big[:, 0:1] / w
+        scale_y = big[:, 1:2] / (h - 1.0) if use_udp else big[:, 1:2] / h
+        x = coords[..., 0] * scale_x + center[:, 0:1] - big[:, 0:1] * 0.5
+        y = coords[..., 1] * scale_y + center[:, 1:2] - big[:, 1:2] * 0.5
+        coords = torch.stack([x, y], dim=-1)
+    preds = torch.cat([coords[..., :2], maxvals[..., None]], dim=-1)
+    area = torch.prod(scale * pixel_std, dim=1)
+    return preds, torch.cat([center, scale, area[:, None], score[:, None]], dim=1)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "border", "nan_taps", "tiny_1x5"])
+@pytest.mark.parametrize("setting", DECODER_SETTINGS)
+def test_fused_decode_equals_the_composition_it_replaces(setting, case):
+    """Bit for bit on the CPU: the plain version, the wrapper and the decoder."""
+    hm = torch.from_numpy(_heatmap(case))
+    rng = np.random.RandomState(5)
+    n = hm.shape[0]
+    center, scale, score = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.uniform(0, 2000, (n, 2)), rng.uniform(0.2, 3.0, (n, 2)), rng.uniform(0, 1, n)))
+    kw = _fused_kwargs(setting)
+    want = _composition(hm, center, scale, score, **kw)
+    for got in (decode_heatmap_plain(hm, center, scale, score, **kw),
+                decode_heatmap(hm, center, scale, score, **kw),
+                create_decoder("topdown_heatmap", **setting)(hm, center, scale, score)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())  # NaN where NaN, else equal
+
+
+def _bad_decode_inputs():
+    n = 3
+    ok = {"heatmap": torch.zeros(n, 4, 5, 6), "center": torch.zeros(n, 2),
+          "scale": torch.ones(n, 2), "score": torch.ones(n)}
+    yield "center on another device", dict(ok, center=torch.zeros(n, 2, device="meta"))
+    yield "score on another device", dict(ok, score=torch.ones(n, device="meta"))
+    yield "float64 scale", dict(ok, scale=torch.ones(n, 2, dtype=torch.float64))
+    yield "float64 heatmap", dict(ok, heatmap=torch.zeros(n, 4, 5, 6, dtype=torch.float64))
+    yield "scale [N, 3]", dict(ok, scale=torch.ones(n, 3))
+    yield "center of another crop count", dict(ok, center=torch.zeros(n + 1, 2))
+    yield "score [N, 1]", dict(ok, score=torch.ones(n, 1))
+    yield "non-contiguous center", dict(ok, center=torch.zeros(2, n).t())
+    yield "non-contiguous heatmap", dict(ok, heatmap=torch.zeros(n, 4, 6, 5).transpose(2, 3))
+
+
+@pytest.mark.parametrize("what,inputs", list(_bad_decode_inputs()),
+                         ids=[name for name, _ in _bad_decode_inputs()])
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take(what, inputs):
+    with pytest.raises(ValueError):
+        decode_heatmap(inputs["heatmap"], inputs["center"], inputs["scale"], inputs["score"],
+                       shift=False, to_original=True, use_udp=False, pixel_std=200.0)
+
+
+def test_fused_decode_of_a_cpu_heatmap_makes_no_launch():
+    hm, center, scale, score = (torch.from_numpy(a) for a in _decoder_inputs())
+    before = argmax_shift_decode.launches
+    decode_heatmap(hm, center, scale, score, shift=True, to_original=True, use_udp=False,
+                   pixel_std=200.0)
+    create_decoder("topdown_heatmap")(hm, center, scale, score)
+    assert argmax_shift_decode.launches == before
