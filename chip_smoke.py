@@ -33,13 +33,25 @@ no result, when there is no CUDA device or when any phase fails:
 7. the conv chain's own entry point, the go/no-go probe
    (``tools/ablate_conv_chain.py``), at its three bf16 geometries: both
    device times, and the launch counts on that run, all on the tensor cores;
-8. the train step of hrnet_w32_tpu.yaml (adamw, warmup multi-step schedule,
+8. evaluation through the eval entry (``tools/eval.evaluate``): the
+   serving net's weights saved as a port checkpoint and loaded back bit for
+   bit, then evaluated with the recipe's settings (O2, batch 128, GT boxes,
+   OKS-NMS) on synthetic COCO from ``tools/make_synthetic_coco.py`` (648
+   frames, 2,592 crops), TTA off (a first pass and 3 warm ones, with the
+   warm rates' spread) and on: records, batches, inferencer and evaluator
+   times, crops/s, one decode launch per batch, the 10 COCO stats; the
+   JAX-trained fixture checkpoint (tests/fixtures/) read by the port's
+   msgpack reader, whose AP on the GPU is above 0 and within 0.005 of the
+   CPU's at O0 and within 0.02 at O2, and its crops at O2 on the GPU against
+   the CPU; the host loader alone and the forward and decode of one batch;
+   and the first 32 crops on the GPU against the CPU at O0, TTA off and on;
+9. the train step of hrnet_w32_tpu.yaml (adamw, warmup multi-step schedule,
    O2) on HRNet-W32 at full width, batch 128 of synthetic crops: 3 warm-up
    and 20 timed steps, img/s, step times, peak memory, finite losses;
-9. the net learning one fixed batch with its joints painted in, over 30
-   steps at constant lr: the loss falls below a fraction of its first value
-   and of an all-zero prediction's, and the backbone moves;
-10. one full-width train step at batch 2 on the GPU against the port on the
+10. the net learning one fixed batch with its joints painted in, over 30
+    steps at constant lr: the loss falls below a fraction of its first value
+    and of an all-zero prediction's, and the backbone moves;
+11. one full-width train step at batch 2 on the GPU against the port on the
     CPU, in float64 (loss, gradients, BatchNorm running statistics to 1e-8)
     and in float32 (gradients against the CPU's float64).
 
@@ -49,10 +61,12 @@ The line before the last is the GPU's name and power limit; the last line is
 import copy
 import itertools
 import json
+import os
 from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,14 +74,17 @@ import torch
 from torch import nn
 from torch.profiler import ProfilerActivity, profile
 
+from mindpose_tpu_torch.config import Config
+from mindpose_tpu_torch.data import create_dataset, create_pipeline
 from mindpose_tpu_torch.data.device_pipeline import (
     build_topdown_preprocess,
     strip_host_target_transform,
 )
 from mindpose_tpu_torch.data.transform import box_to_center_scale
-from mindpose_tpu_torch.engine import TopDownPredictor
+from mindpose_tpu_torch.engine import TopDownPredictor, create_inferencer
 from mindpose_tpu_torch.models import (
     create_decoder,
+    create_eval_network,
     create_loss,
     create_network,
     create_network_with_loss,
@@ -91,6 +108,13 @@ from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+from mindpose_tpu_torch.tools.eval import evaluate
+from mindpose_tpu_torch.utils.checkpoint import (
+    load_net_state_dict,
+    restore_train_state,
+    save_checkpoint,
+)
+from tests.fixtures.eval_checks import CKPT, RECORD, decode_margin, register_port_backbone
 
 # configs/hrnet/hrnet_w32_tpu.yaml, the keys the serving and train paths read
 # (tests/test_torch_host_copies.py holds this literal equal to the yaml)
@@ -113,6 +137,28 @@ HRNET_W32 = {
     },
     "normalize_mean": [0.485, 0.456, 0.406],
     "normalize_std": [0.229, 0.224, 0.225],
+    # the evaluation keys (val_root, val_label and ckpt are set by the run)
+    "num_parallel_workers": 8,
+    "dataset_format": "coco_topdown",
+    "val_use_gt_bbox": True,
+    "pipeline_method": "topdown",
+    "val_transforms": ["topdown_box_to_center_scale", "topdown_affine"],
+    "in_channels": 3,
+    "neck_name": "",
+    "inference_method": "topdown_heatmap",
+    "eval_method": "topdown",
+    "eval_metric": ["AP"],
+    "eval_setting": {
+        "has_heatmap_output": True,
+        "hflip_tta": False,
+        "shift_heatmap": False,
+        "vis_thr": 0.2,
+        "oks_thr": 0.9,
+        "use_nms": True,
+        "soft_nms": False,
+        "sigmas": [0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072, 0.062, 0.062,
+                   0.107, 0.107, 0.087, 0.087, 0.089, 0.089],
+    },
     # the training keys
     "batch_size": 128,
     "train_transforms": [
@@ -160,8 +206,8 @@ PROBE_ITERS = 5  # chains per timing in the probe (each is 1-100 ms)
 TRAIN_WARMUP_STEPS = 3
 TRAIN_TIMED_STEPS = 20
 LOSS_FALL_STEPS = 30
-MARK_SIZE = 11  # pixels a side of a joint's mark in phase 9's crops
-# Phase 9's bounds after 30 steps, set from an exploratory run on the H100:
+MARK_SIZE = 11  # pixels a side of a joint's mark in phase 10's crops
+# Phase 10's bounds after 30 steps, set from an exploratory run on the H100:
 # with the backbone learning the loss read 0.774 of the first step's and
 # 0.939 of the all-zero prediction's; with the backbone frozen (the head
 # alone learning) 0.856 and 1.038; on unmarked crops 0.999 of the zero
@@ -186,6 +232,27 @@ TRAIN_GRAD_FACTOR = 2.0
 # million times below the float32 gradient's error, so a fault in any one
 # tensor of the GPU's backward down to 1e-8 of its scale shows.
 TRAIN_F64_RTOL = 1e-8
+# Phase 8: synthetic COCO val frames (tools/make_synthetic_coco.py) with 4
+# persons each, 2,592 crops: 20 full batches of 128 and a ragged one of 32,
+# so that a pass lasts seconds and its rate can be compared across passes
+EVAL_IMAGES = 648
+EVAL_PEOPLE = 4
+EVAL_WARM_REPEATS = 3  # warm passes of the recipe, TTA off: the rate's spread
+EVAL_CPU_CROPS = 32  # crops of the first eval batch run on the GPU and on the CPU
+# the card's decoder multiplies by the float reciprocal of the heatmap width
+# where the CPU divides (csrc/decode.cu), so a clear joint's coordinates in
+# the original frame may differ by a few float32 ulps (~3e-5 px at 500 px)
+EVAL_XY_ATOL = 1e-3
+FIXTURE_AP_ATOL = 0.005  # the fixture's AP at O0 on the GPU against the CPU's
+# At O2 the GPU's bf16 autocast and the CPU's round the convolutions and
+# BatchNorm apart, as JAX's bf16 and the CPU's autocast do: on the fixture
+# those two give APs 0.0078 apart (tests/test_torch_eval.py holds them
+# within 0.02; on an H100 the GPU's AP and its host CPU's were equal). So at O2 the fixture's AP on the GPU is held within 0.02 of
+# the CPU's, and, as there, the scores of its first batch within 0.02 of
+# the largest heatmap value, the joints whose decode is clear of that within
+# EVAL_XY_ATOL, and at least 80% of all joints so
+FIXTURE_O2_AP_ATOL = 0.02
+O2_SCORE_RTOL, O2_AGREE = 0.02, 0.8
 
 
 def gpu_name_and_power() -> str:
@@ -723,6 +790,231 @@ def compare_with_cpu(net: nn.Module, predictor: TopDownPredictor, image, boxes) 
         raise AssertionError(f"scores differ by {score_err}")
 
 
+def write_synthetic_coco(root: str):
+    """The val split of tools/make_synthetic_coco.py under ``root``:
+    (image root, annotation file)."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                          "make_synthetic_coco.py")
+    out = subprocess.run(
+        [sys.executable, script, "--out", root, "--train-images", "0",
+         "--val-images", str(EVAL_IMAGES), "--people", str(EVAL_PEOPLE), "--layout", "person"],
+        capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise RuntimeError(f"make_synthetic_coco.py failed:\n{out.stdout}\n{out.stderr}")
+    print(out.stdout.strip().splitlines()[-1])
+    return os.path.join(root, "val", "images"), os.path.join(root, "val", "annotations.json")
+
+
+def eval_loader(args: Config, batch_size: int):
+    """The eval entry's val loader over ``args``, at ``batch_size``."""
+    dataset = create_dataset(args.val_root, args.val_label, dataset_format=args.dataset_format,
+                             is_train=False, use_gt_bbox_for_val=args.val_use_gt_bbox,
+                             num_workers=args.num_parallel_workers, config=args.dataset_setting)
+    return create_pipeline(dataset, transforms=args.val_transforms, method=args.pipeline_method,
+                           batch_size=batch_size, is_train=False,
+                           normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
+                           num_workers=args.num_parallel_workers, config=args.dataset_setting)
+
+
+def eval_inferencer(net: nn.Module, args: Config, device: torch.device, amp_level: str,
+                    tta: bool):
+    """The eval entry's inferencer over ``net``; ``tta`` turns on hflip TTA with
+    ``shift_heatmap``."""
+    setting = dict(args.eval_setting, hflip_tta=tta, shift_heatmap=tta)
+    decoder = create_decoder(args.decoder_name, **args.decoder_setting)
+    return create_inferencer(create_eval_network(net, decoder), name=args.inference_method,
+                             config=setting, dataset_config=args.dataset_setting, device=device,
+                             amp_level=amp_level)
+
+
+def check_checkpoint_round_trip(net: nn.Module, path: str) -> None:
+    """Phase 8: the port's checkpoint of ``net``, loaded strictly into a fresh net,
+    gives every tensor back bit for bit."""
+    save_checkpoint(path, net)
+    fresh = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
+                           num_joints=HRNET_W32["num_joints"],
+                           backbone_args=HRNET_W32["backbone_setting"],
+                           head_args=HRNET_W32["head_setting"])
+    restore_train_state(path, fresh)
+    want, got = net.state_dict(), fresh.state_dict()
+    if list(got) != list(want):
+        raise AssertionError("the restored net's state_dict has other keys")
+    for key, value in want.items():
+        restored = got[key]
+        if (restored.dtype != value.dtype or restored.shape != value.shape or not torch.equal(
+                restored.reshape(-1).view(torch.uint8), value.cpu().reshape(-1).view(torch.uint8))):
+            raise AssertionError(f"the checkpoint round trip changed {key}")
+    print(f"checkpoint round trip: {len(want)} tensors, {os.path.getsize(path)} B, every one "
+          f"bitwise equal after a strict load into a fresh net")
+
+
+def run_eval(args: Config, device: torch.device, label: str) -> dict:
+    """Phase 8: one evaluation through the eval entry; the decode kernel's
+    launches are counted on that run alone."""
+    timings = {}
+    torch.cuda.synchronize()
+    argmax_shift_decode.launches = 0
+    stats = evaluate(args, device=device, timings=timings)
+    launches = argmax_shift_decode.launches
+    records, batches, infer_s = timings["records"], timings["batches"], timings["infer_s"]
+    print(f"eval {label}: {records} records in {batches} batches; inferencer {infer_s:.3f} s "
+          f"({records / infer_s:.1f} crops/s, host loading included), evaluator "
+          f"{timings['eval_s']:.3f} s; decode kernel launches {launches}")
+    print(f"eval {label} stats: {json.dumps({k: float(v) for k, v in stats.items()})}")
+    if launches != batches:
+        raise AssertionError(f"{batches} eval batches made {launches} decode kernel launches")
+    values = np.array([float(v) for v in stats.values()])
+    if len(values) != 10 or not (np.isfinite(values) & (values >= -1) & (values <= 1)).all():
+        raise AssertionError(f"eval {label}: malformed COCO stats {stats}")
+    return dict(timings, launches=launches, stats=stats)
+
+
+def time_eval_batch(net: nn.Module, args: Config, device: torch.device) -> dict:
+    """Phase 8: where an eval batch's time goes. The host loader alone over the
+    val set; on its first batch, at the recipe's precision, the forward with
+    TTA off and on (back to back, as the inferencer runs it) and the decode
+    kernel on that batch's float32 heatmap (device time)."""
+    start = time.perf_counter()
+    batch, crops, batches = None, 0, 0
+    for b in eval_loader(args, args.batch_size):
+        if batch is None:
+            batch = b
+        crops, batches = crops + len(b["bbox_ids"]), batches + 1
+    load_s = time.perf_counter() - start
+    print(f"eval loader alone ({args.num_parallel_workers} threads): {crops} crops in "
+          f"{batches} batches in {load_s:.3f} s, {crops / load_s:.1f} crops/s")
+    out = {"loader_crops_per_s": crops / load_s}
+    for tta in (False, True):
+        inferencer = eval_inferencer(net, args, device, args.amp_level, tta)
+        image = torch.from_numpy(batch["image"]).to(device).permute(0, 3, 1, 2).contiguous()
+        ms = time_ms(lambda: inferencer.heatmaps(image), queued=False, iters=5, repeats=3)
+        print(f"eval forward [{len(image)},3,256,192] {args.amp_level} TTA {tta}: {ms:.3f} ms "
+              f"per batch ({len(image) / ms * 1e3:.1f} crops/s)")
+        out[f"forward_ms_tta_{tta}"] = ms
+        if not tta:
+            heat = inferencer.heatmaps(image).float()
+            crops_in = [torch.from_numpy(np.asarray(batch[k], np.float32)).to(device)
+                        for k in ("center", "scale", "bbox_scores")]
+            decoder = inferencer.decoder
+    out["decode_ms"] = time_ms(lambda: decoder(heat, *crops_in), queued=True)
+    out["decode_bound_ms"] = decode_bound_ms(len(heat))
+    print(f"eval decode {list(heat.shape)} (this batch's heatmap) device time: "
+          f"{out['decode_ms']:.5f} ms; bound {out['decode_bound_ms']:.5f} ms (HBM bytes)")
+    return out
+
+
+def compare_eval_with_cpu(net: nn.Module, args: Config, device: torch.device,
+                          amp_level: str) -> None:
+    """Phase 8: the first ``EVAL_CPU_CROPS`` crops of the eval set through the
+    inferencer at ``amp_level`` on the GPU and on the CPU, TTA off and on.
+
+    At O0 held to phase 5's tolerance: heatmaps and joint scores within
+    ``HEATMAP_RTOL`` of the largest heatmap value, and the joints whose decode
+    is clear of twice that within ``EVAL_XY_ATOL`` px. At O2 (bf16 autocast on
+    both) the scores within ``O2_SCORE_RTOL`` of it, the joints clear of that
+    within ``EVAL_XY_ATOL`` px, and at least ``O2_AGREE`` of all joints so.
+    """
+    batch = next(iter(eval_loader(args, EVAL_CPU_CROPS)))
+    cpu_net = copy.deepcopy(net).cpu()
+    shift = args.decoder_setting["shift_coordinate"]
+    for tta in (False, True):
+        gpu = eval_inferencer(net, args, device, amp_level, tta)
+        cpu = eval_inferencer(cpu_net, args, torch.device("cpu"), amp_level, tta)
+        preds_gpu, boxes_gpu, heat_gpu = (t.cpu().float() for t in gpu.infer_batch(batch))
+        preds_cpu, boxes_cpu, heat_cpu = (t.float() for t in cpu.infer_batch(batch))
+        if amp_level == "O0":
+            tol = HEATMAP_RTOL * float(heat_cpu.abs().max())
+            heat_tol, clear_gap, agree = tol, 2 * tol, 1.0
+        else:
+            tol = O2_SCORE_RTOL * float(heat_cpu.abs().max())
+            heat_tol, clear_gap, agree = float("inf"), tol, O2_AGREE
+        heat_err = float((heat_gpu - heat_cpu).abs().max())
+        score_err = float((preds_gpu[..., 2] - preds_cpu[..., 2]).abs().max())
+        clear = decode_margin(heat_cpu, shift) > clear_gap
+        xy_err = (preds_gpu[..., :2] - preds_cpu[..., :2]).abs().amax(-1)
+        worst = float(xy_err[clear].max()) if clear.any() else float("nan")
+        close = float((xy_err <= EVAL_XY_ATOL).float().mean())
+        print(f"eval card-vs-CPU, {amp_level}, TTA {tta}, {len(heat_cpu)} crops: heatmaps max "
+              f"|diff| {heat_err:.3e}{'' if amp_level == 'O0' else ' (not held)'}, scores "
+              f"{score_err:.3e} (tolerance {tol:.3e}); {int(clear.sum())} of {clear.numel()} "
+              f"joints clear of {clear_gap:.3e}, their keypoints max |diff| {worst:.3e} px "
+              f"(tolerance {EVAL_XY_ATOL}); {close:.3f} of all keypoints within it (at least "
+              f"{agree}), {int((xy_err == 0).sum())} equal")
+        if (heat_err > heat_tol or score_err > tol or not clear.any() or worst > EVAL_XY_ATOL
+                or close < agree):
+            raise AssertionError(f"eval on the GPU disagrees with the CPU, {amp_level}, TTA {tta}")
+        if not torch.allclose(boxes_gpu, boxes_cpu, rtol=1e-6, atol=0):
+            raise AssertionError(f"eval boxes on the GPU disagree with the CPU's, TTA {tta}")
+
+
+def eval_fixture(root: str, device: torch.device) -> list:
+    """Phase 8: the JAX-trained fixture checkpoint (tests/fixtures), read by the
+    port's msgpack reader, evaluated on its val split on the GPU and on the
+    CPU, at O0 and at O2: the GPU's AP is above 0 and within
+    ``FIXTURE_AP_ATOL`` (O0) or ``FIXTURE_O2_AP_ATOL`` (O2) of the CPU's; then
+    its crops at O2 through the inferencer on both. Returns the GPU's runs."""
+    from tests.fixtures import tiny_coco  # numpy and cv2 only
+
+    register_port_backbone()
+    val_root, val_label = tiny_coco.write_val(os.path.join(root, "fixture"))
+    runs = []
+    for amp_level, atol, recorded in (("O0", FIXTURE_AP_ATOL, "jax_stats"),
+                                      ("O2", FIXTURE_O2_AP_ATOL, "jax_stats_o2")):
+        args = Config(**dict(RECORD["config"], amp_level=amp_level, val_root=val_root,
+                             val_label=val_label, ckpt=CKPT,
+                             result_path=os.path.join(root, "fixture_result.json")))
+        gpu = run_eval(args, device, f"fixture checkpoint on the GPU, {amp_level}")
+        ap_gpu = float(gpu["stats"]["AP"])
+        ap_cpu = float(evaluate(args, device=torch.device("cpu"))["AP"])
+        print(f"fixture AP at {amp_level}: GPU {ap_gpu:.6f}, CPU {ap_cpu:.6f}, |diff| "
+              f"{abs(ap_gpu - ap_cpu):.2e} (tolerance {atol}); the JAX package recorded "
+              f"{RECORD[recorded]['AP']:.6f} on the CPU where the fixture was made (not "
+              f"asserted: this machine's image decoders may differ)")
+        if not (ap_gpu > 0 and abs(ap_gpu - ap_cpu) <= atol):
+            raise AssertionError(f"the fixture checkpoint's AP at {amp_level} on the GPU is 0 "
+                                 "or far from the CPU's")
+        runs.append(gpu)
+    net = create_network(args.backbone_name, args.head_name, num_joints=args.num_joints)
+    net.load_state_dict(load_net_state_dict(CKPT, net), strict=True)
+    compare_eval_with_cpu(net, args, device, "O2")
+    return runs
+
+
+def evaluation(net: nn.Module, device: torch.device) -> dict:
+    """Phase 8: top-down evaluation through the eval entry, at full width.
+
+    The serving net's weights go through the port's checkpoint and back, then
+    ``tools/eval.evaluate`` runs the recipe (O2, batch 128, GT boxes, OKS-NMS)
+    on synthetic COCO, with TTA off (a first pass, then ``EVAL_WARM_REPEATS``
+    warm ones, whose crops/s give the rate's spread) and with TTA and
+    ``shift_heatmap`` on; then the JAX-trained fixture checkpoint, the batch
+    timings, and the GPU against the CPU. Returns the decode kernel's
+    launches over the evaluation runs and the batch timings.
+    """
+    with tempfile.TemporaryDirectory() as root:
+        val_root, val_label = write_synthetic_coco(root)
+        ckpt = os.path.join(root, "ckpt", "hrnet_w32_random.pt")
+        check_checkpoint_round_trip(net, ckpt)
+        args = Config(**dict(HRNET_W32, val_root=val_root, val_label=val_label, ckpt=ckpt,
+                             result_path=os.path.join(root, "result.json")))
+        tta_args = Config(**dict(vars(args), eval_setting=dict(
+            args.eval_setting, hflip_tta=True, shift_heatmap=True)))
+        runs = [run_eval(args, device, "recipe O2, TTA off, first pass")]
+        warm = [run_eval(args, device, f"recipe O2, TTA off, warm pass {i + 1}")
+                for i in range(EVAL_WARM_REPEATS)]
+        rates = sorted(r["records"] / r["infer_s"] for r in warm)
+        median = statistics.median(rates)
+        print(f"eval recipe O2, TTA off, {len(warm)} warm passes of {warm[0]['records']} crops: "
+              f"inferencer {rates[0]:.1f} / {median:.1f} / {rates[-1]:.1f} crops/s (min / "
+              f"median / max), spread {(rates[-1] - rates[0]) / median:.3f} of the median")
+        runs += warm + [run_eval(tta_args, device, "recipe O2, TTA and shift_heatmap on")]
+        runs += eval_fixture(root, device)
+        times = time_eval_batch(net, args, device)
+        compare_eval_with_cpu(net, args, device, "O0")
+    return {"launches": sum(r["launches"] for r in runs),
+            "batches": sum(r["batches"] for r in runs), **times}
+
+
 def training_net(device: torch.device) -> nn.Module:
     """Full-width HRNet-W32 + hrnet_head with ``random_weights_``."""
     net = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
@@ -783,7 +1075,7 @@ def recipe_step(net: nn.Module, amp_level: str, schedule=None):
 
 
 def train_throughput(device: torch.device) -> None:
-    """Phase 8: the recipe's step at batch 128, O2; warm-up, then timed steps.
+    """Phase 9: the recipe's step at batch 128, O2; warm-up, then timed steps.
 
     Each step is timed on the host clock up to a ``torch.cuda.synchronize``.
     """
@@ -846,7 +1138,7 @@ def mark_joints(image: torch.Tensor, keypoints: torch.Tensor) -> torch.Tensor:
 
 
 def check_loss_falls(device: torch.device) -> None:
-    """Phase 9: the recipe's optimizer at constant lr on one fixed batch learns.
+    """Phase 10: the recipe's optimizer at constant lr on one fixed batch learns.
 
     The head starts from its own near-zero initialisation and the batch's
     joints are painted into its crops (``mark_joints``), so the net can
@@ -912,7 +1204,7 @@ def _worst(errs: dict, n: int = 3) -> str:
 
 
 def compare_train_with_cpu(device: torch.device) -> None:
-    """Phase 10: one train step at full width, batch 2, GPU against the port on the CPU.
+    """Phase 11: one train step at full width, batch 2, GPU against the port on the CPU.
 
     The recipe's schedule gives the first step lr 0, so the step computes the
     loss, gradients and BatchNorm statistics and moves no parameter.
@@ -1024,11 +1316,15 @@ def main() -> int:
     served = serve(predictor, image, requests)
 
     compare_with_cpu(net, predictor, image, requests[1])
-    del predictor, net
+    del predictor
     torch.cuda.empty_cache()
 
     check_conv_chain(device)
     probed = drive_probe(device)
+
+    evaluated = evaluation(net, device)
+    del net
+    torch.cuda.empty_cache()
 
     train_throughput(device)
     check_loss_falls(device)
@@ -1042,7 +1338,10 @@ def main() -> int:
         "route": "cuda",
         "source": "mindpose_tpu_torch/csrc/decode.cu",
         "replaces": "mindpose_tpu/ops/pallas/decode.py:27",
-        "launches": served["launches"],
+        # serving's launches and evaluation's (one per eval batch)
+        "launches": served["launches"] + evaluated["launches"],
+        "eval_launches": evaluated["launches"],
+        "eval_batches": evaluated["batches"],
         "max_abs_err": decode_err,
         # [32,17,64,48] as served, shift off (hrnet_w32_tpu.yaml), warm in L2
         "ms": warm_ms,
@@ -1060,6 +1359,9 @@ def main() -> int:
         "decoder_ms": decode[("decoder", True)][0],
         "decoder_plain_ms": decode[("decoder", True)][1],
         "decoder_device_ops": decode["decoder_ops"],
+        # the kernel on an eval batch's heatmap [128,17,64,48], as evaluation calls it
+        "eval_ms": evaluated["decode_ms"],
+        "eval_bound_ms": evaluated["decode_bound_ms"],
     }, {
         "name": "fused_conv_chain",
         "route": "cuda",

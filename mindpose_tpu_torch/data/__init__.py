@@ -1,0 +1,1 @@
+from .data_factory import create_dataset, create_pipeline  # noqa: F401

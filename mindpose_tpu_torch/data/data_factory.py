@@ -1,0 +1,120 @@
+"""Dataset + pipeline factories, the val side.
+
+Counterpart of ``mindpose_tpu/data/data_factory.py:21-138``, with the same
+arguments. This slice builds the top-down evaluation pipeline; an argument
+it does not support (training, sharding, bucketing, the decoded-frame
+cache, other methods) raises rather than being ignored.
+"""
+from typing import Any, Dict, List, Optional, Union
+
+from ..register import entrypoint
+from . import dataset as _datasets  # noqa: F401  (registers the datasets)
+from .column_names import FINAL_COLUMN_MAP
+from .loader import DataLoader
+from .transform import topdown_transform as _transforms  # noqa: F401  (registers the transforms)
+
+__all__ = ["create_dataset", "create_pipeline"]
+
+
+def _refuse(what: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported yet: the port's loader builds the top-down val pipeline "
+        "(the training loader is ROADMAP.md, Queue 1 #2)")
+
+
+def create_dataset(
+    image_root: str,
+    annotation_file: Optional[str] = None,
+    dataset_format: str = "coco_topdown",
+    is_train: bool = True,
+    device_num: Optional[int] = None,
+    rank_id: Optional[int] = None,
+    num_workers: int = 1,
+    config: Optional[Dict[str, Any]] = None,
+    **kwargs: Any,
+):
+    """Instantiate the record dataset plus its loader context.
+
+    Returns a dict bundle consumed by ``create_pipeline``.
+    """
+    if is_train:
+        _refuse("is_train=True")
+    if (device_num or 1) != 1 or (rank_id or 0) != 0:
+        _refuse(f"sharding (device_num={device_num}, rank_id={rank_id})")
+    kwargs = {k: v for k, v in kwargs.items() if v is not None}
+    dataset = entrypoint("dataset", dataset_format)(
+        image_root, annotation_file, is_train=is_train, config=config, **kwargs
+    )
+    return {
+        "dataset": dataset,
+        "dataset_format": dataset_format,
+        "is_train": is_train,
+        "num_workers": num_workers,
+    }
+
+
+def create_pipeline(
+    dataset: Union[Dict[str, Any], Any],
+    transforms: List[Union[str, Dict[str, Any]]],
+    method: str = "topdown",
+    batch_size: int = 1,
+    is_train: bool = True,
+    normalize: bool = True,
+    normalize_mean: List[float] = [0.485, 0.456, 0.406],
+    normalize_std: List[float] = [0.229, 0.224, 0.225],
+    hwc_to_chw: bool = False,
+    num_workers: int = 1,
+    config: Optional[Dict[str, Any]] = None,
+    seed: int = 0,
+    final_columns: Optional[List[str]] = None,
+    image_bucket: Optional[int] = None,
+    decode_cache_mb: float = 0,
+    frame_grouped_shuffle: bool = False,
+    patch_grouped_batching: bool = False,
+) -> DataLoader:
+    """Build the transform pipeline and return a batched DataLoader.
+
+    Batches are NHWC numpy arrays, as the JAX loader gives them; the
+    inferencer turns the images to NCHW on the device. ``seed`` only seeds
+    the training shuffle, so evaluation does not read it.
+    """
+    if is_train:
+        _refuse("is_train=True")
+    if method not in FINAL_COLUMN_MAP:
+        _refuse(f"method={method!r}")
+    for name, value in (("hwc_to_chw", hwc_to_chw), ("image_bucket", image_bucket),
+                        ("decode_cache_mb", decode_cache_mb),
+                        ("frame_grouped_shuffle", frame_grouped_shuffle),
+                        ("patch_grouped_batching", patch_grouped_batching)):
+        if value:
+            _refuse(f"{name}={value!r}")
+    bundle = dataset if isinstance(dataset, dict) else {"dataset": dataset, "num_workers": 1}
+    transform_funcs = _convert_names_to_transform(transforms, is_train=is_train, config=config)
+    return DataLoader(
+        dataset=bundle["dataset"],
+        transforms=transform_funcs,
+        final_columns=final_columns or FINAL_COLUMN_MAP[method]["val"],
+        batch_size=batch_size,
+        normalize=normalize,
+        normalize_mean=normalize_mean,
+        normalize_std=normalize_std,
+        num_workers=max(num_workers, bundle.get("num_workers", 1) or 1),
+    )
+
+
+def _convert_names_to_transform(
+    names_with_args: List[Union[str, Dict[str, Any]]],
+    is_train: bool = True,
+    config: Optional[Dict[str, Any]] = None,
+):
+    transforms = []
+    for name_with_arg in names_with_args:
+        if isinstance(name_with_arg, str):
+            name, kwargs = name_with_arg, dict()
+        else:
+            name = list(name_with_arg.keys())[0]
+            kwargs = list(name_with_arg.values())[0] or dict()
+        transforms.append(
+            entrypoint("transform", name)(is_train=is_train, config=config, **kwargs)
+        )
+    return transforms

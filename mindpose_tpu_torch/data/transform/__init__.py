@@ -1,1 +1,6 @@
-from .topdown_transform import box_to_center_scale, crop_matrix  # noqa: F401
+from .topdown_transform import (  # noqa: F401
+    TopDownAffine,
+    TopDownBoxToCenterScale,
+    box_to_center_scale,
+    crop_matrix,
+)

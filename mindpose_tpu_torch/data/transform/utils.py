@@ -1,16 +1,47 @@
 """Crop geometry for the top-down host path, in numpy.
 
-Copies of ``mindpose_tpu/data/transform/utils.py:69-170``: the
-center/scale -> affine-matrix construction (pixel_std=200 convention) and the
-UDP closed-form warp matrix. The port cannot import the JAX package (its
-``__init__`` imports JAX), so these live here; tests/test_torch_host_copies.py
-holds each copy equal to its original.
+Copies of ``mindpose_tpu/data/transform/utils.py``: the flip permutation of
+the joints (:44-66), the center/scale -> affine-matrix construction
+(pixel_std=200 convention) and the UDP closed-form warp matrix (:69-167).
+The port cannot import the JAX package (its ``__init__`` imports JAX), so
+these live here; tests/test_torch_host_copies.py holds each copy equal to
+its original.
 """
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["rotate_point", "get_affine_transform", "get_warp_matrix"]
+__all__ = [
+    "flip_index_from_pairs",
+    "rotate_point",
+    "get_affine_transform",
+    "get_warp_matrix",
+]
+
+
+def flip_index_from_pairs(flip_pairs, num_joints: Optional[int] = None) -> np.ndarray:
+    """Full K-joint channel permutation with each pair swapped.
+
+    ``num_joints`` defaults to ``max(pair index) + 1`` — correct whenever no
+    unpaired joint sits after the last paired one (true for COCO and MPII);
+    callers that know the real K should pass it (the flip transforms and
+    TTA inferencers rebuild from the observed joint count when the cached
+    index length mismatches).
+    """
+    flip_pairs = np.array(flip_pairs)
+    if flip_pairs.ndim != 2:
+        return flip_pairs  # already a flat permutation
+    if num_joints is None:
+        num_joints = int(flip_pairs.max()) + 1 if flip_pairs.size else 0
+    elif flip_pairs.size and int(flip_pairs.max()) >= num_joints:
+        raise ValueError(
+            f"flip pair index {int(flip_pairs.max())} out of range for "
+            f"num_joints={num_joints}"
+        )
+    index = np.arange(num_joints)
+    for left, right in flip_pairs:
+        index[left], index[right] = right, left
+    return index
 
 
 def rotate_point(pt: Sequence[float], angle_rad: float) -> List[float]:

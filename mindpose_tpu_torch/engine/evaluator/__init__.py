@@ -1,0 +1,2 @@
+from .evaluator import Evaluator  # noqa: F401
+from .topdown_evaluator import TopDownEvaluator  # noqa: F401

@@ -1,0 +1,2 @@
+from .inferencer import Inferencer  # noqa: F401
+from .topdown_inferencer import TopDownHeatMapInferencer  # noqa: F401

@@ -117,6 +117,8 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple
 
 
 def _tensor(value: Any) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):  # a bfloat16 leaf of a flax msgpack file
+        return value.to(torch.float32)
     return torch.from_numpy(np.array(value, dtype=np.float32))
 
 

@@ -1,0 +1,317 @@
+"""The port's copies of the JAX package's evaluation host code stay equal to them.
+
+``COCO``, ``COCOeval``, ``oks_iou``/``oks_nms``/``soft_oks_nms``, the
+top-down evaluator, the ``coco_topdown`` dataset and the val loader are
+copies (the port cannot import the JAX package). On the same inputs
+(tests/helpers.py:make_tiny_coco with make_detection_json, random
+predictions, and tests/cocofixtures.py's realistic eval fixture) each gives
+its original's output bit for bit, with the original's C++ OKS path off;
+with it on, the COCO stats agree to 1e-9.
+"""
+import json
+import logging
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from mindpose_tpu.config import parse_args as jax_parse_args
+from mindpose_tpu.data import create_dataset as jax_create_dataset
+from mindpose_tpu.data import create_pipeline as jax_create_pipeline
+from mindpose_tpu.engine import create_evaluator as jax_create_evaluator
+from mindpose_tpu.utils import native
+from mindpose_tpu.utils.coco import COCO as JaxCOCO
+from mindpose_tpu.utils.coco import image_id_name_maps as jax_image_id_name_maps
+from mindpose_tpu.utils.cocoeval import COCOeval as JaxCOCOeval
+from mindpose_tpu.utils.nms import oks_iou as jax_oks_iou
+from mindpose_tpu.utils.nms import oks_nms as jax_oks_nms
+from mindpose_tpu.utils.nms import soft_oks_nms as jax_soft_oks_nms
+from mindpose_tpu_torch.config import parse_args
+from mindpose_tpu_torch.data import create_dataset, create_pipeline
+from mindpose_tpu_torch.engine import create_evaluator
+from mindpose_tpu_torch.engine.factory import _merged
+from mindpose_tpu_torch.utils.coco import COCO, image_id_name_maps
+from mindpose_tpu_torch.utils.cocoeval import COCOeval
+from mindpose_tpu_torch.utils.nms import oks_iou, oks_nms, soft_oks_nms
+from tests.cocofixtures import make_realistic_eval_fixture
+from tests.helpers import DATASET_SETTING, make_detection_json, make_tiny_coco
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EVAL_SETTING = {
+    "has_heatmap_output": True, "hflip_tta": False, "shift_heatmap": False,
+    "vis_thr": 0.2, "oks_thr": 0.9, "use_nms": True, "soft_nms": False,
+    "sigmas": [0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
+               0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089],
+}
+VAL_TRANSFORMS = ["topdown_box_to_center_scale", "topdown_affine"]
+
+
+@pytest.fixture
+def numpy_only():
+    """The JAX package's COCOeval and NMS on their numpy path, restored after."""
+    native.set_native_enabled(False)
+    yield
+    native.set_native_enabled(True)
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    """(image_root, annotation_path, detection_path) of make_tiny_coco."""
+    root = str(tmp_path_factory.mktemp("tiny_coco"))
+    img_root, ann = make_tiny_coco(root, num_images=4, people_per_img=2)
+    det, _ = make_detection_json(ann, os.path.join(root, "dets.json"))
+    return img_root, ann, det
+
+
+def _predictions(ann_path, seed=0, noise=6.0):
+    """Keypoint results near each GT person plus a few false positives, with
+    random joint and instance scores."""
+    rng = np.random.RandomState(seed)
+    with open(ann_path) as f:
+        gt = json.load(f)
+    results = []
+    for a in gt["annotations"]:
+        kp = np.asarray(a["keypoints"], np.float64).reshape(-1, 3)
+        kp[:, :2] += rng.randn(len(kp), 2) * noise
+        kp[:, 2] = rng.uniform(0.1, 1.0, len(kp))
+        results.append({"image_id": a["image_id"], "category_id": 1,
+                        "keypoints": kp.ravel().tolist(), "score": float(rng.uniform(0.3, 1))})
+        if rng.rand() < 0.5:
+            fp = kp.copy()
+            fp[:, :2] += rng.uniform(-80, 80, 2)
+            results.append({"image_id": a["image_id"], "category_id": 1,
+                            "keypoints": fp.ravel().tolist(),
+                            "score": round(float(rng.uniform(0.1, 0.6)), 1)})
+    return results
+
+
+def _coco_stats(coco_cls, eval_cls, gt, results, sigmas=None):
+    coco = coco_cls(gt)
+    ev = eval_cls(coco, coco.loadRes(results), "keypoints")
+    if sigmas is not None:
+        ev.params.kpt_oks_sigmas = np.asarray(sigmas)
+    ev.evaluate()
+    ev.accumulate()
+    ev.summarize()
+    return ev
+
+
+def test_coco_index_and_queries(tiny):
+    _, ann, _ = tiny
+    port, jax_coco = COCO(ann), JaxCOCO(ann)
+    for attr in ("dataset", "anns", "imgs", "cats", "imgToAnns", "catToImgs"):
+        assert getattr(port, attr) == getattr(jax_coco, attr), attr
+    assert image_id_name_maps(port.imgs) == jax_image_id_name_maps(jax_coco.imgs)
+    queries = [{}, {"imgIds": 2}, {"imgIds": [1, 3], "catIds": 1}, {"iscrowd": False},
+               {"areaRng": [0, 1e5]}, {"catIds": [2]}]
+    for q in queries:
+        assert port.getAnnIds(**q) == jax_coco.getAnnIds(**q), q
+    assert port.getImgIds() == jax_coco.getImgIds()
+    assert port.getImgIds(catIds=[1]) == jax_coco.getImgIds(catIds=[1])
+    assert port.getCatIds(catNms=["person"]) == jax_coco.getCatIds(catNms=["person"])
+    assert port.loadCats(port.getCatIds()) == jax_coco.loadCats(jax_coco.getCatIds())
+    results = _predictions(ann)
+    assert port.loadRes(results).dataset == jax_coco.loadRes(results).dataset
+
+
+@pytest.mark.parametrize("source", ["tiny", "realistic"])
+def test_cocoeval_bitwise_on_the_numpy_path(tiny, numpy_only, source):
+    if source == "tiny":
+        with open(tiny[1]) as f:
+            gt = json.load(f)
+        results, sigmas = _predictions(tiny[1]), EVAL_SETTING["sigmas"]
+    else:
+        gt, results = make_realistic_eval_fixture(num_images=12, seed=3)
+        sigmas = None
+    port = _coco_stats(COCO, COCOeval, gt, results, sigmas)
+    want = _coco_stats(JaxCOCO, JaxCOCOeval, gt, results, sigmas)
+    np.testing.assert_array_equal(port.stats, want.stats)
+    for key in ("precision", "recall", "scores"):
+        np.testing.assert_array_equal(port.eval[key], want.eval[key])
+    assert port.stats[0] > 0
+
+
+def test_cocoeval_against_the_native_path():
+    """The JAX package with its C++ OKS path on: the stats agree to 1e-9."""
+    gt, results = make_realistic_eval_fixture(num_images=12, seed=4)
+    port = _coco_stats(COCO, COCOeval, gt, results)
+    want = _coco_stats(JaxCOCO, JaxCOCOeval, gt, results)
+    np.testing.assert_allclose(port.stats, want.stats, rtol=0, atol=1e-9)
+
+
+def test_ground_truth_as_predictions_gives_ap_one(tiny):
+    with open(tiny[1]) as f:
+        gt = json.load(f)
+    results = [{"image_id": a["image_id"], "category_id": 1, "keypoints": a["keypoints"],
+                "score": 1.0} for a in gt["annotations"]]
+    stats = _coco_stats(COCO, COCOeval, gt, results, EVAL_SETTING["sigmas"]).stats
+    assert stats[0] == 1.0 and stats[5] == 1.0
+
+
+def test_oks_nms_and_soft_nms_bitwise(numpy_only):
+    rng = np.random.RandomState(5)
+    for trial in range(20):
+        n = rng.randint(1, 12)
+        base = rng.uniform(0, 300, (1, 17, 2))
+        kpts = np.concatenate([base + rng.randn(n, 17, 2) * rng.uniform(1, 40),
+                               rng.uniform(0, 1, (n, 17, 1))], axis=-1)
+        db = [{"keypoints": k, "score": float(s), "area": float(a)}
+              for k, s, a in zip(kpts, rng.uniform(0, 1, n), rng.uniform(500, 20000, n))]
+        sigmas = np.asarray(EVAL_SETTING["sigmas"]) if trial % 2 else None
+        vis_thr = 0.2 if trial % 3 == 0 else None
+        flat = kpts.reshape(n, -1)
+        np.testing.assert_array_equal(
+            oks_iou(flat[0], flat[1:], 900.0, np.full(n - 1, 800.0), sigmas, vis_thr),
+            jax_oks_iou(flat[0], flat[1:], 900.0, np.full(n - 1, 800.0), sigmas, vis_thr))
+        for thr in (0.3, 0.9):
+            np.testing.assert_array_equal(oks_nms(db, thr, sigmas, vis_thr),
+                                          jax_oks_nms(db, thr, sigmas, vis_thr))
+            np.testing.assert_array_equal(soft_oks_nms(db, thr, 5, sigmas, vis_thr),
+                                          jax_soft_oks_nms(db, thr, 5, sigmas, vis_thr))
+    assert oks_nms([], 0.9) == jax_oks_nms([], 0.9) == []
+
+
+def _records(ann_path, seed):
+    """Inferencer-style records for every GT box, with a duplicate bbox_id."""
+    rng = np.random.RandomState(seed)
+    coco = JaxCOCO(ann_path)
+    records = []
+    for img_id in coco.getImgIds():
+        name = coco.imgs[img_id]["file_name"]
+        for slot, a in enumerate(coco.loadAnns(coco.getAnnIds(imgIds=img_id))):
+            kp = np.asarray(a["keypoints"], np.float64).reshape(-1, 3)
+            kp[:, :2] += rng.randn(len(kp), 2) * 5
+            kp[:, 2] = rng.uniform(0, 1, len(kp))
+            x, y, w, h = a["bbox"]
+            box = [x + w / 2, y + h / 2, w / 200 * 1.25, h / 200 * 1.25, w * h * 1.5,
+                   float(rng.uniform(0.5, 1))]
+            records.append({"pred": kp.tolist(), "box": box,
+                            "image_path": os.path.join("images", name), "bbox_id": slot})
+    records.append(dict(records[0], box=[0, 0, 1, 1, 1, 0.01]))  # a duplicate: dropped
+    return records
+
+
+@pytest.mark.parametrize("setting", [{}, {"use_nms": False}, {"soft_nms": True},
+                                     {"vis_thr": 0.6, "crowd_index_stats": True}])
+def test_topdown_evaluator_bitwise(tiny, tmp_path, numpy_only, setting):
+    ann = tiny[1]
+    config = dict(EVAL_SETTING, **setting)
+    records = _records(ann, seed=7)
+    port = create_evaluator(ann, name="topdown", metric=["AP"], config=config,
+                            result_path=str(tmp_path / "port.json"), remove_result_file=False)
+    want = jax_create_evaluator(ann, name="topdown", metric=["AP"], config=config,
+                                result_path=str(tmp_path / "jax.json"),
+                                remove_result_file=False)
+    got, expected = port(records), want(records)
+    assert list(got) == list(expected)
+    np.testing.assert_array_equal(list(got.values()), list(expected.values()))
+    with open(tmp_path / "port.json") as a, open(tmp_path / "jax.json") as b:
+        assert a.read() == b.read()
+    with pytest.raises(KeyError, match="not supported"):
+        create_evaluator(ann, metric="PCK", config=config)
+
+
+@pytest.mark.parametrize("detections", [False, True], ids=["gt boxes", "detector boxes"])
+def test_val_loader_batches_bitwise(tiny, detections):
+    img_root, ann, det = tiny
+    setting = dict(DATASET_SETTING, det_bbox_thr=0.1)
+    kwargs = dict(is_train=False, config=setting, use_gt_bbox_for_val=not detections,
+                  detection_file=det if detections else None)
+    port_ds = create_dataset(img_root, ann, dataset_format="coco_topdown", **kwargs)
+    jax_ds = jax_create_dataset(img_root, ann, dataset_format="coco_topdown", **kwargs)
+    assert len(port_ds["dataset"]) == len(jax_ds["dataset"]) == (12 if detections else 8)
+    for i in range(len(jax_ds["dataset"])):
+        got, want = port_ds["dataset"][i], jax_ds["dataset"][i]
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+            assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+
+    port_batches = list(create_pipeline(port_ds, VAL_TRANSFORMS, batch_size=5, is_train=False,
+                                        config=setting, num_workers=3))
+    jax_batches = list(jax_create_pipeline(jax_ds, VAL_TRANSFORMS, batch_size=5, is_train=False,
+                                           config=setting))
+    assert len(port_batches) == len(jax_batches) == (3 if detections else 2)
+    for got, want in zip(port_batches, jax_batches):
+        assert list(got) == list(want)
+        for col in want:
+            assert got[col].dtype == want[col].dtype and got[col].shape == want[col].shape, col
+            np.testing.assert_array_equal(got[col], want[col], err_msg=col)
+
+
+class _MissingImage:
+    """A record dataset whose record ``bad`` names an image that does not exist."""
+
+    def __init__(self, dataset, bad):
+        self.dataset, self.bad = dataset, bad
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        state = self.dataset[idx]
+        return dict(state, image_file="missing.png") if idx == self.bad else state
+
+
+def test_val_loader_prefetches_and_stops(tiny):
+    """While the caller holds batch 0, the producer makes batches 1 and 2 (the
+    queue's 2) and batch 3, which waits to be queued, and no more; a pass
+    the caller abandons stops its producer; a record that fails to load
+    raises in the caller."""
+    img_root, ann, _ = tiny
+    ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
+                        use_gt_bbox_for_val=True)
+    loader = create_pipeline(ds, VAL_TRANSFORMS, batch_size=1, is_train=False,
+                             config=DATASET_SETTING)
+    made, process_one = [], loader._process_one
+    loader._process_one = lambda idx: made.append(idx) or process_one(idx)
+    before = set(threading.enumerate())
+    batches = iter(loader)
+    assert next(batches)["bbox_ids"].tolist() == [0]
+    (producer,) = [t for t in threading.enumerate()
+                   if t not in before and t.name == "loader-prefetch"]
+    deadline = time.monotonic() + 30
+    while len(made) < 4 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.2)
+    assert made == [0, 1, 2, 3]
+    batches.close()
+    producer.join(timeout=5)
+    assert not producer.is_alive()
+
+    loader.dataset = _MissingImage(loader.dataset, bad=5)
+    with pytest.raises(FileNotFoundError, match="missing.png"):
+        list(loader)
+
+
+def test_pipeline_refuses_what_it_does_not_support(tiny):
+    img_root, ann, _ = tiny
+    with pytest.raises(NotImplementedError, match="is_train"):
+        create_dataset(img_root, ann, is_train=True, config=DATASET_SETTING)
+    with pytest.raises(NotImplementedError, match="sharding"):
+        create_dataset(img_root, ann, is_train=False, device_num=2, rank_id=1,
+                       config=DATASET_SETTING, use_gt_bbox_for_val=True)
+    ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
+                        use_gt_bbox_for_val=True)
+    for kwargs in ({"is_train": True}, {"method": "bottomup"}, {"decode_cache_mb": 64},
+                   {"image_bucket": 32}, {"hwc_to_chw": True}, {"frame_grouped_shuffle": True},
+                   {"patch_grouped_batching": True}):
+        with pytest.raises(NotImplementedError):
+            create_pipeline(ds, VAL_TRANSFORMS, **dict({"is_train": False}, **kwargs),
+                            config=DATASET_SETTING)
+
+
+def test_config_and_merge(tmp_path, caplog):
+    cfg = os.path.join(ROOT, "configs", "hrnet", "hrnet_w32_tpu.yaml")
+    argv = ["--config", cfg, "--ckpt", "w.msgpack", "--cfg-options", "batch_size=8",
+            "eval_setting.hflip_tta=True", "val_root=/data/val", "dataset_setting.sigma=[1, 2]"]
+    got, want = parse_args(argv), jax_parse_args(argv).asdict()
+    assert want.pop("seed") is None  # the JAX train CLI's flag; the port's eval has none
+    assert got.asdict() == want
+    assert got.batch_size == 8 and got["eval_setting"]["hflip_tta"] is True
+    assert got.get("missing", 3) == 3 and "ckpt" in got
+    with caplog.at_level(logging.WARNING):
+        assert _merged({"a": 1, "b": 2}, None, {"b": 3}) == {"a": 1, "b": 3}
+    assert "Duplicated keys" in caplog.text

@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's numpy host helpers stay equal to them.
 
 The port cannot import ``mindpose_tpu`` (its ``__init__`` imports JAX), so
-the crop geometry lives in the port as copies; these tests pin each copy to
+the crop geometry and the joints' flip permutation live in the port as
+copies; these tests pin each copy to
 its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
 """
@@ -60,6 +61,27 @@ def test_get_affine_transform(inv):
         np.testing.assert_array_equal(
             utils.get_affine_transform(*args, shift=shift, inv=inv, pixel_std=200.0),
             jax_utils.get_affine_transform(*args, shift=shift, inv=inv, pixel_std=200.0))
+
+
+@pytest.mark.parametrize("pairs, num_joints", [
+    ([[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14], [15, 16]], None),
+    ([[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14], [15, 16]], 17),
+    ([[0, 5], [1, 4], [2, 3], [10, 15], [11, 14], [12, 13]], 16),  # MPII
+    ([[1, 2]], 5),  # unpaired joints after the last pair
+    ([], 3),
+    (np.array([0, 2, 1, 3]), None),  # already a flat permutation
+])
+def test_flip_index_from_pairs(pairs, num_joints):
+    got = utils.flip_index_from_pairs(pairs, num_joints)
+    want = jax_utils.flip_index_from_pairs(pairs, num_joints)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_flip_index_from_pairs_rejects_an_index_out_of_range():
+    for flip in (utils.flip_index_from_pairs, jax_utils.flip_index_from_pairs):
+        with pytest.raises(ValueError, match="out of range"):
+            flip([[1, 2], [3, 17]], 17)
 
 
 def test_get_warp_matrix():

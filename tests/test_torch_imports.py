@@ -1,19 +1,24 @@
-"""The port stands alone: no module of it imports JAX, flax, optax or mindpose_tpu.
+"""The port stands alone: no module of it imports JAX, flax, optax, msgpack or mindpose_tpu.
 
-It also holds the port's registry apart from the JAX package's.
+It also holds the port's registry apart from the JAX package's, and keeps
+the serving path free of the evaluation path's host libraries (cv2, yaml).
 """
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mindpose_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mindpose_tpu")
 
 
 def _port_files():
     files = [os.path.join(ROOT, name) for name in
-             ("chip_smoke.py", "profile_serving.py", "profile_train.py", "grad_precision.py")]
+             ("chip_smoke.py", "profile_serving.py", "profile_train.py", "grad_precision.py",
+              os.path.join("tests", "fixtures", "tiny_coco.py"),
+              os.path.join("tests", "fixtures", "eval_checks.py"))]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "mindpose_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -45,3 +50,12 @@ def test_port_registry_is_its_own():
     assert jax_backbone.__module__.startswith("mindpose_tpu.")
     with pytest.raises(ValueError, match="already registered"):
         register("backbone")(port_backbone)
+
+
+def test_serving_path_imports_neither_cv2_nor_yaml():
+    """In a fresh interpreter, the predictor's import loads no cv2 or yaml."""
+    code = ("import sys; import mindpose_tpu_torch.engine.predictor; "
+            "print(sorted(m for m in ('cv2', 'yaml') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
