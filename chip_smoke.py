@@ -53,12 +53,32 @@ no result, when there is no CUDA device or when any phase fails:
     and of an all-zero prediction's, and the backbone moves;
 11. one full-width train step at batch 2 on the GPU against the port on the
     CPU, in float64 (loss, gradients, BatchNorm running statistics to 1e-8)
-    and in float32 (gradients against the CPU's float64).
+    and in float32 (gradients against the CPU's float64);
+12. training through the train entry (``tools/train.train``) on
+    hrnet_w32_tpu.yaml as parsed from the file (full-width HRNet-W32, O2,
+    batch 128, adamw, host targets, evaluating every ``val_interval`` epochs) on
+    synthetic COCO from ``tools/make_synthetic_coco.py``; the overrides are
+    the data paths, ``num_epochs``, ``warmup``, ``val_interval`` and
+    ``ckpt_save_dir``. First the train loader alone with 8 threads and with
+    the process pool (crops/s); then per epoch the img/s with the loader
+    feeding the step, the step's median and the wait on the loader, beside
+    phase 9's img/s. It holds: every loss finite, the last epoch's mean
+    loss below the first's, the last evaluation's AP above 0, one decode
+    launch per val batch per evaluation, the best and last checkpoints
+    written, the last one's 10 COCO stats through the eval entry equal to
+    the callback's within 1e-4, and a one-epoch resume from it starting at
+    its step count (its batches through ``DevicePrefetcher``).
+
+Every process the run starts ends before it does: the script adopts each
+one whose parent ends first (a child subreaper), stops the process pool's
+forkserver and resource tracker after phase 12, and fails if any process it
+started is still there.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import copy
+import ctypes
 import itertools
 import json
 import os
@@ -76,6 +96,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from mindpose_tpu_torch.config import Config
 from mindpose_tpu_torch.data import create_dataset, create_pipeline
+from mindpose_tpu_torch.data.loader import DataLoader, stop_worker_servers
 from mindpose_tpu_torch.data.device_pipeline import (
     build_topdown_preprocess,
     strip_host_target_transform,
@@ -108,8 +129,10 @@ from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+from mindpose_tpu_torch.tools import train as train_entry
 from mindpose_tpu_torch.tools.eval import evaluate
 from mindpose_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
     load_net_state_dict,
     restore_train_state,
     save_checkpoint,
@@ -253,6 +276,56 @@ FIXTURE_AP_ATOL = 0.005  # the fixture's AP at O0 on the GPU against the CPU's
 # EVAL_XY_ATOL, and at least 80% of all joints so
 FIXTURE_O2_AP_ATOL = 0.02
 O2_SCORE_RTOL, O2_AGREE = 0.02, 0.8
+# Phase 12: synthetic COCO train frames (2 persons each: 1,280 records, 10
+# steps of 128 per epoch) and val frames (128 crops, one eval batch); 12
+# epochs of the recipe, warmup cut from 500 steps to 20 (the yaml's would
+# leave the rate near 0 for the whole run), evaluation every 4 epochs
+ENTRY_TRAIN_IMAGES = 640
+ENTRY_VAL_IMAGES = 64
+ENTRY_PEOPLE = 2
+ENTRY_EPOCHS = 12
+ENTRY_WARMUP = 20
+ENTRY_VAL_INTERVAL = 4
+ENTRY_RESUME_WARMUP = 5  # the one-epoch resume's schedule has 10 steps in all
+ENTRY_RESUME_PREFETCH = 2  # batches the resume's DevicePrefetcher keeps in flight
+ENTRY_STATS_ATOL = 1e-4  # the last checkpoint through the eval entry against the callback
+RECIPE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "hrnet",
+                           "hrnet_w32_tpu.yaml")
+
+
+PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
+
+
+def adopt_orphans() -> None:
+    """Make this process the parent of every process it starts, at any depth,
+    whose own parent ends first, so that ``check_no_processes_left`` sees it."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
+
+
+def check_no_processes_left() -> None:
+    """Reap the adopted processes that have ended; raise if any child is left."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            break
+        if pid == 0:
+            break
+    me = str(os.getpid())
+    left = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                name, fields = f.read().rsplit(")", 1)
+        except OSError:
+            continue
+        if fields.split()[1] == me:
+            left.append(f"{pid} ({name.split('(', 1)[1]})")
+    if left:
+        raise AssertionError(f"processes started by this run are still running: {left}")
+    print("processes left running: none")
 
 
 def gpu_name_and_power() -> str:
@@ -790,19 +863,21 @@ def compare_with_cpu(net: nn.Module, predictor: TopDownPredictor, image, boxes) 
         raise AssertionError(f"scores differ by {score_err}")
 
 
-def write_synthetic_coco(root: str):
-    """The val split of tools/make_synthetic_coco.py under ``root``:
-    (image root, annotation file)."""
+def write_synthetic_coco(root: str, train_images: int = 0, val_images: int = EVAL_IMAGES,
+                         people: int = EVAL_PEOPLE) -> dict:
+    """tools/make_synthetic_coco.py's splits under ``root`` (person layout):
+    {"train": (image root, annotation file), "val": (...)}."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                           "make_synthetic_coco.py")
     out = subprocess.run(
-        [sys.executable, script, "--out", root, "--train-images", "0",
-         "--val-images", str(EVAL_IMAGES), "--people", str(EVAL_PEOPLE), "--layout", "person"],
+        [sys.executable, script, "--out", root, "--train-images", str(train_images),
+         "--val-images", str(val_images), "--people", str(people), "--layout", "person"],
         capture_output=True, text=True, timeout=300)
     if out.returncode:
         raise RuntimeError(f"make_synthetic_coco.py failed:\n{out.stdout}\n{out.stderr}")
-    print(out.stdout.strip().splitlines()[-1])
-    return os.path.join(root, "val", "images"), os.path.join(root, "val", "annotations.json")
+    print("\n".join(out.stdout.strip().splitlines()[-2 if train_images else -1:]))
+    return {split: (os.path.join(root, split, "images"),
+                    os.path.join(root, split, "annotations.json")) for split in ("train", "val")}
 
 
 def eval_loader(args: Config, batch_size: int):
@@ -992,7 +1067,7 @@ def evaluation(net: nn.Module, device: torch.device) -> dict:
     launches over the evaluation runs and the batch timings.
     """
     with tempfile.TemporaryDirectory() as root:
-        val_root, val_label = write_synthetic_coco(root)
+        val_root, val_label = write_synthetic_coco(root)["val"]
         ckpt = os.path.join(root, "ckpt", "hrnet_w32_random.pt")
         check_checkpoint_round_trip(net, ckpt)
         args = Config(**dict(HRNET_W32, val_root=val_root, val_label=val_label, ckpt=ckpt,
@@ -1074,10 +1149,11 @@ def recipe_step(net: nn.Module, amp_level: str, schedule=None):
                             preprocess=recipe_preprocess(), amp_level=amp_level)
 
 
-def train_throughput(device: torch.device) -> None:
+def train_throughput(device: torch.device) -> dict:
     """Phase 9: the recipe's step at batch 128, O2; warm-up, then timed steps.
 
     Each step is timed on the host clock up to a ``torch.cuda.synchronize``.
+    Returns the img/s and the step's median (ms).
     """
     n = HRNET_W32["batch_size"]
     net = training_net(device)
@@ -1107,6 +1183,7 @@ def train_throughput(device: torch.device) -> None:
           f"lr of the last step {schedule(step.count - 1):.6g}; all {len(losses)} finite: {finite}")
     if not finite:
         raise AssertionError("a train step gave a non-finite loss")
+    return {"images_per_sec": img_s, "step_median_ms": statistics.median(timed)}
 
 
 def head_init_(net: nn.Module, rng: np.random.RandomState) -> None:
@@ -1286,10 +1363,149 @@ def compare_train_with_cpu(device: torch.device) -> None:
                              "tolerances")
 
 
+def time_train_loader(args: Config) -> dict:
+    """Phase 12: the recipe's train loader alone (train transforms, batch 128,
+    the yaml's workers), over 2 epochs with threads, then 2 with the process
+    pool (whose first epoch includes starting it). Returns crops/s of each
+    second epoch."""
+    dataset = create_dataset(args.train_root, args.train_label,
+                             dataset_format=args.dataset_format, is_train=True,
+                             num_workers=args.num_parallel_workers, config=args.dataset_setting)
+    threads = create_pipeline(dataset, transforms=args.train_transforms,
+                              method=args.pipeline_method, batch_size=args.batch_size,
+                              is_train=True, normalize_mean=args.normalize_mean,
+                              normalize_std=args.normalize_std,
+                              num_workers=args.num_parallel_workers, config=args.dataset_setting,
+                              seed=SEED)
+    processes = DataLoader(threads.dataset, threads.transforms, threads.final_columns,
+                           batch_size=args.batch_size, is_train=True,
+                           normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
+                           num_workers=args.num_parallel_workers, seed=SEED,
+                           worker_mode="process")
+    out = {}
+    try:
+        for name, loader in (("threads", threads), ("processes", processes)):
+            rates = []
+            for _ in range(2):
+                start = time.perf_counter()
+                crops = sum(len(b["target_weight"]) for b in loader)
+                rates.append(crops / (time.perf_counter() - start))
+            print(f"train loader alone, {args.num_parallel_workers} {name}: {crops} crops per "
+                  f"epoch ({len(loader)} batches of {args.batch_size}), {rates[0]:.1f} crops/s "
+                  f"in the first epoch, {rates[1]:.1f} in the second")
+            out[name] = rates[1]
+    finally:
+        processes.close()
+    return out
+
+
+def train_through_entry(root: str, phase9: dict, device: torch.device) -> dict:
+    """Phase 12: hrnet_w32_tpu.yaml trained through the train entry on one GPU.
+
+    The yaml as parsed from the file, with the data paths, ``num_epochs``,
+    ``warmup``, ``val_interval`` and ``ckpt_save_dir`` overridden; then the
+    last checkpoint through the eval entry, and a one-epoch resume from it.
+    Returns the decode kernel's launches made by the callback's evaluations
+    and the loader's and the entry's rates.
+    """
+    data = write_synthetic_coco(root, ENTRY_TRAIN_IMAGES, ENTRY_VAL_IMAGES, ENTRY_PEOPLE)
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+
+    def parse(ckpt_dir: str, *options: str, ckpt=None) -> Config:
+        flags = ["--device", str(device)] + (["--ckpt", ckpt] if ckpt else [])
+        return train_entry.parse_train_args(
+            ["--config", RECIPE_YAML, *flags, "--cfg-options", f"train_root={train_root}",
+             f"train_label={train_label}", f"val_root={val_root}", f"val_label={val_label}",
+             f"ckpt_save_dir={ckpt_dir}", *options])
+
+    ckpt_dir = os.path.join(root, "entry")
+    args = parse(ckpt_dir, f"num_epochs={ENTRY_EPOCHS}", f"warmup={ENTRY_WARMUP}",
+                 f"val_interval={ENTRY_VAL_INTERVAL}")
+    loader_rates = time_train_loader(args)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    argmax_shift_decode.launches = 0
+    result = train_entry.train(args)
+    launches = argmax_shift_decode.launches
+    train_s = time.perf_counter() - start
+    epochs = result["epochs"]
+    base = phase9["images_per_sec"]
+    for e in epochs:
+        ap = f", AP {float(e['metrics']['AP']):.6f}" if e["metrics"] else ""
+        print(f"entry epoch {e['epoch']}: loss {e['loss']:.6g}, lr {e['lr']:.6g}; "
+              f"{e['images_per_sec']:.1f} img/s with the loader feeding the step "
+              f"({e['images_per_sec'] / base:.3f} of phase 9's {base:.1f} on device-resident "
+              f"batches); step median {e['step_median_s'] * 1e3:.1f} ms (phase 9: "
+              f"{phase9['step_median_ms']:.1f}); wait on next(batches) median "
+              f"{e['wait_median_s'] * 1e3:.1f} ms, {e['wait_total_s']:.2f} s in all over "
+              f"{e['steps']} steps{ap}")
+    warm = epochs[1:]
+    rate = sum(e["images"] for e in warm) / sum(e["images"] / e["images_per_sec"] for e in warm)
+    wait = sum(e["wait_total_s"] for e in warm) / sum(e["steps"] for e in warm)
+    print(f"entry epochs 2-{len(epochs)}: {rate:.1f} img/s with the loader feeding the step, "
+          f"{rate / base:.3f} of phase 9's; wait on the loader {wait * 1e3:.1f} ms per step; "
+          f"{train_s:.1f} s for {len(epochs)} epochs with evaluations")
+
+    evals = [e for e in epochs if e["metrics"]]
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    losses = [e["loss"] for e in epochs]
+    last_stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
+    print(f"entry: {len(evals)} evaluations of {val_batches} batch(es), decode kernel launches "
+          f"{launches}; last stats {json.dumps(last_stats)}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the entry's losses are not finite or did not fall: {losses}")
+    if not last_stats["AP"] > 0:
+        raise AssertionError("the last evaluation's AP is 0")
+    if launches != len(evals) * val_batches:
+        raise AssertionError(f"{len(evals)} evaluations of {val_batches} batches made "
+                             f"{launches} decode launches")
+    last_path = os.path.join(ckpt_dir, "hrnet_w32_tpu_last.ckpt")
+    best_path = os.path.join(ckpt_dir, "hrnet_w32_tpu_best.ckpt")
+    if not (os.path.isfile(last_path) and os.path.isfile(best_path)):
+        raise AssertionError(f"the callback did not write {last_path} and {best_path}")
+    saved_step = load_checkpoint(last_path)["step"]
+
+    stats = evaluate(Config(**dict(vars(args), ckpt=last_path,
+                                   result_path=os.path.join(root, "entry_result.json"))),
+                     device=device)
+    worst = max(abs(float(stats[k]) - last_stats[k]) for k in last_stats)
+    print(f"entry's last checkpoint (step {saved_step}) through the eval entry: "
+          f"{json.dumps({k: float(v) for k, v in stats.items()})}; max |diff| against the "
+          f"callback's {worst:.2e} (tolerance {ENTRY_STATS_ATOL})")
+    if worst > ENTRY_STATS_ATOL:
+        raise AssertionError("the last checkpoint's stats differ from the callback's")
+
+    # the resume also takes its batches through DevicePrefetcher (pinned
+    # memory, a side stream), the entry's `device_prefetch` path on the card
+    resume_args = parse(os.path.join(root, "entry_resume"), "num_epochs=1",
+                        f"warmup={ENTRY_RESUME_WARMUP}",
+                        f"device_prefetch={ENTRY_RESUME_PREFETCH}", ckpt=last_path)
+    resumed = train_entry.train(resume_args)
+    steps = epochs[0]["steps"]
+    schedule = create_lr_scheduler(resume_args.scheduler, lr=resume_args.lr, total_epochs=1,
+                                   steps_per_epoch=steps,
+                                   warmup=resume_args.warmup,
+                                   **resume_args.lr_scheduler_setting)
+    r = resumed["epochs"][0]
+    print(f"entry resume from the last checkpoint for 1 epoch, device_prefetch "
+          f"{ENTRY_RESUME_PREFETCH}: starts at step {resumed['start_step']} (saved "
+          f"{saved_step}) with lr {schedule(saved_step):.6g}, ends at {resumed['step']}; loss "
+          f"{r['loss']:.6g}, AP {float(r['metrics']['AP']):.6f}; {r['images_per_sec']:.1f} "
+          f"img/s, step median {r['step_median_s'] * 1e3:.1f} ms, wait median "
+          f"{r['wait_median_s'] * 1e3:.1f} ms")
+    if not (resumed["start_step"] == saved_step == result["step"]
+            and resumed["step"] == saved_step + steps):
+        raise AssertionError("the resumed run did not continue the step count")
+    return {"launches": launches, "loader": loader_rates, "images_per_sec": rate,
+            "wait_per_step_s": wait}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    adopt_orphans()
     device = torch.device("cuda", 0)
     gpu = gpu_name_and_power()
     print(f"gpu: {gpu}")
@@ -1326,9 +1542,15 @@ def main() -> int:
     del net
     torch.cuda.empty_cache()
 
-    train_throughput(device)
+    phase9 = train_throughput(device)
     check_loss_falls(device)
     compare_train_with_cpu(device)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        entry = train_through_entry(root, phase9, device)
+    stop_worker_servers()
+    check_no_processes_left()
 
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
     chain = next(r for r in probed["rows"] if r["b"] == HRNET_W32["batch_size"])
@@ -1338,9 +1560,11 @@ def main() -> int:
         "route": "cuda",
         "source": "mindpose_tpu_torch/csrc/decode.cu",
         "replaces": "mindpose_tpu/ops/pallas/decode.py:27",
-        # serving's launches and evaluation's (one per eval batch)
-        "launches": served["launches"] + evaluated["launches"],
+        # serving's launches, evaluation's and the training entry's callback's
+        # (one per eval batch)
+        "launches": served["launches"] + evaluated["launches"] + entry["launches"],
         "eval_launches": evaluated["launches"],
+        "train_eval_launches": entry["launches"],
         "eval_batches": evaluated["batches"],
         "max_abs_err": decode_err,
         # [32,17,64,48] as served, shift off (hrnet_w32_tpu.yaml), warm in L2
@@ -1389,4 +1613,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_worker_servers()
+    sys.exit(code)

@@ -1,12 +1,14 @@
 """Column names of the batches the loader yields.
 
-Copy of the top-down val entry of ``mindpose_tpu/data/column_names.py``
-(:32): the names are the contract between the loader and the inferencer.
-The train columns come with the training loader.
+Copy of the top-down entries of ``mindpose_tpu/data/column_names.py``
+(:18, :31-32): the names are the contract between the loader and its
+consumers. Train: the train step's positional inputs, in order (image,
+heatmap target, target weight). Val: what the inferencer reads.
 """
 
 FINAL_COLUMN_MAP = {
     "topdown": {
+        "train": "image target target_weight".split(),
         "val": "image image_file boxes bbox_ids center scale bbox_scores".split(),
     },
 }

@@ -1,9 +1,10 @@
-"""Dataset + pipeline factories, the val side.
+"""Dataset + pipeline factories.
 
 Counterpart of ``mindpose_tpu/data/data_factory.py:21-138``, with the same
-arguments. This slice builds the top-down evaluation pipeline; an argument
-it does not support (training, sharding, bucketing, the decoded-frame
-cache, other methods) raises rather than being ignored.
+arguments: the top-down train and val pipelines (train: shuffled per epoch
+from ``seed``, the last partial batch dropped). An argument the port does
+not support (sharding, bucketing, frame-grouped shuffling, the
+decoded-frame cache, other methods) raises rather than being ignored.
 """
 from typing import Any, Dict, List, Optional, Union
 
@@ -16,10 +17,8 @@ from .transform import topdown_transform as _transforms  # noqa: F401  (register
 __all__ = ["create_dataset", "create_pipeline"]
 
 
-def _refuse(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported yet: the port's loader builds the top-down val pipeline "
-        "(the training loader is ROADMAP.md, Queue 1 #2)")
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 def create_dataset(
@@ -37,10 +36,8 @@ def create_dataset(
 
     Returns a dict bundle consumed by ``create_pipeline``.
     """
-    if is_train:
-        _refuse("is_train=True")
     if (device_num or 1) != 1 or (rank_id or 0) != 0:
-        _refuse(f"sharding (device_num={device_num}, rank_id={rank_id})")
+        _refuse(f"sharding (device_num={device_num}, rank_id={rank_id})", "Queue 1, DDP")
     kwargs = {k: v for k, v in kwargs.items() if v is not None}
     dataset = entrypoint("dataset", dataset_format)(
         image_root, annotation_file, is_train=is_train, config=config, **kwargs
@@ -74,31 +71,36 @@ def create_pipeline(
 ) -> DataLoader:
     """Build the transform pipeline and return a batched DataLoader.
 
-    Batches are NHWC numpy arrays, as the JAX loader gives them; the
-    inferencer turns the images to NCHW on the device. ``seed`` only seeds
-    the training shuffle, so evaluation does not read it.
+    Batches are NHWC numpy arrays (train targets HWK), as the JAX loader
+    gives them; the inferencer and the train entry turn them to NCHW on the
+    device. ``seed`` seeds the training shuffle; evaluation does not read it.
+    ``final_columns`` overrides the method's projection (the device
+    pipeline ships keypoints in place of targets).
     """
-    if is_train:
-        _refuse("is_train=True")
     if method not in FINAL_COLUMN_MAP:
-        _refuse(f"method={method!r}")
-    for name, value in (("hwc_to_chw", hwc_to_chw), ("image_bucket", image_bucket),
-                        ("decode_cache_mb", decode_cache_mb),
-                        ("frame_grouped_shuffle", frame_grouped_shuffle),
-                        ("patch_grouped_batching", patch_grouped_batching)):
+        _refuse(f"method={method!r}", "Queue 1, HigherHRNet bottom-up")
+    leftover = "Queue 1, the training entry's leftovers"
+    for name, value, item in (
+            ("hwc_to_chw", hwc_to_chw, leftover),
+            ("decode_cache_mb", decode_cache_mb, leftover),
+            ("frame_grouped_shuffle", frame_grouped_shuffle, leftover),
+            ("image_bucket", image_bucket, "Queue 1, device input pipeline"),
+            ("patch_grouped_batching", patch_grouped_batching, "Queue 1, device input pipeline")):
         if value:
-            _refuse(f"{name}={value!r}")
+            _refuse(f"{name}={value!r}", item)
     bundle = dataset if isinstance(dataset, dict) else {"dataset": dataset, "num_workers": 1}
     transform_funcs = _convert_names_to_transform(transforms, is_train=is_train, config=config)
     return DataLoader(
         dataset=bundle["dataset"],
         transforms=transform_funcs,
-        final_columns=final_columns or FINAL_COLUMN_MAP[method]["val"],
+        final_columns=final_columns or FINAL_COLUMN_MAP[method]["train" if is_train else "val"],
         batch_size=batch_size,
+        is_train=is_train,
         normalize=normalize,
         normalize_mean=normalize_mean,
         normalize_std=normalize_std,
         num_workers=max(num_workers, bundle.get("num_workers", 1) or 1),
+        seed=seed,
     )
 
 

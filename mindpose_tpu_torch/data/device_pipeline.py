@@ -62,11 +62,11 @@ def build_topdown_preprocess(
     target [N, K, h, w], target_weight [N, K]).
 
     Only ``target_type="heatmap"`` is ported; SimCC and regression targets
-    come with their heads (ROADMAP Queue 1 #7).
+    come with their heads (ROADMAP.md, Queue 1, SimCC and RLE).
     """
     if target_type != "heatmap":
         raise NotImplementedError(
-            f"target_type={target_type!r} is not ported yet (ROADMAP Queue 1 #7: SimCC and RLE)")
+            f"target_type={target_type!r} is not ported yet (ROADMAP.md, Queue 1, SimCC and RLE)")
     mean, std = tuple(normalize_mean), tuple(normalize_std)
     hm = (int(heatmap_size[0]), int(heatmap_size[1]))
     im = (int(image_size[0]), int(image_size[1]))

@@ -1,8 +1,10 @@
 """Crop geometry for the top-down host path, in numpy.
 
-Copies of ``mindpose_tpu/data/transform/utils.py``: the flip permutation of
-the joints (:44-66), the center/scale -> affine-matrix construction
-(pixel_std=200 convention) and the UDP closed-form warp matrix (:69-167).
+Copies of ``mindpose_tpu/data/transform/utils.py``: the joints' horizontal
+flip and its permutation (:15-66), the center/scale -> affine-matrix
+construction (pixel_std=200 convention), a 2x3 matrix applied to a point
+(:125), the UDP closed-form warp matrix (:142-167) and a matrix applied to
+joint arrays (:170).
 The port cannot import the JAX package (its ``__init__`` imports JAX), so
 these live here; tests/test_torch_host_copies.py holds each copy equal to
 its original.
@@ -12,11 +14,43 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = [
+    "fliplr_joints",
     "flip_index_from_pairs",
     "rotate_point",
     "get_affine_transform",
+    "affine_transform",
     "get_warp_matrix",
+    "warp_affine_joints",
 ]
+
+
+def fliplr_joints(
+    keypoints: np.ndarray,
+    img_width: int,
+    flip_pairs: Optional[Sequence[Tuple[int, int]]] = None,
+    flip_index: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Horizontally flip joints ([..., K, >=2]) via pairs or a flat index."""
+    assert img_width > 0
+    assert flip_pairs is not None or flip_index is not None
+
+    if flip_pairs is not None:
+        flipped = keypoints.copy()
+        for left, right in flip_pairs:
+            flipped[..., left, :] = keypoints[..., right, :]
+            flipped[..., right, :] = keypoints[..., left, :]
+    else:
+        flip_index = np.asarray(flip_index)
+        if len(flip_index) != keypoints.shape[-2]:
+            raise ValueError(
+                f"flip_index has {len(flip_index)} entries but keypoints "
+                f"have {keypoints.shape[-2]} joints — rebuild it with "
+                f"flip_index_from_pairs(pairs, num_joints)"
+            )
+        flipped = keypoints[..., flip_index, :].copy()
+
+    flipped[..., 0] = img_width - 1 - flipped[..., 0]
+    return flipped
 
 
 def flip_index_from_pairs(flip_pairs, num_joints: Optional[int] = None) -> np.ndarray:
@@ -97,6 +131,11 @@ def get_affine_transform(
     return _solve_affine(src, dst).astype(np.float64)
 
 
+def affine_transform(pt: Sequence[float], trans_mat: np.ndarray) -> np.ndarray:
+    """Apply a 2x3 affine matrix to a single 2D point."""
+    return np.asarray(trans_mat) @ np.array([pt[0], pt[1], 1.0])
+
+
 def get_warp_matrix(
     theta: float,
     size_input: np.ndarray,
@@ -123,3 +162,9 @@ def get_warp_matrix(
         + 0.5 * size_target[1]
     )
     return matrix
+
+
+def warp_affine_joints(joints: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """Apply a 2x3 affine matrix to [..., 2] joint coordinates."""
+    ones = np.ones((*joints.shape[:-1], 1), dtype=np.float32)
+    return np.concatenate((joints, ones), axis=-1) @ np.asarray(mat).T

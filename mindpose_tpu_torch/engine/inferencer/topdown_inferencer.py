@@ -41,8 +41,10 @@ class TopDownHeatMapInferencer(Inferencer):
     @torch.inference_mode()
     def heatmaps(self, image: torch.Tensor) -> torch.Tensor:
         """NCHW crops -> [N, K, H, W] heatmaps, merged with the mirrored
-        crops' under TTA, in the forward's output dtype."""
-        net = self.net.net
+        crops' under TTA, in the forward's output dtype. The net runs in eval
+        mode, as the JAX package applies it with ``train=False``, whatever mode
+        a train step left it in."""
+        net = self.net.net.eval()
         with self.precision():
             heatmap = net(image)
             if not self._inference_cfg["hflip_tta"]:

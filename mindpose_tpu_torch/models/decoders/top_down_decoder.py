@@ -43,7 +43,7 @@ class TopDownHeatMapDecoder(Decoder):
             )
         if self.dark_udp_refine:
             raise NotImplementedError(
-                "dark_udp_refine is not ported yet (ROADMAP.md, Queue 1 #5: "
+                "dark_udp_refine is not ported yet (ROADMAP.md, Queue 1, "
                 "ResNet, simple_baseline_head and UDP)"
             )
 

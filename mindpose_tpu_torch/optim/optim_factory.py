@@ -94,10 +94,10 @@ def create_optimizer(
     """
     if radial_projection:
         raise NotImplementedError(
-            "radial_projection is not ported (ROADMAP Queue 1 #1: it serves only the "
+            "radial_projection is not ported (ROADMAP.md, Queue 1, DDP: it serves only the "
             "frozen-statistics BatchNorm, which the port refuses)")
     if layer_decay:
-        raise NotImplementedError("layer_decay is not ported yet (ROADMAP Queue 1 #8: ViTPose)")
+        raise NotImplementedError("layer_decay is not ported yet (ROADMAP.md, Queue 1, ViTPose)")
     params = dict(module.named_parameters())
     if weight_decay and filter_bias_and_bn:
         mask = decay_mask(module)

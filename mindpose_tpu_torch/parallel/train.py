@@ -77,6 +77,7 @@ def build_train_step(
     preprocess: Optional[Callable] = None,
     accum_steps: int = 1,
     amp_level: str = "O0",
+    start_step: int = 0,
 ) -> Callable[..., torch.Tensor]:
     """Returns ``step(*batch) -> loss vector`` (detached).
 
@@ -85,7 +86,9 @@ def build_train_step(
     them on the device. Each call takes one optimizer step; with a
     ``schedule`` it first sets every parameter group's learning rate to
     ``schedule(steps taken so far)``, as optax evaluates a schedule at the
-    count before it increments. ``step.count`` is that count.
+    count before it increments. ``step.count`` is that count; it starts at
+    ``start_step``, the steps a resumed run has already taken, so that the
+    schedule continues where that run left it.
     """
     if amp_level not in _AMP_LEVELS:
         raise ValueError(f"amp_level must be one of {_AMP_LEVELS}, got {amp_level!r}")
@@ -109,7 +112,7 @@ def build_train_step(
         step.count += 1
         return loss_vec
 
-    step.count = 0
+    step.count = int(start_step)
     return step
 
 

@@ -1,0 +1,329 @@
+"""Training CLI: config-driven training on one CUDA GPU.
+
+Counterpart of ``tools/train.py:61-517`` on one device, in its order: the
+config and CLI overrides; the global numpy seed (``seed + rank``, :105);
+the train and val datasets and loaders (:113-247); the net, the loss and
+``NetWithLoss``; the schedule over ``len(loader_train)`` steps per epoch
+and the optimizer; the resume from ``--ckpt`` (a port checkpoint or a JAX
+package TrainState, :308); EMA; the inferencer and evaluator; the
+``EvalCallback``; the epoch loop with ``StepTimer``; the wait for pending
+checkpoint writes; and a crash checkpoint on any exception (:504-517).
+
+The loader's batches are NHWC images and HWK targets, as the JAX loader
+gives them; they are uploaded (``device_prefetch: N``: from pinned memory,
+N batches ahead) and turned to NCHW on the device, where the net and
+``joint_mse`` take them. ``device_pipeline: true`` ships the crops and
+keypoints instead, and the step renders the targets on the device. As in
+the JAX entry, a resumed run counts its epochs from 1 while the step count,
+and with it the schedule, continues.
+
+The entry runs on the current CUDA device unless ``--device`` says
+otherwise, and raises without CUDA. It raises on a config key it does not
+read and on one whose setting is not ported (each message names its
+ROADMAP item); it ignores none.
+
+Usage:
+    python3 -m mindpose_tpu_torch.tools.train --config configs/hrnet/hrnet_w32_tpu.yaml \\
+        [--device cpu] [--seed 0] [--ckpt resume.ckpt] [--cfg-options num_epochs=1 ...]
+"""
+import logging
+import os
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from ..callbacks import EvalCallback
+from ..config import parse_args
+from ..data import create_dataset, create_pipeline
+from ..data.column_names import FINAL_COLUMN_MAP
+from ..data.device_pipeline import build_topdown_preprocess, strip_host_target_transform
+from ..data.loader import DevicePrefetcher
+from ..engine import create_evaluator, create_inferencer
+from ..models import (
+    create_decoder,
+    create_eval_network,
+    create_loss,
+    create_network,
+    create_network_with_loss,
+)
+from ..optim import create_optimizer
+from ..parallel import build_ema_update, build_train_step
+from ..scheduler import create_lr_scheduler
+from ..utils.checkpoint import (
+    load_ema,
+    restore_train_state,
+    save_checkpoint,
+    wait_pending_checkpoints,
+)
+from ..utils.misc import StepTimer
+
+__all__ = ["train", "check_config", "parse_train_args"]
+
+# every key the JAX entry reads (tools/train.py), and the CLI's
+KNOWN_KEYS = frozenset("""
+    config ckpt seed device
+    distribute distributed_init parallel_mode model_parallel allow_divergent_knobs
+    dataset_format train_root train_label val_root val_label val_detection_result
+    val_use_gt_bbox num_parallel_workers dataset_setting pipeline_method normalize_mean
+    normalize_std train_transforms val_transforms device_pipeline image_bucket decode_cache_mb
+    frame_grouped_shuffle patch_grouped_batching device_prefetch batch_size num_joints
+    in_channels backbone_name backbone_setting backbone_pretrained backbone_ckpt_url neck_name
+    neck_out_channels neck_setting head_name head_setting loss loss_with_extra_input
+    loss_setting amp_level scheduler num_epochs lr warmup lr_scheduler_setting optimizer
+    weight_decay filter_bias_and_bn optimizer_setting grad_accum_steps ema_decay
+    distill_setting val_while_train val_interval save_best save_last ckpt_save_dir
+    async_checkpoint inference_method eval_method eval_metric eval_setting decoder_name
+    decoder_setting profile profile_dir
+""".split())
+
+# key -> (refused when, why); each names the ROADMAP item that ports it
+_LEFTOVERS = "ROADMAP.md, Queue 1, the training entry's leftovers"
+_REFUSED = {
+    "distributed_init": (bool, "multi-process training comes with DDP (ROADMAP.md, Queue 1, "
+                               "DDP)"),
+    "parallel_mode": (lambda v: str(v or "data").lower() != "data",
+                      "parallel_mode fsdp is not ported (ROADMAP.md, Queue 1, ViTPose: FSDP)"),
+    "model_parallel": (bool, "model_parallel serves FSDP (ROADMAP.md, Queue 1, ViTPose: FSDP)"),
+    "device_pipeline": (lambda v: str(v).lower() == "full",
+                        "device_pipeline: full is not ported (ROADMAP.md, Queue 1, device "
+                        "input pipeline)"),
+    "distill_setting": (bool, "distillation is not ported (ROADMAP.md, Queue 1, the rest: "
+                              "distillation)"),
+    "profile": (bool, f"profile is not ported ({_LEFTOVERS}; profile_train.py profiles the "
+                      "step)"),
+    "backbone_pretrained": (bool, f"load_pretrained_backbone is not ported ({_LEFTOVERS})"),
+    "allow_divergent_knobs": (bool, "the port refuses the divergent BatchNorm and optimizer "
+                                    "knobs themselves, so there is nothing to allow"),
+}
+
+
+def check_config(args: Any) -> None:
+    """Raise on a key the entry does not read, or on a setting it does not port."""
+    unknown = sorted(set(vars(args)) - KNOWN_KEYS)
+    if unknown:
+        raise ValueError(f"config keys the train entry does not read: {unknown}")
+    for key, (refused, why) in _REFUSED.items():
+        if refused(getattr(args, key, None)):
+            raise NotImplementedError(f"{key}={getattr(args, key)!r}: {why}")
+
+
+def _device(args: Any) -> torch.device:
+    device = getattr(args, "device", None)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the train entry runs on the GPU by default, and CUDA is not "
+                               "available; pass --device cpu to train on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"{torch.cuda.device_count()} CUDA devices are visible: the JAX entry trains "
+            "data-parallel over all of them, and DDP is not ported (ROADMAP.md, Queue 1, DDP); "
+            "make one visible with CUDA_VISIBLE_DEVICES")
+    return device
+
+
+def train(args: Any) -> Dict[str, Any]:
+    """Train as the config ``args`` says; returns what each epoch measured.
+
+    The result: ``epochs``, one dict per epoch (``loss``, the epoch's mean
+    summed loss; ``lr``; ``metrics``, the evaluation's, or {}; and the
+    ``StepTimer`` summary), ``start_step`` and ``step``, the step counts at
+    the start and at the end.
+    """
+    check_config(args)
+    device = _device(args)
+    seed = getattr(args, "seed", 0) or 0
+    # host augmentations draw from the global numpy stream (rank 0 of 1)
+    np.random.seed(seed)
+    workers = getattr(args, "num_parallel_workers", 4)
+
+    # ---- data ----
+    dataset_train = create_dataset(
+        args.train_root, args.train_label, dataset_format=args.dataset_format, is_train=True,
+        num_workers=workers, config=args.dataset_setting)
+    device_pipeline = bool(getattr(args, "device_pipeline", False))
+    train_transforms = args.train_transforms
+    preprocess = None
+    final_columns = FINAL_COLUMN_MAP[args.pipeline_method]["train"]
+    if device_pipeline:
+        # the host stops at the affine crop; normalize and targets run in the step
+        train_transforms, target_kwargs = strip_host_target_transform(train_transforms)
+        preprocess = build_topdown_preprocess(
+            image_size=args.dataset_setting["image_size"],
+            heatmap_size=args.dataset_setting["heatmap_size"],
+            normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
+            **target_kwargs)
+        final_columns = ["image", "keypoints"]
+    loader_train = create_pipeline(
+        dataset_train, transforms=train_transforms, method=args.pipeline_method,
+        batch_size=args.batch_size, is_train=True, normalize=not device_pipeline,
+        normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
+        num_workers=workers, config=args.dataset_setting, seed=seed,
+        final_columns=final_columns, image_bucket=getattr(args, "image_bucket", None),
+        decode_cache_mb=getattr(args, "decode_cache_mb", 0) or 0,
+        frame_grouped_shuffle=bool(getattr(args, "frame_grouped_shuffle", False)),
+        patch_grouped_batching=bool(getattr(args, "patch_grouped_batching", False)))
+
+    val_while_train = getattr(args, "val_while_train", False)
+    loader_val = None
+    if val_while_train:
+        dataset_val = create_dataset(
+            args.val_root, args.val_label, dataset_format=args.dataset_format, is_train=False,
+            use_gt_bbox_for_val=getattr(args, "val_use_gt_bbox", True),
+            detection_file=getattr(args, "val_detection_result", None),
+            num_workers=workers, config=args.dataset_setting)
+        loader_val = create_pipeline(
+            dataset_val, transforms=args.val_transforms, method=args.pipeline_method,
+            batch_size=args.batch_size, is_train=False, normalize_mean=args.normalize_mean,
+            normalize_std=args.normalize_std, num_workers=workers, config=args.dataset_setting)
+
+    # ---- model ----
+    torch.manual_seed(seed)
+    net = create_network(
+        backbone_name=args.backbone_name, head_name=args.head_name,
+        neck_name=getattr(args, "neck_name", "") or "",
+        backbone_pretrained=getattr(args, "backbone_pretrained", False),
+        backbone_ckpt_url=getattr(args, "backbone_ckpt_url", "") or "",
+        in_channels=getattr(args, "in_channels", 3), num_joints=args.num_joints,
+        backbone_args=getattr(args, "backbone_setting", None),
+        head_args=getattr(args, "head_setting", None)).to(device)
+    loss = create_loss(args.loss, **(getattr(args, "loss_setting", None) or {}))
+    net_with_loss = create_network_with_loss(
+        net, loss, has_extra_inputs=getattr(args, "loss_with_extra_input", False))
+
+    # ---- lr scheduler + optimizer ----
+    lr_scheduler = create_lr_scheduler(
+        args.scheduler, lr=args.lr, total_epochs=args.num_epochs,
+        steps_per_epoch=len(loader_train), warmup=getattr(args, "warmup", 0),
+        **(getattr(args, "lr_scheduler_setting", None) or {}))
+    optimizer = create_optimizer(
+        net, name=args.optimizer, learning_rate=args.lr,
+        weight_decay=getattr(args, "weight_decay", 0.0),
+        filter_bias_and_bn=getattr(args, "filter_bias_and_bn", True),
+        **(getattr(args, "optimizer_setting", None) or {}))
+
+    # ---- resume ----
+    ckpt = getattr(args, "ckpt", None)
+    start_step = restore_train_state(ckpt, net, optimizer) if ckpt else 0
+
+    step_fn = build_train_step(
+        net_with_loss, optimizer, lr_scheduler, preprocess=preprocess,
+        accum_steps=int(getattr(args, "grad_accum_steps", 1) or 1),
+        amp_level=getattr(args, "amp_level", "O0") or "O0", start_step=start_step)
+
+    # ---- EMA: evaluation runs on the averaged parameters ----
+    ema_decay = float(getattr(args, "ema_decay", 0.0) or 0.0)
+    ema_params = ema_step = None
+    if ema_decay:
+        if not 0.0 < ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+        ema_params = {n: p.detach().clone() for n, p in net.named_parameters()}
+        if ckpt and os.path.exists(ckpt + ".ema"):
+            for name, value in load_ema(ckpt + ".ema").items():
+                ema_params[name].copy_(value)
+            logging.info("resumed EMA params from %s", ckpt + ".ema")
+        ema_step = build_ema_update(ema_decay)
+
+    # ---- eval engines ----
+    config_name = os.path.splitext(os.path.basename(args.config))[0]
+    ckpt_dir = getattr(args, "ckpt_save_dir", "./ckpt")
+    inferencer = evaluator = None
+    if val_while_train:
+        decoder = create_decoder(args.decoder_name, **(getattr(args, "decoder_setting", None)
+                                                       or {}))
+        eval_net = create_eval_network(
+            net, decoder, output_raw=args.eval_setting.get("has_heatmap_output", True))
+        inferencer = create_inferencer(
+            eval_net, name=args.inference_method, config=args.eval_setting,
+            dataset_config=args.dataset_setting, device=device,
+            amp_level=getattr(args, "amp_level", "O0") or "O0")
+        evaluator = create_evaluator(
+            args.val_label, name=args.eval_method, metric=args.eval_metric,
+            config=args.eval_setting, dataset_config=args.dataset_setting,
+            num_joints=args.num_joints,
+            result_path=os.path.join(ckpt_dir, "result_keypoints.json"))
+
+    # ---- callback ----
+    callback = EvalCallback(
+        inferencer=inferencer, evaluator=evaluator, dataset_val=loader_val,
+        interval=getattr(args, "val_interval", 1), max_epoch=args.num_epochs,
+        save_best=getattr(args, "save_best", False), save_last=getattr(args, "save_last", False),
+        best_ckpt_path=os.path.join(ckpt_dir, f"{config_name}_best.ckpt"),
+        last_ckpt_path=os.path.join(ckpt_dir, f"{config_name}_last.ckpt"),
+        target_metric_name=(args.eval_metric[0] if isinstance(args.eval_metric, list)
+                            else args.eval_metric),
+        summary_dir=os.path.join(ckpt_dir, "summary"),
+        async_checkpoint=bool(getattr(args, "async_checkpoint", False)))
+
+    # ---- the train loop ----
+    device_prefetch = int(getattr(args, "device_prefetch", 0) or 0)
+
+    def device_batches():
+        if device_prefetch:
+            yield from DevicePrefetcher(loader_train, final_columns, device, depth=device_prefetch)
+            return
+        for batch in loader_train:
+            yield [torch.from_numpy(np.ascontiguousarray(batch[c])).to(device)
+                   for c in final_columns]
+
+    def step_inputs(arrays: List[torch.Tensor]) -> List[torch.Tensor]:
+        if preprocess is not None:  # the preprocess takes NHWC crops itself
+            return arrays
+        image, target, *extra = arrays
+        return [image.permute(0, 3, 1, 2).contiguous(),  # NHWC -> NCHW
+                target.permute(0, 3, 1, 2).contiguous(), *extra]  # NHWK -> NKHW
+
+    epochs = []
+    try:
+        for epoch in range(1, args.num_epochs + 1):
+            timer = StepTimer()  # per epoch: the first includes cuDNN's autotuning
+            callback.on_epoch_begin(epoch)
+            batches = iter(device_batches())
+            while True:
+                timer.start()
+                try:
+                    arrays = next(batches)
+                except StopIteration:
+                    break
+                timer.loaded()
+                loss_vec = step_fn(*step_inputs(arrays))
+                if ema_step is not None:
+                    ema_step(ema_params, dict(net.named_parameters()))
+                callback.on_step_end(loss_vec)
+                timer.stop(arrays[0].shape[0])
+            lr_now = lr_scheduler(step_fn.count)
+            metrics = callback.on_epoch_end(epoch, net, optimizer, step_fn.count, lr_now,
+                                            ema_params=ema_params)
+            epochs.append(dict(timer.summary(), epoch=epoch, loss=callback.loss_meter.avg,
+                               lr=lr_now, metrics=metrics))
+            logging.info("throughput: %.1f images/sec", timer.images_per_sec)
+        wait_pending_checkpoints()
+    except BaseException:
+        # persist the last state before the exception propagates
+        crash_path = os.path.join(ckpt_dir, f"{config_name}_crash.ckpt")
+        try:
+            save_checkpoint(crash_path, net, optimizer, step_fn.count)
+            logging.error("crash checkpoint saved to %s", crash_path)
+        except Exception:
+            logging.exception("failed to save crash checkpoint")
+        raise
+    return {"epochs": epochs, "start_step": start_step, "step": step_fn.count}
+
+
+def parse_train_args(argv=None) -> Any:
+    """The CLI's arguments: the config with its overrides, ``--seed`` and ``--device``."""
+    return parse_args(argv, description="mindpose_tpu_torch training", extra_args=[
+        {"names": ["--seed"], "type": int, "default": None, "help": "random seed"},
+        {"names": ["--device"], "default": None,
+         "help": "where the net trains (default: the current CUDA device)"}])
+
+
+def main() -> None:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    train(parse_train_args())
+
+
+if __name__ == "__main__":
+    main()

@@ -202,3 +202,22 @@ def test_port_checkpoint_and_cli_give_the_same_stats(fixture_args, tmp_path, mon
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_eval.evaluate(Config(**dict(fixture_args, ckpt=ckpt)))
+
+
+def test_inferencer_evaluates_a_net_a_train_step_left_in_train_mode(val_batches, nets):
+    """The train entry's callback evaluates the net it trains, which the last
+    train step left in train mode: the inferencer still runs it in eval mode
+    (running statistics, none updated), as JAX applies it with train=False."""
+    _, port = nets
+    config = {"has_heatmap_output": True, "hflip_tta": False, "shift_heatmap": False}
+    inferencer = create_inferencer(
+        create_eval_network(port, create_decoder("topdown_heatmap", **DECODER)),
+        config=config, dataset_config=SETTING, device="cpu")
+    want = inferencer(val_batches)
+    stats = {k: v.clone() for k, v in port.state_dict().items() if "running" in k}
+    port.train()
+    assert inferencer(val_batches) == want
+    assert not port.training
+    for k, v in port.state_dict().items():
+        if "running" in k:
+            assert torch.equal(v, stats[k]), k

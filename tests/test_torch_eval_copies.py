@@ -288,14 +288,13 @@ def test_val_loader_prefetches_and_stops(tiny):
 
 def test_pipeline_refuses_what_it_does_not_support(tiny):
     img_root, ann, _ = tiny
-    with pytest.raises(NotImplementedError, match="is_train"):
-        create_dataset(img_root, ann, is_train=True, config=DATASET_SETTING)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        create_dataset(img_root, ann, is_train=False, device_num=2, rank_id=1,
-                       config=DATASET_SETTING, use_gt_bbox_for_val=True)
+    for is_train in (True, False):
+        with pytest.raises(NotImplementedError, match="sharding"):
+            create_dataset(img_root, ann, is_train=is_train, device_num=2, rank_id=1,
+                           config=DATASET_SETTING, use_gt_bbox_for_val=True)
     ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
                         use_gt_bbox_for_val=True)
-    for kwargs in ({"is_train": True}, {"method": "bottomup"}, {"decode_cache_mb": 64},
+    for kwargs in ({"method": "bottomup"}, {"decode_cache_mb": 64},
                    {"image_bucket": 32}, {"hwc_to_chw": True}, {"frame_grouped_shuffle": True},
                    {"patch_grouped_batching": True}):
         with pytest.raises(NotImplementedError):

@@ -119,3 +119,29 @@ def test_chip_smoke_config_literal_equals_the_yaml():
         cfg = yaml.safe_load(f)
     want = {key: cfg[key] for key in chip_smoke.HRNET_W32.keys() if key in cfg}
     assert chip_smoke.HRNET_W32 == want
+
+
+def test_joint_helpers():
+    """fliplr_joints (by pairs and by index), affine_transform and warp_affine_joints."""
+    rng = np.random.RandomState(4)
+    pairs = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14], [15, 16]]
+    for _ in range(20):
+        kpts = np.concatenate([rng.uniform(-20, 500, (17, 2)), rng.randint(0, 2, (17, 1))],
+                              axis=1).astype(np.float32)
+        width = int(rng.randint(1, 800))
+        for kwargs in ({"flip_pairs": pairs}, {"flip_index": utils.flip_index_from_pairs(pairs)}):
+            got, want = utils.fliplr_joints(kpts, width, **kwargs), jax_utils.fliplr_joints(
+                kpts, width, **kwargs)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+        mat = rng.randn(2, 3) * [[1, 1, 100]]
+        for k in range(17):
+            np.testing.assert_array_equal(utils.affine_transform(kpts[k, :2], mat),
+                                          jax_utils.affine_transform(kpts[k, :2], mat))
+        for m in (mat, mat.astype(np.float32)):
+            got, want = utils.warp_affine_joints(kpts[:, :2], m), jax_utils.warp_affine_joints(
+                kpts[:, :2], m)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="flip_index"):
+        utils.fliplr_joints(np.zeros((5, 3)), 10, flip_index=np.arange(4))
