@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's top-down HRNet-W32 paths once on one CUDA GPU.
+"""Drive the PyTorch port's top-down paths (HRNet-W32, SimpleBaseline) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -67,16 +67,39 @@ no result, when there is no CUDA device or when any phase fails:
     launch per val batch per evaluation, the best and last checkpoints
     written, the last one's 10 COCO stats through the eval entry equal to
     the callback's within 1e-4, and a one-epoch resume from it starting at
-    its step count (its batches through ``DevicePrefetcher``).
+    its step count (its batches through ``DevicePrefetcher``);
+13. training configs/udp/resnet50_udp_tpu.yaml (ResNet-50 +
+    simple_baseline_head at full width, O2, batch 128, adamw, host UDP
+    targets), then configs/simple_baseline/resnet50_tpu.yaml, through the
+    train entry on phase 12's data for 6 epochs of 10 steps each,
+    evaluating once after the last, overridden as phase 12: img/s with the
+    loader, the step's median, peak memory; each holds finite losses, the
+    last epoch's below the first's, AP above 0 and one decode launch per
+    val batch;
+14. each run's last checkpoint through the eval entry (the callback's 10
+    stats within 1e-4), the UDP one with ``dark_udp_refine`` off and on,
+    one decode launch per eval batch in all; on one real eval heatmap the
+    DARK decoder's device operations (torch.profiler) and device time per
+    32-crop chunk, and the DARK decoder on the card against its CPU run
+    (keypoints within 1e-3 px, scores bitwise);
+15. the same checkpoint through the serving entry (``tools/serve.py``:
+    ``build_service`` behind ``build_http_server`` on 127.0.0.1 at an
+    ephemeral port): ``GET /healthz``, ``POST /predict`` with 1, 5 and 40
+    boxes over real HTTP, one decode launch per 32-crop chunk, latency over
+    20 runs each; the 5-box answer against the same service on the CPU;
+    then resnet101_tpu.yaml and resnet152_tpu.yaml with random weights from
+    a numpy seed through the same entry, a 40-box request each; every
+    server shut down and no thread of the phase left.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there.
+started is still there after phase 15.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import base64
 import copy
 import ctypes
 import itertools
@@ -87,12 +110,15 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
+import cv2
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from mindpose_tpu_torch.config import Config
 from mindpose_tpu_torch.data import create_dataset, create_pipeline
@@ -102,12 +128,13 @@ from mindpose_tpu_torch.data.device_pipeline import (
     strip_host_target_transform,
 )
 from mindpose_tpu_torch.data.transform import box_to_center_scale
-from mindpose_tpu_torch.engine import TopDownPredictor, create_inferencer
+from mindpose_tpu_torch.engine import TopDownPredictor, build_http_server, create_inferencer
 from mindpose_tpu_torch.models import (
     create_decoder,
     create_eval_network,
     create_loss,
     create_network,
+    create_network_from_config,
     create_network_with_loss,
 )
 from mindpose_tpu_torch.ops.cuda.build import load_library
@@ -129,6 +156,7 @@ from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+from mindpose_tpu_torch.tools import serve as serve_entry
 from mindpose_tpu_torch.tools import train as train_entry
 from mindpose_tpu_torch.tools.eval import evaluate
 from mindpose_tpu_torch.utils.checkpoint import (
@@ -291,6 +319,15 @@ ENTRY_RESUME_PREFETCH = 2  # batches the resume's DevicePrefetcher keeps in flig
 ENTRY_STATS_ATOL = 1e-4  # the last checkpoint through the eval entry against the callback
 RECIPE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "hrnet",
                            "hrnet_w32_tpu.yaml")
+# Phases 13-15: the SimpleBaseline recipes. Phase 13 trains the UDP recipe and
+# the plain one on phase 12's data for 6 epochs of 10 steps each, evaluating
+# once, after the last
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+UDP_YAML = os.path.join(CONFIGS, "udp", "resnet50_udp_tpu.yaml")
+SB_YAML = os.path.join(CONFIGS, "simple_baseline", "resnet50_tpu.yaml")
+SB_DEEPER = {arch: os.path.join(CONFIGS, "simple_baseline", f"{arch}_tpu.yaml")
+             for arch in ("resnet101", "resnet152")}
+SB_EPOCHS = 6
 
 
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
@@ -458,12 +495,26 @@ def cycling(fn, inputs):
 
 def device_ops(fn) -> list:
     """Names of the device operations (kernels, copies) of one call of ``fn``,
-    from torch.profiler."""
+    from torch.profiler: the second of two calls in one trace, 10 ms apart.
+    A profiler trace that is not the process's first may miss the device
+    operations at its start (on the H100: 53 of the DARK decoder's 78, the decode
+    kernel among the missing). The cut lies 5 ms before the host enters the
+    second call, so an offset between the host's and the device's
+    timelines below that moves no operation across it."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        time.sleep(0.01)
+        with record_function("chip_smoke.measured_call"):  # the mark below
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    mark = "chip_smoke.measured_call"
+    cut = next(e.time_range.start for e in events if e.name == mark) - 5000
+    # the profiler also lays the marker's range on the device's timeline
+    return [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.time_range.start >= cut and e.name != mark]
 
 
 def decode_bound_ms(n: int) -> float:
@@ -820,21 +871,20 @@ def serve(predictor: TopDownPredictor, image, requests) -> dict:
     return {"launches": launches}
 
 
-def compare_with_cpu(net: nn.Module, predictor: TopDownPredictor, image, boxes) -> None:
-    """Phase 5: the same request through the port on the GPU and on the CPU.
+def compare_with_cpu(predictor: TopDownPredictor, cpu_predictor: TopDownPredictor, image, boxes,
+                     xy_atol: float = 0.0, answers=None) -> None:
+    """Phase 5 (and 15): the same request through the port on the GPU and on the CPU.
 
     The heatmaps are compared at the precision the predictor serves in: its
-    calls have left TF32 off.
+    calls have left TF32 off. Keypoints whose heatmap peak is clear agree
+    within ``xy_atol`` px (phase 5: exactly). ``answers``: the GPU's and the
+    CPU's keypoints for the request, when the caller has them already.
     """
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     print(f"card-vs-CPU: after serving, cudnn.allow_tf32, cuda.matmul.allow_tf32 = {tf32}")
     if any(tf32):
         raise AssertionError("the predictor did not serve in full float32")
-    cpu_net = copy.deepcopy(net).cpu()
-    cpu_predictor = TopDownPredictor(
-        cpu_net, HRNET_W32["dataset_setting"], HRNET_W32["decoder_setting"],
-        HRNET_W32["normalize_mean"], HRNET_W32["normalize_std"], batch_size=BATCH_SIZE,
-        device=torch.device("cpu"))
+    net, cpu_net = predictor.net, cpu_predictor.net
     with torch.inference_mode():
         x_gpu, _, _ = predictor.preprocess(image, boxes)
         x_cpu, _, _ = cpu_predictor.preprocess(image, boxes)
@@ -848,15 +898,15 @@ def compare_with_cpu(net: nn.Module, predictor: TopDownPredictor, image, boxes) 
     if heat_err > tol:
         raise AssertionError("GPU and CPU heatmaps disagree beyond the tolerance")
 
-    preds_gpu = predictor(image, boxes)
-    preds_cpu = cpu_predictor(image, boxes)
+    preds_gpu, preds_cpu = answers or (predictor(image, boxes), cpu_predictor(image, boxes))
     top2 = torch.topk(heat_cpu.flatten(2), 2, dim=2).values
     # a peak that leads by more than both maps' error can not change place
     qualified = ((top2[..., 0] - top2[..., 1]) > 2 * tol).numpy()
-    same = (preds_gpu[..., :2] == preds_cpu[..., :2]).all(-1)
+    same = (np.abs(preds_gpu[..., :2] - preds_cpu[..., :2]) <= xy_atol).all(-1)
     print(f"card-vs-CPU keypoints: {int(qualified.sum())} of {qualified.size} joints have a "
-          f"top-2 gap > {2 * tol:.3e}; {int(same[qualified].sum())} of them agree exactly")
-    if not same[qualified].all():
+          f"top-2 gap > {2 * tol:.3e}; {int(same[qualified].sum())} of them agree "
+          + (f"within {xy_atol} px" if xy_atol else "exactly"))
+    if not qualified.any() or not same[qualified].all():
         raise AssertionError("keypoints differ where the heatmap peak is clear")
     score_err = float(np.abs(preds_gpu[..., 2] - preds_cpu[..., 2]).max())
     if score_err > tol:
@@ -1498,7 +1548,299 @@ def train_through_entry(root: str, phase9: dict, device: torch.device) -> dict:
             and resumed["step"] == saved_step + steps):
         raise AssertionError("the resumed run did not continue the step count")
     return {"launches": launches, "loader": loader_rates, "images_per_sec": rate,
-            "wait_per_step_s": wait}
+            "wait_per_step_s": wait, "data": data}
+
+
+def entry_epochs(label: str, epochs: list) -> float:
+    """Print each epoch of a run of the train entry; returns the img/s of
+    epochs 2 on (the first includes cuDNN's autotuning)."""
+    for e in epochs:
+        ap = f", AP {float(e['metrics']['AP']):.6f}" if e["metrics"] else ""
+        print(f"{label} epoch {e['epoch']}: loss {e['loss']:.6g}, lr {e['lr']:.6g}; "
+              f"{e['images_per_sec']:.1f} img/s with the loader feeding the step; step median "
+              f"{e['step_median_s'] * 1e3:.1f} ms; wait on next(batches) median "
+              f"{e['wait_median_s'] * 1e3:.1f} ms, {e['wait_total_s']:.2f} s in all over "
+              f"{e['steps']} steps{ap}")
+    warm = epochs[1:]
+    return sum(e["images"] for e in warm) / sum(e["images"] / e["images_per_sec"] for e in warm)
+
+
+def train_simple_baseline(root: str, data: dict, device: torch.device, recipe: str) -> dict:
+    """Phase 13: a SimpleBaseline recipe (``UDP_YAML`` or ``SB_YAML``) through the train entry.
+
+    ResNet-50 + simple_baseline_head at full width, O2, batch 128, adamw,
+    host targets (UDP ones for ``UDP_YAML``), on phase 12's synthetic COCO;
+    overridden as phase 12 overrides: the data paths, ``num_epochs``,
+    ``warmup``, ``val_interval`` (one evaluation, after the last epoch) and
+    ``ckpt_save_dir``. It holds: finite losses, the last epoch's below the
+    first's, AP above 0, one decode launch per val batch, the last
+    checkpoint written. Returns the run's numbers and the parsed config.
+    """
+    name = os.path.splitext(os.path.basename(recipe))[0]
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    ckpt_dir = os.path.join(root, name)
+    args = train_entry.parse_train_args(
+        ["--config", recipe, "--device", str(device), "--cfg-options",
+         f"train_root={train_root}", f"train_label={train_label}", f"val_root={val_root}",
+         f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}", f"num_epochs={SB_EPOCHS}",
+         f"warmup={ENTRY_WARMUP}", f"val_interval={SB_EPOCHS}"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    argmax_shift_decode.launches = 0
+    result = train_entry.train(args)
+    launches = argmax_shift_decode.launches
+    train_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    epochs = result["epochs"]
+    rate = entry_epochs(name, epochs)
+    steps = sum(e["steps"] for e in epochs)
+    step_median_ms = statistics.median(e["step_median_s"] for e in epochs[1:]) * 1e3
+    print(f"{name} ({args.amp_level}, batch {args.batch_size}): "
+          f"epochs 2-{len(epochs)} {rate:.1f} img/s with the loader feeding the step, median of "
+          f"the epochs' step medians {step_median_ms:.1f} ms; {steps} steps and the evaluation "
+          f"in {train_s:.1f} s; peak torch.cuda.max_memory_allocated {peak} B "
+          f"({peak / 2**30:.2f} GiB)")
+    evals = [e for e in epochs if e["metrics"]]
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    losses = [e["loss"] for e in epochs]
+    stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
+    print(f"{name}: {len(evals)} evaluation(s) of {val_batches} batch(es), decode kernel "
+          f"launches {launches}; stats {json.dumps(stats)}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}'s losses are not finite or did not fall: {losses}")
+    if not stats["AP"] > 0:
+        raise AssertionError(f"{name}'s evaluation gave AP 0")
+    if launches != len(evals) * val_batches:
+        raise AssertionError(f"{len(evals)} evaluations of {val_batches} batches made "
+                             f"{launches} decode launches")
+    last_path = os.path.join(ckpt_dir, f"{name}_last.ckpt")
+    if not os.path.isfile(last_path):
+        raise AssertionError(f"the callback did not write {last_path}")
+    return {"launches": launches, "name": name, "args": args, "ckpt": last_path, "stats": stats,
+            "images_per_sec": rate, "step_median_ms": step_median_ms, "peak_bytes": peak,
+            "steps": steps}
+
+
+def eval_checkpoint(root: str, trained: dict, device: torch.device, dark: bool) -> dict:
+    """Phase 14: a phase-13 run's last checkpoint through the eval entry with
+    ``dark_udp_refine`` as given (one decode launch per eval batch); with it
+    off, the 10 stats equal the callback's within ``ENTRY_STATS_ATOL``."""
+    args, name = trained["args"], trained["name"]
+    run_args = Config(**dict(vars(args), ckpt=trained["ckpt"], result_path=os.path.join(
+        root, f"{name}_result_dark_{dark}.json"), decoder_setting=dict(
+            args.decoder_setting, dark_udp_refine=dark)))
+    run = run_eval(run_args, device, f"{name} checkpoint, dark_udp_refine {dark}")
+    if not dark:
+        worst = max(abs(float(run["stats"][k]) - trained["stats"][k]) for k in trained["stats"])
+        print(f"{name} checkpoint through the eval entry against the callback's stats: max "
+              f"|diff| {worst:.2e} (tolerance {ENTRY_STATS_ATOL})")
+        if worst > ENTRY_STATS_ATOL:
+            raise AssertionError(f"{name}'s checkpoint gives other stats than the callback's")
+    return run
+
+
+def eval_simple_baseline(root: str, trained: dict, device: torch.device) -> dict:
+    """Phase 14: phase 13's UDP checkpoint through the eval entry with
+    ``dark_udp_refine`` off and on (``eval_checkpoint``). Then, on one real
+    eval batch's heatmap: the DARK decoder's device operations
+    (torch.profiler) and device time per 32-crop chunk beside the decoder
+    without it, and the DARK decoder on the card against its CPU run
+    (coordinates within ``EVAL_XY_ATOL`` px, scores bitwise)."""
+    args = trained["args"]
+    runs = {dark: eval_checkpoint(root, trained, device, dark) for dark in (False, True)}
+
+    net = create_network_from_config(args)
+    net.load_state_dict(load_net_state_dict(trained["ckpt"], net), strict=True)
+    batch = next(iter(eval_loader(args, args.batch_size)))
+    inferencer = eval_inferencer(net, args, device, args.amp_level, False)
+    image = torch.from_numpy(batch["image"]).to(device).permute(0, 3, 1, 2).contiguous()
+    heat = inferencer.heatmaps(image).float()
+    crops = [torch.from_numpy(np.asarray(batch[k], np.float32)).to(device)
+             for k in ("center", "scale", "bbox_scores")]
+    dark = create_decoder(args.decoder_name, **dict(args.decoder_setting, dark_udp_refine=True))
+    plain = create_decoder(args.decoder_name, **args.decoder_setting)
+    chunk = (heat[:BATCH_SIZE].contiguous(), *(t[:BATCH_SIZE].contiguous() for t in crops))
+    ops = device_ops(lambda: dark(*chunk))
+    kernels = sum("heatmap_decode_kernel" in name for name in ops)
+    dark_ms = time_ms(lambda: dark(*chunk), queued=True, iters=PLAIN_ITERS)
+    plain_ms = time_ms(lambda: plain(*chunk), queued=True)
+    dark_back_ms = time_ms(lambda: dark(*chunk), queued=False, iters=PLAIN_ITERS)
+    print(f"DARK decoder call on a [{BATCH_SIZE},17,64,48] eval heatmap under torch.profiler: "
+          f"{len(ops)} device operations, {kernels} of them the decode kernel, the rest the "
+          f"refinement and back-projection ({len(set(ops))} kinds)")
+    if kernels != 1:
+        raise AssertionError(f"the DARK decoder ran {kernels} decode kernels, not 1: {ops}")
+    print(f"decoder per {BATCH_SIZE}-crop chunk of an eval heatmap, device time: DARK "
+          f"{dark_ms:.5f} ms, without DARK (one kernel launch) {plain_ms:.5f} ms; DARK per call "
+          f"back to back {dark_back_ms:.5f} ms")
+
+    argmax_shift_decode.launches = 0
+    preds_gpu, boxes_gpu = (t.cpu() for t in dark(heat, *crops))
+    launches = argmax_shift_decode.launches
+    preds_cpu, boxes_cpu = dark(heat.cpu(), *(t.cpu() for t in crops))
+    xy_err = float((preds_gpu[..., :2] - preds_cpu[..., :2]).abs().max())
+    scores_equal = bitwise_equal(preds_gpu[..., 2], preds_cpu[..., 2])
+    print(f"DARK decoder on the card against its CPU run, {len(heat)} crops of a real eval "
+          f"heatmap: keypoints max |diff| {xy_err:.3e} px (tolerance {EVAL_XY_ATOL}), scores "
+          f"bitwise equal {scores_equal}; {launches} decode launch")
+    if not (xy_err <= EVAL_XY_ATOL and scores_equal and launches == 1
+            and torch.allclose(boxes_gpu, boxes_cpu, rtol=1e-6, atol=0)):
+        raise AssertionError("the DARK decoder on the card disagrees with its CPU run")
+    return {"launches": runs[False]["launches"], "dark_launches": runs[True]["launches"],
+            "batches": runs[True]["batches"], "dark_ms": dark_ms, "dark_ops": len(ops),
+            "plain_ms": plain_ms}
+
+
+def post(url: str, payload: dict) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"POST {url}: HTTP {resp.status}")
+        return json.loads(resp.read())
+
+
+class HttpService:
+    """``build_http_server`` on 127.0.0.1 at an ephemeral port, served from a
+    thread; ``close`` shuts it down, closes the service and joins the thread."""
+
+    def __init__(self, service) -> None:
+        self.service = service
+        self.httpd, port = build_http_server(service, host="127.0.0.1", port=0)
+        self.url = f"http://127.0.0.1:{port}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, name="chip-smoke-http")
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.service.close()
+        self.thread.join(timeout=30)
+        if self.thread.is_alive():
+            raise AssertionError("the HTTP server's thread did not end")
+
+
+def serve_request(url: str, payload: dict, boxes: np.ndarray) -> np.ndarray:
+    preds = np.asarray(post(url + "/predict", payload)["predictions"], np.float32)
+    check_preds(preds, boxes)
+    return preds
+
+
+def time_requests(url: str, payloads: list, requests: list) -> list:
+    """``REPEATS`` timed runs of each request over HTTP (host clock around the
+    round trip, the client in this process); beside it the service's own
+    ``latency_ms`` (the predictor's call, after the image is decoded).
+    Returns the median round trips."""
+    medians = []
+    for payload, boxes in zip(payloads, requests):
+        runs, served = [], []
+        for _ in range(REPEATS):
+            start = time.perf_counter()
+            served.append(post(url + "/predict", payload)["latency_ms"])
+            runs.append((time.perf_counter() - start) * 1e3)
+        medians.append(statistics.median(runs))
+        print(f"serving entry, {len(boxes)} boxes over HTTP, {REPEATS} runs: median "
+              f"{medians[-1]:.3f} ms, min {min(runs):.3f}, max {max(runs):.3f}; "
+              f"{len(boxes) * REPEATS / (sum(runs) / 1e3):.1f} crops/s; of it the predictor "
+              f"(the service's latency_ms) median {statistics.median(served):.3f} ms")
+    return medians
+
+
+def serve_simple_baseline(root: str, trained: dict, device: torch.device) -> dict:
+    """Phase 15: phase 13's checkpoint through the serving entry.
+
+    ``tools/serve.build_service`` on resnet50_udp_tpu.yaml with ``--ckpt``,
+    behind ``build_http_server`` on 127.0.0.1: ``GET /healthz``, then
+    ``POST /predict`` with 1, 5 and 40 boxes over real HTTP (one decode
+    launch per 32-crop chunk), each timed over ``REPEATS`` runs; the 5-box
+    answer against the same service on the CPU (phase 5's tolerance, the
+    keypoints within ``EVAL_XY_ATOL`` px: the card's UDP back-projection
+    multiplies by the float reciprocal of 47 where the CPU divides). Then
+    resnet101_tpu.yaml and resnet152_tpu.yaml through the same entry, with
+    random weights from a numpy seed written as a port checkpoint, answering
+    a 40-box request each. Every server is shut down and its thread joined;
+    no thread of this phase is left.
+    """
+    threads_before = set(threading.enumerate())
+    image, requests = make_requests(np.random.RandomState(SEED + 20))
+    ok, png = cv2.imencode(".png", cv2.cvtColor(image, cv2.COLOR_RGB2BGR))  # lossless
+    if not ok:
+        raise RuntimeError("cv2 could not encode the request image")
+    image_b64 = base64.b64encode(png.tobytes()).decode()
+    payloads = [{"image_b64": image_b64, "boxes": b.tolist()} for b in requests]
+    chunks = sum(-(-len(b) // BATCH_SIZE) for b in requests)
+
+    args = serve_entry.parse_serve_args(["--config", UDP_YAML, "--ckpt", trained["ckpt"],
+                                         "--batch-size", str(BATCH_SIZE)])
+    start = time.perf_counter()
+    service = serve_entry.build_service(args, batch_size=args.batch_size, device=device)
+    print(f"serving entry: resnet50_udp_tpu.yaml with phase 13's checkpoint built in "
+          f"{time.perf_counter() - start:.2f} s")
+    http = HttpService(service)
+    try:
+        with urllib.request.urlopen(http.url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        print(f"serving entry GET /healthz: {health}")
+        if health != {"status": "ok", "mode": "topdown", "num_joints": 17}:
+            raise AssertionError(f"unexpected /healthz answer {health}")
+        serve_request(http.url, payloads[-1], requests[-1])  # warm-up
+        torch.cuda.synchronize()
+        argmax_shift_decode.launches = 0
+        answers = [serve_request(http.url, p, b) for p, b in zip(payloads, requests)]
+        launches = argmax_shift_decode.launches
+        print(f"serving entry: decode kernel launches {launches} for requests of "
+              f"{[len(b) for b in requests]} boxes ({chunks} chunks)")
+        if launches != chunks:
+            raise AssertionError(f"{chunks} chunks made {launches} decode launches")
+        medians = time_requests(http.url, payloads, requests)
+    finally:
+        http.close()
+
+    cpu_service = serve_entry.build_service(args, batch_size=args.batch_size,
+                                            device=torch.device("cpu"))
+    cpu_answer = np.asarray(cpu_service.predict(payloads[1])["predictions"], np.float32)
+    cpu_service.close()
+    compare_with_cpu(service.predictor, cpu_service.predictor, image, requests[1],
+                     xy_atol=EVAL_XY_ATOL, answers=(answers[1], cpu_answer))
+    del service, cpu_service
+    torch.cuda.empty_cache()
+
+    deeper = {}
+    for arch, yaml_path in SB_DEEPER.items():
+        arch_args = serve_entry.parse_serve_args(["--config", yaml_path, "--batch-size",
+                                                  str(BATCH_SIZE)])
+        net = create_network_from_config(arch_args)
+        random_weights_(net, device)
+        arch_args.ckpt = os.path.join(root, f"{arch}_random.ckpt")
+        save_checkpoint(arch_args.ckpt, net)
+        del net
+        service = serve_entry.build_service(arch_args, batch_size=arch_args.batch_size,
+                                            device=device)
+        http = HttpService(service)
+        try:
+            serve_request(http.url, payloads[-1], requests[-1])  # warm-up
+            torch.cuda.synchronize()
+            argmax_shift_decode.launches = 0
+            serve_request(http.url, payloads[-1], requests[-1])
+            arch_launches = argmax_shift_decode.launches
+            print(f"serving entry, {os.path.basename(yaml_path)} (random weights, numpy seed "
+                  f"{SEED}): decode kernel launches {arch_launches} for 40 boxes")
+            if arch_launches != -(-40 // BATCH_SIZE):
+                raise AssertionError(f"{arch}: 40 boxes made {arch_launches} decode launches")
+            (median,) = time_requests(http.url, payloads[-1:], requests[-1:])
+        finally:
+            http.close()
+        deeper[arch] = {"launches": arch_launches, "latency_ms": median}
+        launches += arch_launches
+        del service
+        torch.cuda.empty_cache()
+
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    print(f"serving entry: threads left running after shutdown: {left or 'none'}")
+    if left:
+        raise AssertionError(f"the serving phase left threads running: {left}")
+    return {"launches": launches, "latency_ms": medians, "deeper": deeper}
 
 
 def main() -> int:
@@ -1531,8 +1873,12 @@ def main() -> int:
     image, requests = make_requests(np.random.RandomState(SEED))
     served = serve(predictor, image, requests)
 
-    compare_with_cpu(net, predictor, image, requests[1])
-    del predictor
+    cpu_predictor = TopDownPredictor(
+        copy.deepcopy(net).cpu(), HRNET_W32["dataset_setting"], HRNET_W32["decoder_setting"],
+        HRNET_W32["normalize_mean"], HRNET_W32["normalize_std"], batch_size=BATCH_SIZE,
+        device=torch.device("cpu"))
+    compare_with_cpu(predictor, cpu_predictor, image, requests[1])
+    del predictor, cpu_predictor
     torch.cuda.empty_cache()
 
     check_conv_chain(device)
@@ -1549,7 +1895,15 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         entry = train_through_entry(root, phase9, device)
-    stop_worker_servers()
+        stop_worker_servers()
+        torch.cuda.empty_cache()
+        trained = train_simple_baseline(root, entry["data"], device, UDP_YAML)
+        torch.cuda.empty_cache()
+        plain = train_simple_baseline(root, entry["data"], device, SB_YAML)
+        torch.cuda.empty_cache()
+        plain_eval = eval_checkpoint(root, plain, device, dark=False)
+        sb_eval = eval_simple_baseline(root, trained, device)
+        sb_served = serve_simple_baseline(root, trained, device)
     check_no_processes_left()
 
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
@@ -1560,11 +1914,16 @@ def main() -> int:
         "route": "cuda",
         "source": "mindpose_tpu_torch/csrc/decode.cu",
         "replaces": "mindpose_tpu/ops/pallas/decode.py:27",
-        # serving's launches, evaluation's and the training entry's callback's
-        # (one per eval batch)
-        "launches": served["launches"] + evaluated["launches"] + entry["launches"],
-        "eval_launches": evaluated["launches"],
-        "train_eval_launches": entry["launches"],
+        # serving's launches, evaluation's (phases 8 and 14), the training
+        # entry's callbacks' (phases 12 and 13: one per eval batch), the DARK
+        # evaluation's (phase 14) and the serving entry's (phase 15)
+        "launches": (served["launches"] + evaluated["launches"] + entry["launches"]
+                     + trained["launches"] + plain["launches"] + plain_eval["launches"]
+                     + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]),
+        "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
+        "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
+        "dark_launches": sb_eval["dark_launches"],
+        "serve_entry_launches": sb_served["launches"],
         "eval_batches": evaluated["batches"],
         "max_abs_err": decode_err,
         # [32,17,64,48] as served, shift off (hrnet_w32_tpu.yaml), warm in L2
@@ -1586,6 +1945,11 @@ def main() -> int:
         # the kernel on an eval batch's heatmap [128,17,64,48], as evaluation calls it
         "eval_ms": evaluated["decode_ms"],
         "eval_bound_ms": evaluated["decode_bound_ms"],
+        # the DARK decoder per 32-crop chunk of a ResNet-50 eval heatmap
+        # (device time; the kernel's argmax, then plain PyTorch) and its
+        # device operations per call
+        "dark_decoder_ms": sb_eval["dark_ms"],
+        "dark_decoder_device_ops": sb_eval["dark_ops"],
     }, {
         "name": "fused_conv_chain",
         "route": "cuda",

@@ -8,13 +8,17 @@ the crop (a bilinear warp by gather, ``ops/image.affine_warp``, in place of
 the JAX predictor's cv2.warpAffine), normalization, the forward pass and the
 decode, whose argmax+shift is the hand-written kernel on a CUDA device.
 """
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.transform.topdown_transform import box_to_center_scale, crop_matrix
-from ..models.model_factory import create_decoder, create_eval_network
+from ..models.model_factory import (
+    create_decoder,
+    create_eval_network,
+    create_network_from_config,
+)
 from ..ops.image import affine_warp, normalize_image
 
 __all__ = ["TopDownPredictor"]
@@ -33,7 +37,8 @@ class TopDownPredictor:
             many. A partial chunk is not padded: the JAX predictor pads it so
             that XLA never recompiles, and eval-mode rows are independent, so
             padding would change nothing here but the work done.
-        quantize: only "" (float32); int8 weights are not ported yet.
+        quantize: only "" (float32); "int8" is refused (not ported yet),
+            any other value is an error, as in the JAX predictor.
         device: where crop, forward and decode run. Default: the current
             CUDA device; without CUDA the default raises, and a caller who
             wants the CPU passes ``device="cpu"``.
@@ -56,8 +61,11 @@ class TopDownPredictor:
         quantize: str = "",
         device: Optional[torch.device] = None,
     ) -> None:
+        if quantize == "int8":
+            raise NotImplementedError(
+                "int8 weights are not ported (ROADMAP.md, Queue 1, the rest: int8)")
         if quantize:
-            raise NotImplementedError(f"quantize={quantize!r} is not ported yet")
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if device is None:
@@ -76,6 +84,38 @@ class TopDownPredictor:
         self.use_udp = bool(decoder_setting.get("use_udp", False))
         decoder = create_decoder(decoder_name, **decoder_setting)
         self._eval_net = create_eval_network(net.to(self.device), decoder, output_raw=False)
+
+    @classmethod
+    def from_config(cls, args: Any, net_state: Mapping[str, torch.Tensor],
+                    **kwargs: Any) -> "TopDownPredictor":
+        """Build from a parsed config namespace and the net's weights.
+
+        The net is the one the config names (``backbone_name``,
+        ``head_name``, ``backbone_setting``, ``head_setting``, ...);
+        ``net_state`` loads into it strictly (the net is built without
+        initializing its weights, which ``net_state`` overwrites all). The
+        config's dataset, decoder and normalization settings pass through;
+        ``kwargs`` (``batch_size``, ``quantize``, ``device``) go to the
+        constructor.
+        """
+        with torch.device("meta"):
+            net = create_network_from_config(args)
+        net = net.to_empty(device="cpu")
+        net.load_state_dict(net_state, strict=True)
+        return cls(
+            net,
+            dataset_setting=args.dataset_setting,
+            decoder_setting=getattr(args, "decoder_setting", None),
+            normalize_mean=args.normalize_mean,
+            normalize_std=args.normalize_std,
+            decoder_name=getattr(args, "decoder_name", "topdown_heatmap") or "topdown_heatmap",
+            **kwargs,
+        )
+
+    @property
+    def net(self) -> torch.nn.Module:
+        """The served net (eval mode, on ``self.device``)."""
+        return self._eval_net.net
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)

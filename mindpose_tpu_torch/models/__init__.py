@@ -6,6 +6,7 @@ from .model_factory import (  # noqa: F401
     create_head,
     create_loss,
     create_network,
+    create_network_from_config,
     create_network_with_loss,
 )
 from .networks import EvalNet, Net, NetWithLoss  # noqa: F401

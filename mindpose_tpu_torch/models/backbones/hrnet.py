@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ...register import register
-from ..common import BatchNorm2d, conv1x1, conv3x3, resize_nearest
+from ..common import BatchNorm2d, check_bn_settings, conv1x1, conv3x3, resize_nearest
 from .backbone import Backbone
 from .resnet import BasicBlock, Bottleneck
 
@@ -238,15 +238,7 @@ def _hrnet(width: int, pretrained: bool, in_channels: int, kwargs: Dict[str, Any
             "(mindpose_tpu_torch.models.convert), not at build")
     if kwargs.get("remat", False):
         raise NotImplementedError("remat is not ported (no memory need shown on the GPU yet)")
-    grad_stats = kwargs.get("bn_grad_stats", "exact")
-    stats_frac = float(kwargs.get("bn_stats_frac", 1.0))
-    if grad_stats not in ("exact", "fused", "frozen", "frozen_var"):
-        raise ValueError(
-            f"bn_grad_stats must be 'exact', 'fused', 'frozen_var' or 'frozen', got {grad_stats!r}")
-    if grad_stats in ("frozen", "frozen_var") or stats_frac < 1.0:
-        raise NotImplementedError(
-            f"bn_grad_stats={grad_stats!r}, bn_stats_frac={stats_frac} are not ported: "
-            "both were measured to diverge (docs/performance.md:103-122)")
+    check_bn_settings(kwargs.get("bn_grad_stats", "exact"), kwargs.get("bn_stats_frac", 1.0))
     return HRNet(w_cfg(width), in_channels=in_channels)
 
 

@@ -2,9 +2,11 @@
 
 Counterpart of mindpose_tpu/models/common.py. ``BatchNorm2d`` stands for
 its ``batch_norm``; the JAX package's TPU-only BatchNorm knobs are checked
-once, where a backbone is built from its settings (``backbones/hrnet.py``).
+once, where a backbone or head is built from its settings
+(``check_bn_settings``).
 """
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -12,6 +14,7 @@ from torch import nn
 
 __all__ = [
     "BatchNorm2d",
+    "check_bn_settings",
     "conv1x1",
     "conv3x3",
     "he_normal_",
@@ -19,9 +22,15 @@ __all__ = [
 ]
 
 
-def he_normal_(weight: torch.Tensor) -> torch.Tensor:
-    """flax ``he_normal``: truncated (+-2 sd) normal with variance 2 / fan_in."""
-    fan_in = weight[0].numel()
+def he_normal_(weight: torch.Tensor, fan_in: Optional[int] = None) -> torch.Tensor:
+    """flax ``he_normal``: truncated (+-2 sd) normal with variance 2 / fan_in.
+
+    ``fan_in`` defaults to a conv weight's ``I * kh * kw``; a transposed
+    conv's weight is [I, O, kh, kw], and flax counts its fan-in as I * kh * kw
+    too, so its caller passes that.
+    """
+    if fan_in is None:
+        fan_in = weight[0].numel()
     # 0.8796... is the sd of a unit normal truncated to +-2; dividing by it
     # restores the target variance, as flax's variance_scaling does
     std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
@@ -70,6 +79,23 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
         return y.to(x.dtype)
+
+
+def check_bn_settings(bn_grad_stats: str = "exact", bn_stats_frac: float = 1.0) -> None:
+    """Accept the JAX package's exact BatchNorm settings, refuse the divergent ones.
+
+    ``bn_grad_stats: fused`` (exact BN with a hand-written backward) changes
+    no result and builds plain BN here; subsampled statistics
+    (``bn_stats_frac < 1``) and frozen-statistic gradients (``frozen``,
+    ``frozen_var``) were measured to diverge (docs/performance.md:103-122).
+    """
+    if bn_grad_stats not in ("exact", "fused", "frozen", "frozen_var"):
+        raise ValueError(
+            f"bn_grad_stats must be 'exact', 'fused', 'frozen_var' or 'frozen', got {bn_grad_stats!r}")
+    if bn_grad_stats in ("frozen", "frozen_var") or float(bn_stats_frac) < 1.0:
+        raise NotImplementedError(
+            f"bn_grad_stats={bn_grad_stats!r}, bn_stats_frac={bn_stats_frac} are not ported: "
+            "both were measured to diverge (docs/performance.md:103-122)")
 
 
 def resize_nearest(x: torch.Tensor, height: int, width: int) -> torch.Tensor:

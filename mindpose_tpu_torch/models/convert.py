@@ -2,24 +2,38 @@
 
 The JAX package keeps a model's weights as flax trees, ``{"params": ...,
 "batch_stats": ...}``, whose paths follow flax's auto-naming (``HRModule_3``,
-``BasicBlock_5``, ``Conv_0``, ...). The port's modules use the official HRNet
-torch names (``stage3.0.branches.1.1.conv1``). ``hrnet_mapping`` pairs the two
-for any stage config, in the order in which the JAX modules create their
-submodules, so reduced-depth configs convert as well as HRNet-W32/W48.
+``Bottleneck_5``, ``Conv_0``, ``ConvTranspose_1``, ...). The port's modules
+use the official torch names (``stage3.0.branches.1.1.conv1``,
+``layer2.0.downsample.0``, ``deconv_layers.3``). A mapping pairs the two, in
+the order in which the JAX modules create their submodules: ``hrnet_mapping``
+for any HRNet stage config, ``resnet_mapping`` for any block counts, and one
+for each head. ``net_mapping`` picks the backbone's and the head's from the
+port's net itself, so reduced-depth nets convert as well as full ones.
 
-Layout changes: conv kernel [kh, kw, I, O] -> weight [O, I, kh, kw]; BN
-scale -> weight, bias -> bias, batch_stats mean/var -> running_mean/var;
+Layout changes: conv kernel [kh, kw, I, O] -> weight [O, I, kh, kw]; a
+transposed conv's kernel [kh, kw, I, O] -> weight [I, O, kh, kw], flipped in
+both spatial axes (flax's ``ConvTranspose`` with ``transpose_kernel=False``
+does not flip it, torch's ``ConvTranspose2d`` does); BN scale -> weight,
+bias -> bias, batch_stats mean/var -> running_mean/var;
 ``num_batches_tracked``, which flax has no counterpart of, is set to 0.
 The result loads with ``load_state_dict(strict=True)``.
 """
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["hrnet_mapping", "convert_backbone_variables", "convert_net_variables"]
+from .backbones.hrnet import HRNet
+from .backbones.resnet import ResNet
+from .heads.hrnet_head import HRNetHead
+from .heads.simple_baseline_head import SimpleBaselineHead
 
-# (kind, torch prefix, flax path): kind is "conv" or "bn"
+__all__ = ["hrnet_mapping", "resnet_mapping", "head_mapping", "net_mapping",
+           "convert_variables", "convert_net_variables"]
+
+# (kind, torch prefix, flax path): kind is "conv" (no bias), "conv_bias",
+# "deconv" (a transposed conv, no bias) or "bn"
 Entry = Tuple[str, str, Tuple[str, ...]]
 
 # flax class name and number of conv+BN pairs of each residual block
@@ -106,6 +120,48 @@ def hrnet_mapping(stage_cfg: Mapping[str, Mapping[str, Any]]) -> List[Entry]:
     return entries
 
 
+def resnet_mapping(block_counts: Sequence[int]) -> List[Entry]:
+    """(kind, torch prefix, flax path) for every conv and BN of a ResNet backbone."""
+    entries: List[Entry] = [("conv", "conv1", ("conv1",)), ("bn", "bn1", ("bn1",))]
+    g = 0  # flax numbers the bottlenecks of all stages in one sequence
+    for stage, count in enumerate(block_counts):
+        for i in range(count):
+            entries += _residual_block(f"layer{stage + 1}.{i}", (f"Bottleneck_{g}",), 3,
+                                       downsample=i == 0)
+            g += 1
+    return entries
+
+
+def head_mapping(head: nn.Module) -> List[Entry]:
+    """The entries of a port head: ``hrnet_head`` or ``simple_baseline_head``."""
+    if isinstance(head, HRNetHead):
+        return [("conv_bias", "head", ("head",))]
+    if isinstance(head, SimpleBaselineHead):
+        convs = [i for i, m in enumerate(head.deconv_layers) if isinstance(m, nn.ConvTranspose2d)]
+        entries: List[Entry] = []
+        for n, i in enumerate(convs):
+            entries.append(("deconv", f"deconv_layers.{i}", (f"ConvTranspose_{n}",)))
+            entries.append(("bn", f"deconv_layers.{i + 1}", (f"BatchNorm_{n}",)))
+        return entries + [("conv_bias", "final_layer", ("final_layer",))]
+    raise NotImplementedError(f"no JAX variable mapping for the head {type(head).__name__}")
+
+
+def net_mapping(net: nn.Module) -> List[Entry]:
+    """The entries of a port ``Net``: its backbone's, then its head's, each
+    under its scope (``backbone.`` / ``("backbone",)``, ``head.`` / ``("head",)``)."""
+    backbone = net.backbone
+    if isinstance(backbone, HRNet):
+        entries = hrnet_mapping(backbone.stage_cfg)
+    elif isinstance(backbone, ResNet):
+        entries = resnet_mapping(backbone.block_counts)
+    else:
+        raise NotImplementedError(
+            f"no JAX variable mapping for the backbone {type(backbone).__name__}")
+    return ([(kind, f"backbone.{name}", ("backbone",) + path) for kind, name, path in entries]
+            + [(kind, f"head.{name}", ("head",) + path) for kind, name, path in
+               head_mapping(net.head)])
+
+
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
     out = {}
     for k, v in tree.items():
@@ -122,11 +178,21 @@ def _tensor(value: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(value, dtype=np.float32))
 
 
-def convert_backbone_variables(
-    variables: Mapping[str, Any], stage_cfg: Mapping[str, Mapping[str, Any]]
-) -> Dict[str, torch.Tensor]:
-    """HRNet backbone variables ({"params", "batch_stats"} at the backbone scope)
-    -> the port's HRNet ``state_dict``. Raises if a flax leaf is left unused."""
+def convert_net_variables(variables: Mapping[str, Any], net: nn.Module) -> Dict[str, torch.Tensor]:
+    """Variables of the JAX ``Net`` (``{"params", "batch_stats"}``) -> ``net.state_dict()``.
+
+    The mapping comes from ``net`` (``net_mapping``); ``net``'s own tensors
+    are not read, so it may live on the meta device. A tree with the params'
+    structure, such as a gradient or an adam moment, converts with the net's
+    batch_stats beside it.
+    """
+    return convert_variables(variables, net_mapping(net))
+
+
+def convert_variables(variables: Mapping[str, Any],
+                      entries: Sequence[Entry]) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` -> a state_dict, by ``entries``.
+    Raises if a flax leaf is left unused."""
     params = _leaves(variables["params"])
     stats = _leaves(variables.get("batch_stats", {}))
     used = set()
@@ -136,9 +202,14 @@ def convert_backbone_variables(
         return _tensor(tree[key])
 
     out: Dict[str, torch.Tensor] = {}
-    for kind, name, path in hrnet_mapping(stage_cfg):
-        if kind == "conv":
+    for kind, name, path in entries:
+        if kind in ("conv", "conv_bias"):
             out[f"{name}.weight"] = take(params, path + ("kernel",)).permute(3, 2, 0, 1).contiguous()
+            if kind == "conv_bias":
+                out[f"{name}.bias"] = take(params, path + ("bias",))
+        elif kind == "deconv":
+            kernel = take(params, path + ("kernel",))
+            out[f"{name}.weight"] = kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous()
         else:
             out[f"{name}.weight"] = take(params, path + ("scale",))
             out[f"{name}.bias"] = take(params, path + ("bias",))
@@ -149,19 +220,4 @@ def convert_backbone_variables(
     unused = sorted(every - used)
     if unused:
         raise ValueError(f"flax variables with no counterpart in the port: {unused[:5]} ...")
-    return out
-
-
-def convert_net_variables(
-    variables: Mapping[str, Any], stage_cfg: Mapping[str, Mapping[str, Any]]
-) -> Dict[str, torch.Tensor]:
-    """Variables of the JAX ``Net`` (HRNet backbone + ``hrnet_head``) -> the
-    port's ``Net.state_dict()``."""
-    params, stats = variables["params"], variables.get("batch_stats", {})
-    backbone = convert_backbone_variables(
-        {"params": params["backbone"], "batch_stats": stats.get("backbone", {})}, stage_cfg)
-    out = {f"backbone.{k}": v for k, v in backbone.items()}
-    head = params["head"]["head"]
-    out["head.head.weight"] = _tensor(head["kernel"]).permute(3, 2, 0, 1).contiguous()
-    out["head.head.bias"] = _tensor(head["bias"])
     return out

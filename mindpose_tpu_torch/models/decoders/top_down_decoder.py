@@ -1,18 +1,30 @@
-"""Top-down heatmap decoder: argmax -> quarter-pixel shift -> original frame.
+"""Top-down heatmap decoder: argmax -> sub-pixel refine -> original frame.
 
 Counterpart of mindpose_tpu/models/decoders/top_down_decoder.py for NCHW
-heatmaps. The whole decode goes through ``ops/cuda/decode.decode_heatmap``:
-on a CUDA heatmap that is one launch of the hand-written kernel per call, on
-a CPU heatmap its plain PyTorch version. DARK/UDP refinement is not ported yet.
+heatmaps. Without DARK the whole decode goes through
+``ops/cuda/decode.decode_heatmap``: on a CUDA heatmap that is one launch of
+the hand-written kernel per call, on a CPU heatmap its plain PyTorch
+version. With ``dark_udp_refine`` the argmax comes from the same kernel
+(``argmax_shift_decode``, shift off), and the refinement and the
+back-projection run as plain PyTorch after it, as the JAX package runs them
+as plain XLA.
 """
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 
-from ...ops.cuda.decode import decode_heatmap
+from ...ops.cuda.decode import argmax_shift_decode, decode_heatmap, preds_and_boxes
+from ...ops.heatmap import dark_udp_refine, gaussian_kernel_2d
 from ...register import register
 from .decoder import Decoder
+
+
+@functools.cache
+def _blur_kernel(kernel_size: int, device: torch.device) -> torch.Tensor:
+    """The refinement's Gaussian on ``device``, uploaded once per size and device."""
+    return torch.from_numpy(gaussian_kernel_2d(kernel_size)).to(device)
 
 
 @register("decoder", extra_name="topdown_heatmap")
@@ -41,11 +53,6 @@ class TopDownHeatMapDecoder(Decoder):
             raise ValueError(
                 "`dark_udp_refine` and `shift_coordinate` cannot both be true."
             )
-        if self.dark_udp_refine:
-            raise NotImplementedError(
-                "dark_udp_refine is not ported yet (ROADMAP.md, Queue 1, "
-                "ResNet, simple_baseline_head and UDP)"
-            )
 
     def __call__(
         self,
@@ -58,6 +65,13 @@ class TopDownHeatMapDecoder(Decoder):
         center = center.to(torch.float32).contiguous()
         scale = scale.to(torch.float32).contiguous()
         score = score.to(torch.float32).reshape(heatmap.shape[0]).contiguous()
+        if self.dark_udp_refine:
+            coords, maxvals = argmax_shift_decode(heatmap, False)
+            coords = dark_udp_refine(coords, heatmap,
+                                     _blur_kernel(self.kernel_size, heatmap.device))
+            return preds_and_boxes(coords, maxvals, heatmap.shape[2:4], center, scale, score,
+                                   to_original=self.to_original, use_udp=self.use_udp,
+                                   pixel_std=self.pixel_std)
         return decode_heatmap(heatmap, center, scale, score, shift=self.shift_coordinate,
                               to_original=self.to_original, use_udp=self.use_udp,
                               pixel_std=self.pixel_std)

@@ -1,7 +1,7 @@
 """Model factories: create_* entry points resolving registry names.
 
 Counterpart of mindpose_tpu/models/model_factory.py for what the top-down
-top-down path uses. The factory wires ``backbone.out_channels`` into the
+path uses. The factory wires ``backbone.out_channels`` into the
 head's input width. Necks are not ported yet.
 """
 from typing import Any, Dict, Optional
@@ -15,6 +15,7 @@ __all__ = [
     "create_decoder",
     "create_loss",
     "create_network",
+    "create_network_from_config",
     "create_eval_network",
     "create_network_with_loss",
 ]
@@ -64,6 +65,21 @@ def create_network(
     head = create_head(head_name, in_channels=backbone.out_channels,
                        num_joints=num_joints, **dict(head_args or {}))
     return Net(backbone=backbone, head=head)
+
+
+def create_network_from_config(args: Any) -> Net:
+    """The network a parsed config names: ``backbone_name``, ``head_name``,
+    ``neck_name``, ``in_channels``, ``num_joints``, ``backbone_setting`` and
+    ``head_setting``, with the module's own initial weights."""
+    return create_network(
+        backbone_name=args.backbone_name,
+        head_name=args.head_name,
+        neck_name=getattr(args, "neck_name", "") or "",
+        in_channels=getattr(args, "in_channels", 3),
+        num_joints=args.num_joints,
+        backbone_args=getattr(args, "backbone_setting", None),
+        head_args=getattr(args, "head_setting", None),
+    )
 
 
 def create_eval_network(net: Net, decoder: Any, output_raw: bool = True) -> EvalNet:

@@ -29,6 +29,7 @@ __all__ = [
     "argmax_shift_decode_plain",
     "decode_heatmap",
     "decode_heatmap_plain",
+    "preds_and_boxes",
 ]
 
 # flags of mp_heatmap_decode (csrc/decode.cu)
@@ -86,8 +87,27 @@ def decode_heatmap_plain(
     reciprocal of ``w``; the kernel matches that bit for bit.
     """
     coords, maxvals = argmax_shift_decode_plain(heatmap, shift)
+    return preds_and_boxes(coords, maxvals, heatmap.shape[2:4], center, scale, score,
+                           to_original=to_original, use_udp=use_udp, pixel_std=pixel_std)
+
+
+def preds_and_boxes(
+    coords: torch.Tensor,
+    maxvals: torch.Tensor,
+    heatmap_hw: Tuple[int, int],
+    center: torch.Tensor,
+    scale: torch.Tensor,
+    score: torch.Tensor,
+    *,
+    to_original: bool,
+    use_udp: bool,
+    pixel_std: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder's last part in plain PyTorch: heatmap coords [N, K, 2] and
+    maxvals [N, K] -> preds [N, K, 3] (in the original frame when
+    ``to_original``) and boxes [N, 6]."""
     if to_original:
-        coords = _transform_preds(coords, center, scale, heatmap.shape[2:4], use_udp, pixel_std)
+        coords = _transform_preds(coords, center, scale, heatmap_hw, use_udp, pixel_std)
     preds = torch.cat([coords[..., :2], maxvals[..., None]], dim=-1)
     area = torch.prod(scale * pixel_std, dim=1)
     boxes = torch.cat([center, scale, area[:, None], score[:, None]], dim=1)

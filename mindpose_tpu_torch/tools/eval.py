@@ -24,7 +24,7 @@ import torch
 from ..config import parse_args
 from ..data import create_dataset, create_pipeline
 from ..engine import create_evaluator, create_inferencer
-from ..models import create_decoder, create_eval_network, create_network
+from ..models import create_decoder, create_eval_network, create_network_from_config
 from ..utils.checkpoint import load_net_state_dict
 
 __all__ = ["evaluate"]
@@ -63,15 +63,7 @@ def evaluate(args: Any, device: Optional[torch.device] = None,
         decode_cache_mb=getattr(args, "decode_cache_mb", 0) or 0,
     )
 
-    net = create_network(
-        backbone_name=args.backbone_name,
-        head_name=args.head_name,
-        neck_name=getattr(args, "neck_name", "") or "",
-        in_channels=getattr(args, "in_channels", 3),
-        num_joints=args.num_joints,
-        backbone_args=getattr(args, "backbone_setting", None),
-        head_args=getattr(args, "head_setting", None),
-    )
+    net = create_network_from_config(args)
     if not getattr(args, "ckpt", None):
         raise ValueError("--ckpt is required for evaluation")
     net.load_state_dict(load_net_state_dict(args.ckpt, net), strict=True)

@@ -131,9 +131,8 @@ def _restore_jax_train_state(path: str, net: torch.nn.Module,
                              optimizer: Optional[torch.optim.Optimizer]) -> int:
     with open(path, "rb") as f:
         raw = msgpack_restore(f.read())
-    stage_cfg = net.backbone.stage_cfg
     variables = {"params": raw.get("params", raw), "batch_stats": raw.get("batch_stats", {})}
-    net.load_state_dict(convert_net_variables(variables, stage_cfg), strict=True)
+    net.load_state_dict(convert_net_variables(variables, net), strict=True)
     if optimizer is None:
         return int(np.asarray(raw.get("step", 0)))
     if "opt_state" not in raw:
@@ -145,7 +144,7 @@ def _restore_jax_train_state(path: str, net: torch.nn.Module,
             f"{len(adam)} adam states and the optimizer is {type(optimizer).__name__}")
     count = float(np.asarray(adam[0]["count"]))
     moments = {k: convert_net_variables({"params": adam[0][k],
-                                         "batch_stats": variables["batch_stats"]}, stage_cfg)
+                                         "batch_stats": variables["batch_stats"]}, net)
                for k in ("mu", "nu")}
     names = {id(p): n for n, p in net.named_parameters()}
     state_dict = optimizer.state_dict()
@@ -178,10 +177,11 @@ def restore_train_state(path: str, net: torch.nn.Module,
 def load_net_state_dict(path: str, net: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``net``'s weights from a port checkpoint or a JAX package (flax msgpack) one.
 
-    A flax file is converted with ``models/convert.convert_net_variables``
-    for ``net``'s HRNet stage config. The result loads with
+    A flax file is converted with ``models/convert.convert_net_variables``,
+    by the mapping of ``net``'s backbone and head (``net`` may live on the
+    meta device: only its structure is read). The result loads with
     ``net.load_state_dict(..., strict=True)``.
     """
     if _is_port_file(path):
         return load_checkpoint(path)["net"]
-    return convert_net_variables(load_variables(path), net.backbone.stage_cfg)
+    return convert_net_variables(load_variables(path), net)

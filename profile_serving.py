@@ -3,11 +3,15 @@
 
 Usage (from the root of a checkout, on the machine chip_smoke.py runs on):
 
-    python3 profile_serving.py [--trace-dir DIR]
+    python3 profile_serving.py [--config configs/udp/resnet50_udp_tpu.yaml] [--trace-dir DIR]
 
 It builds the same full-width HRNet-W32 predictor, weights and requests (1, 5
-and 40 boxes) as chip_smoke.py and prints, for each request:
-- the request latency over 20 runs (median, min, max), host clock;
+and 40 boxes) as chip_smoke.py, or with ``--config`` the predictor of a
+top-down recipe (``TopDownPredictor.from_config``, random weights from the
+same numpy seed), and prints, for each request:
+- the request latency over 20 runs (median, min, max), host clock, and its
+  median when each call runs on a new thread (as a ThreadingHTTPServer
+  handler calls it: PyTorch keeps cuDNN's convolution plans per thread);
 - the median split of a request into preprocess / forward / decode / copy to
   host, with a device synchronisation between the phases;
 - under torch.profiler, over 5 requests: the device's busy share of the wall
@@ -19,6 +23,7 @@ off (CUDA events). The predictor itself serves with TF32 off.
 import argparse
 import os
 import statistics
+import threading
 import time
 
 import numpy as np
@@ -32,7 +37,7 @@ REPEATS = 20
 
 def split_ms(predictor, image, boxes):
     """(preprocess, forward, decode, to host) of one request, ms, synchronised between."""
-    net, decoder, n = predictor._eval_net.net, predictor._eval_net.decoder, cs.BATCH_SIZE
+    net, decoder, n = predictor.net, predictor._eval_net.decoder, cs.BATCH_SIZE
     t0 = time.perf_counter()
     with torch.inference_mode():
         x, centers, scales = predictor.preprocess(image, boxes)
@@ -77,6 +82,25 @@ def device_share(predictor, image, boxes, trace_dir):
         prof.export_chrome_trace(os.path.join(trace_dir, f"serve_{len(boxes)}boxes.json"))
 
 
+def fresh_thread_ms(predictor, image, boxes) -> float:
+    """Median request latency when each call runs on a new thread, as a
+    ThreadingHTTPServer handler would call it."""
+    runs = []
+    for _ in range(REPEATS):
+        out = []
+        t = threading.Thread(target=lambda: out.append(timed_ms(predictor, image, boxes)))
+        t.start()
+        t.join()
+        runs.append(out[0])
+    return statistics.median(runs)
+
+
+def timed_ms(predictor, image, boxes) -> float:
+    start = time.perf_counter()
+    predictor(image, boxes)
+    return (time.perf_counter() - start) * 1e3
+
+
 def forward_ms(net, x, tf32: bool) -> float:
     torch.backends.cudnn.allow_tf32 = tf32
     with torch.inference_mode():
@@ -85,18 +109,30 @@ def forward_ms(net, x, tf32: bool) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default="",
+                        help="a top-down recipe to serve (default: HRNet-W32 as chip_smoke.py)")
     parser.add_argument("--trace-dir", default="", help="write Chrome traces here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device")
     device = torch.device("cuda", 0)
     print(f"gpu: {cs.gpu_name_and_power()}; torch {torch.__version__}")
-    h = cs.HRNET_W32
-    net = cs.create_network(h["backbone_name"], h["head_name"], num_joints=h["num_joints"])
-    cs.random_weights_(net, device)
-    predictor = cs.TopDownPredictor(
-        net, h["dataset_setting"], h["decoder_setting"], h["normalize_mean"],
-        h["normalize_std"], batch_size=cs.BATCH_SIZE, device=device)
+    if args.config:
+        recipe = cs.serve_entry.parse_serve_args(["--config", args.config])
+        net = cs.create_network_from_config(recipe)
+        cs.random_weights_(net, device)
+        predictor = cs.TopDownPredictor.from_config(recipe, net.state_dict(),
+                                                    batch_size=cs.BATCH_SIZE, device=device)
+        net = predictor.net
+        print(f"serving {args.config}: {recipe.backbone_name} + {recipe.head_name}, decoder "
+              f"{recipe.decoder_setting}")
+    else:
+        h = cs.HRNET_W32
+        net = cs.create_network(h["backbone_name"], h["head_name"], num_joints=h["num_joints"])
+        cs.random_weights_(net, device)
+        predictor = cs.TopDownPredictor(
+            net, h["dataset_setting"], h["decoder_setting"], h["normalize_mean"],
+            h["normalize_std"], batch_size=cs.BATCH_SIZE, device=device)
     image, requests = cs.make_requests(np.random.RandomState(cs.SEED))
 
     for boxes in requests:
@@ -112,7 +148,8 @@ def main() -> int:
         print(f"{len(boxes)} boxes: request median {statistics.median(runs):.3f} ms "
               f"(min {min(runs):.3f}, max {max(runs):.3f}, {REPEATS} runs); split medians: "
               f"preprocess {med[0]:.3f}, forward {med[1]:.3f}, decode {med[2]:.3f}, "
-              f"to host {med[3]:.3f} ms")
+              f"to host {med[3]:.3f} ms; each call on a new thread: median "
+              f"{fresh_thread_ms(predictor, image, boxes):.3f} ms")
 
     for boxes in (requests[0], requests[2]):
         device_share(predictor, image, boxes, args.trace_dir)

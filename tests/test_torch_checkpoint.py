@@ -38,7 +38,7 @@ from mindpose_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from mindpose_tpu_torch.utils.flax_msgpack import load_variables, msgpack_restore
-from tests.test_torch_hrnet import CFG, build_pair
+from tests.test_torch_hrnet import CFG, build_pair, skeleton
 
 
 def _assert_same_tree(got, want, path="root"):
@@ -103,8 +103,9 @@ def test_load_variables_feeds_the_converter(jax_train_state):
     path, state = jax_train_state
     got = load_variables(path)
     assert set(got) == {"params", "batch_stats"}
-    want = convert_net_variables({"params": state.params, "batch_stats": state.batch_stats}, CFG)
-    sd = convert_net_variables(got, CFG)
+    want = convert_net_variables({"params": state.params, "batch_stats": state.batch_stats},
+                                 skeleton())
+    sd = convert_net_variables(got, skeleton())
     assert list(sd) == list(want)
     for k in want:
         assert torch.equal(sd[k], want[k]), k
@@ -242,6 +243,6 @@ def test_one_loader_for_either_file(tmp_path, jax_train_state):
 
     jax_path, state = jax_train_state
     fresh.load_state_dict(load_net_state_dict(jax_path, fresh), strict=True)
-    want = convert_net_variables({"params": state.params, "batch_stats": state.batch_stats}, CFG)
+    want = convert_net_variables({"params": state.params, "batch_stats": state.batch_stats}, fresh)
     for k, v in fresh.state_dict().items():
         assert torch.equal(v, want[k]), k

@@ -10,6 +10,10 @@ The fused decode (``decode_heatmap``: the whole decoder in one launch on the
 card) keeps as its plain version the decoder's composition of small ops: it
 is held to the JAX decoder at that decoder's tolerance, and bit for bit on
 the CPU to the composition it replaced.
+
+DARK/UDP refinement (plain PyTorch after the kernel's argmax, as plain XLA
+in JAX) is held to the JAX package's on heatmaps of Gaussian peaks, peaks
+on the border and flat maps: the refined coordinates within 1e-4 px.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,16 +22,23 @@ import torch
 
 from mindpose_tpu.models.decoders.top_down_decoder import TopDownHeatMapDecoder as JaxDecoder
 from mindpose_tpu.ops.heatmap import argmax_coords as jax_argmax_coords
+from mindpose_tpu.ops.heatmap import dark_udp_refine as jax_dark_udp_refine
 from mindpose_tpu.ops.heatmap import quarter_offset as jax_quarter_offset
 from mindpose_tpu.ops.pallas.decode import argmax_shift_decode as pallas_decode
 from mindpose_tpu_torch.models import create_decoder
+from mindpose_tpu_torch.models.decoders import top_down_decoder
 from mindpose_tpu_torch.ops.cuda.decode import (
     argmax_shift_decode,
     argmax_shift_decode_plain,
     decode_heatmap,
     decode_heatmap_plain,
 )
-from mindpose_tpu_torch.ops.heatmap import argmax_coords, quarter_offset
+from mindpose_tpu_torch.ops.heatmap import (
+    argmax_coords,
+    dark_udp_refine,
+    gaussian_kernel_2d,
+    quarter_offset,
+)
 
 
 def _heatmap(case: str) -> np.ndarray:
@@ -124,6 +135,12 @@ DECODER_SETTINGS = [
     {}, {"shift_coordinate": True}, {"use_udp": True}, {"to_original": False},
     {"shift_coordinate": True, "backend": "pallas"},
 ]
+DARK_SETTINGS = [
+    {"use_udp": True, "dark_udp_refine": True},  # configs/udp/README.md's eval recipe
+    {"dark_udp_refine": True},
+    {"use_udp": True, "dark_udp_refine": True, "to_original": False},
+    {"use_udp": True, "dark_udp_refine": True, "kernel_size": 7},
+]
 
 
 def _decoder_inputs():
@@ -156,10 +173,83 @@ def test_decoder_matches_jax_decoder(setting):
 
 
 def test_decoder_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_decoder("topdown_heatmap", dark_udp_refine=True)
-    with pytest.raises(ValueError):
+    # every setting of the JAX decoder is ported; the pair it refuses stays refused
+    create_decoder("topdown_heatmap", dark_udp_refine=True)
+    with pytest.raises(ValueError, match="cannot both be true"):
         create_decoder("topdown_heatmap", dark_udp_refine=True, shift_coordinate=True)
+
+
+def _dark_heatmaps(case: str) -> np.ndarray:
+    """NCHW [3, 17, 64, 48] heatmaps as a trained net gives them: Gaussian
+    peaks (sigma 2) of heights 0.2-1 at sub-pixel places, plus noise of
+    sd 0.01; "border" puts the peaks on and next to every edge; "flat" holds
+    all-zero and constant maps, whose argmax is the first pixel."""
+    rng = np.random.RandomState({"peaks": 7, "border": 8, "flat": 9}[case])
+    n, k, h, w = 3, 17, 64, 48
+    cx, cy = rng.uniform(2, w - 3, (n, k)), rng.uniform(2, h - 3, (n, k))
+    if case == "border":
+        cx[:, :8] = [0.0, w - 1.0, 0.2, w - 1.3, 0.6, 20.5, 5.0, w - 0.5]
+        cy[:, :8] = [0.0, h - 1.0, 30.0, 10.7, 0.4, 0.0, h - 1.0, h - 0.8]
+        cx[:, 8:12], cy[:, 8:12] = -0.7, rng.uniform(0, h, 4)  # peaks just off the map
+    ys, xs = np.mgrid[0:h, 0:w]
+    hm = np.exp(-((xs - cx[..., None, None]) ** 2 + (ys - cy[..., None, None]) ** 2) / 8.0)
+    hm = hm * rng.uniform(0.2, 1.0, (n, k, 1, 1)) + 0.01 * rng.standard_normal((n, k, h, w))
+    if case == "flat":
+        hm[0] = 0.0
+        hm[1, :9] = 0.5
+        hm[2, ::2] = -0.1  # below the refinement's clamp at 0.001
+    return hm.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["peaks", "border", "flat"])
+def test_dark_udp_refine_matches_jax(case):
+    """From the same integer argmax: both sides blur (float32, sums in other
+    orders, measured within 7e-7 of the peak), take logs and one Newton step,
+    whose coordinates agree within 1e-4 px (measured: 6e-6)."""
+    hm = _dark_heatmaps(case)
+    kernel = gaussian_kernel_2d(11)
+    nhwc = jnp.asarray(hm.transpose(0, 2, 3, 1))
+    coords = np.asarray(jax_argmax_coords(nhwc)[0])
+    want = np.asarray(jax_dark_udp_refine(jnp.asarray(coords), nhwc, jnp.asarray(kernel)))
+    got = dark_udp_refine(torch.from_numpy(coords.copy()), torch.from_numpy(hm),
+                          torch.from_numpy(kernel)).numpy()
+    assert np.isfinite(want).all() and np.abs(want - coords).max() > 0.1  # the step moved
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["peaks", "border", "flat"])
+@pytest.mark.parametrize("setting", DARK_SETTINGS)
+def test_dark_decoder_matches_jax_decoder(setting, case):
+    """Scores exactly (both the argmax's maximum); coordinates at the tolerance
+    of test_decoder_matches_jax_decoder (measured: 6.1e-5 px at ~600 px)."""
+    hm = _dark_heatmaps(case)
+    rng = np.random.RandomState(10)
+    center = rng.uniform(0, 600, (3, 2)).astype(np.float32)
+    scale = rng.uniform(0.2, 3.0, (3, 2)).astype(np.float32)
+    score = rng.uniform(0, 1, 3).astype(np.float32)
+    want_p, want_b = JaxDecoder(**setting)(jnp.asarray(hm.transpose(0, 2, 3, 1)), center, scale,
+                                           score)
+    got_p, got_b = create_decoder("topdown_heatmap", **setting)(
+        torch.from_numpy(hm), torch.from_numpy(center), torch.from_numpy(scale),
+        torch.from_numpy(score))
+    np.testing.assert_array_equal(got_p[..., 2].numpy(), np.asarray(want_p)[..., 2])
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), rtol=1e-6, atol=1e-4)
+
+
+def test_dark_decoder_takes_its_argmax_from_the_kernel_wrapper(monkeypatch):
+    """The refinement starts from ``argmax_shift_decode`` with shift off, the
+    wrapper that launches the kernel on a CUDA heatmap (here its plain version)."""
+    calls = []
+
+    def recording(heatmap, shift):
+        calls.append(shift)
+        return argmax_shift_decode(heatmap, shift)
+
+    monkeypatch.setattr(top_down_decoder, "argmax_shift_decode", recording)
+    hm, center, scale, score = (torch.from_numpy(a) for a in _decoder_inputs())
+    create_decoder("topdown_heatmap", use_udp=True, dark_udp_refine=True)(hm, center, scale, score)
+    assert calls == [False]
 
 
 @pytest.mark.parametrize("setting", DECODER_SETTINGS)

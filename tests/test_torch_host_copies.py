@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's numpy host helpers stay equal to them.
 
 The port cannot import ``mindpose_tpu`` (its ``__init__`` imports JAX), so
-the crop geometry and the joints' flip permutation live in the port as
-copies; these tests pin each copy to
+the crop geometry, the joints' flip permutation and the DARK refinement's
+Gaussian kernel live in the port as copies; these tests pin each copy to
 its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
 """
@@ -14,8 +14,10 @@ import yaml
 
 from mindpose_tpu.data.transform import utils as jax_utils
 from mindpose_tpu.data.transform.topdown_transform import TopDownAffine, TopDownBoxToCenterScale
+from mindpose_tpu.ops.heatmap import gaussian_kernel_2d as jax_gaussian_kernel_2d
 from mindpose_tpu_torch.data.transform import utils
 from mindpose_tpu_torch.data.transform.topdown_transform import box_to_center_scale, crop_matrix
+from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SETTING = {
@@ -145,3 +147,11 @@ def test_joint_helpers():
             np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="flip_index"):
         utils.fliplr_joints(np.zeros((5, 3)), 10, flip_index=np.arange(4))
+
+
+@pytest.mark.parametrize("size", [3, 5, 7, 10, 11, 17])
+def test_gaussian_kernel_2d(size):
+    want = jax_gaussian_kernel_2d(size)
+    got = gaussian_kernel_2d(size)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

@@ -46,6 +46,12 @@ CFG = {
 }
 
 
+def skeleton() -> Net:
+    """The reduced net's structure on the meta device: what the converter reads."""
+    with torch.device("meta"):
+        return Net(HRNet(CFG), HRNetHead(8, 17))
+
+
 def _randomize(variables, rng):
     """Non-trivial BN affine params and running stats.
 
@@ -82,7 +88,7 @@ def build_pair():
     init = jax.jit(lambda key, x: jax_net.init(key, x, train=False))  # faster than eager here
     variables = _randomize(init(jax.random.PRNGKey(0), jnp.asarray(x[:1])), rng)
     port = Net(HRNet(CFG), HRNetHead(8, 17))
-    port.load_state_dict(convert_net_variables(variables, CFG), strict=True)
+    port.load_state_dict(convert_net_variables(variables, port), strict=True)
     return jax_net, variables, port, x
 
 
@@ -111,7 +117,7 @@ def test_train_forward_and_running_stats_match_jax(pair):
     np.testing.assert_allclose(got.transpose(0, 2, 3, 1), np.asarray(want), atol=1e-4, rtol=0)
     # running stats after one step: flax's EMA with the biased batch variance
     want_sd = convert_net_variables(
-        {"params": variables["params"], "batch_stats": jax.device_get(updates["batch_stats"])}, CFG)
+        {"params": variables["params"], "batch_stats": jax.device_get(updates["batch_stats"])}, net)
     got_sd = net.state_dict()
     for name in want_sd:
         if name.endswith(("running_mean", "running_var")):

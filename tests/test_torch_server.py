@@ -40,6 +40,7 @@ def server():
     yield f"http://127.0.0.1:{port}"
     httpd.shutdown()
     httpd.server_close()
+    service.close()
     thread.join(timeout=10)
     assert not thread.is_alive()
 
@@ -115,3 +116,46 @@ def test_unknown_path_is_404(server):
 def test_only_the_ported_mode_is_served():
     with pytest.raises(ValueError, match="bottomup"):
         PoseService(predictor=None, mode="bottomup", num_joints=17)
+
+
+class _ThreadRecorder:
+    """A predictor that records the thread each call runs on."""
+
+    def __init__(self):
+        self.threads = []
+
+    def __call__(self, image, boxes, box_scores=None):
+        self.threads.append(threading.get_ident())
+        return np.zeros((len(boxes), 17, 3), np.float32)
+
+
+def test_predictions_run_on_one_worker_thread():
+    """The HTTP server handles each request on a new thread; the predictor runs
+    on the service's one worker thread whatever thread asks, so that state
+    PyTorch keeps per thread (cuDNN's convolution plans) lasts across
+    requests. ``close`` ends the worker."""
+    recorder = _ThreadRecorder()
+    service = PoseService(recorder, mode="topdown", num_joints=17)
+    httpd, port = build_http_server(service, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        payload = {"image_b64": _jpeg(np.zeros((32, 32, 3), np.uint8))}
+        for _ in range(3):
+            status, _ = _post(f"http://127.0.0.1:{port}/predict", payload)
+            assert status == 200
+        callers = []
+        for _ in range(2):  # two more callers, each on a thread of its own
+            t = threading.Thread(target=lambda: callers.append(service.predict(payload)))
+            t.start()
+            t.join(timeout=60)
+        assert len(callers) == 2
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    assert len(recorder.threads) == 5 and len(set(recorder.threads)) == 1
+    worker = [t for t in threading.enumerate() if t.ident == recorder.threads[0]]
+    assert worker and worker[0].name.startswith("pose-predict")
+    service.close()
+    assert not worker[0].is_alive()

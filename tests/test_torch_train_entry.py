@@ -297,16 +297,15 @@ def test_resumed_adamw_state_takes_jax_s_next_step(data, jax_run, tmp_path):
                                               *map(jnp.asarray, (image, target, weight)))
     np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss), rtol=LOSS_RTOL)
     assert int(state.step) == step.count
-    cfg = net.backbone.stage_cfg
     (adam,) = [s for s in jax.tree_util.tree_leaves(
         state.opt_state, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(s, "mu")]
     stats = jax.device_get(state.batch_stats)
     want = {"param": convert_net_variables({"params": jax.device_get(state.params),
-                                            "batch_stats": stats}, cfg),
+                                            "batch_stats": stats}, net),
             "exp_avg": convert_net_variables({"params": jax.device_get(adam.mu),
-                                              "batch_stats": stats}, cfg),
+                                              "batch_stats": stats}, net),
             "exp_avg_sq": convert_net_variables({"params": jax.device_get(adam.nu),
-                                                 "batch_stats": stats}, cfg)}
+                                                 "batch_stats": stats}, net)}
     assert int(adam.count) == step.count
     for name, p in net.named_parameters():
         s = optimizer.state[p]

@@ -42,7 +42,7 @@ from mindpose_tpu_torch.ops.target import generate_topdown_targets
 from mindpose_tpu_torch.optim import create_optimizer, decay_mask
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_ema_update, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
-from tests.test_torch_hrnet import CFG, _randomize
+from tests.test_torch_hrnet import CFG, _randomize, skeleton
 
 IMAGE_SIZE = (48, 64)  # (W, H) of the reduced net's input crops
 HEATMAP_SIZE = (12, 16)
@@ -198,7 +198,7 @@ def batch():
 
 def _port_net(variables):
     net = Net(HRNet(CFG), HRNetHead(8, 17))
-    net.load_state_dict(convert_net_variables(variables, CFG), strict=True)
+    net.load_state_dict(convert_net_variables(variables, net), strict=True)
     return net
 
 
@@ -218,7 +218,7 @@ def _flax_paths():
 
 def _params_sd(params, stats):
     """JAX params (or a gradient tree of their shape) as the port's state_dict."""
-    return convert_net_variables({"params": params, "batch_stats": stats}, CFG)
+    return convert_net_variables({"params": params, "batch_stats": stats}, skeleton())
 
 
 def _running_stats(sd):
