@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's top-down paths (HRNet-W32, SimpleBaseline) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32 and SimpleBaseline, bottom-up HigherHRNet-W32) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -81,7 +81,9 @@ no result, when there is no CUDA device or when any phase fails:
     one decode launch per eval batch in all; on one real eval heatmap the
     DARK decoder's device operations (torch.profiler) and device time per
     32-crop chunk, and the DARK decoder on the card against its CPU run
-    (keypoints within 1e-3 px, scores bitwise);
+    (each keypoint within the larger of 1e-3 px and twice its float32
+    rounding bound through the Newton step, at least 95% of them within
+    1e-3 px; scores bitwise);
 15. the same checkpoint through the serving entry (``tools/serve.py``:
     ``build_service`` behind ``build_http_server`` on 127.0.0.1 at an
     ephemeral port): ``GET /healthz``, ``POST /predict`` with 1, 5 and 40
@@ -89,12 +91,34 @@ no result, when there is no CUDA device or when any phase fails:
     20 runs each; the 5-box answer against the same service on the CPU;
     then resnet101_tpu.yaml and resnet152_tpu.yaml with random weights from
     a numpy seed through the same entry, a 40-box request each; every
-    server shut down and no thread of the phase left.
+    server shut down and no thread of the phase left;
+16. the tag-grouping kernel (``csrc/grouping.cu``, the fixed-capacity
+    matcher) against its plain version (``ops/grouping.py``, numpy on the
+    host), groups and valid bitwise equal, on 512 seeded candidate sets
+    (K=17, M=30; L = 1 and 2; the rounded norm and ``ignore_too_much`` on
+    and off; sets that overflow the capacity); then its device time per
+    batch of 1 and of 32, the plain version's and the host Hungarian's
+    (``utils/match.py``) host time per image;
+17. bottom-up evaluation through the eval entry: the JAX-trained bottom-up
+    fixture (tests/fixtures/) at O0, its 10 stats within 1e-3 of the JAX
+    package's with the grouping kernel and with the host Hungarian; then
+    higher_hrnet_w32_tpu.yaml at full width (random weights from a numpy
+    seed, O2, batch 1 as the yaml's non-square max_image_size gives it) on
+    64 frames of ``tools/make_synthetic_coco.py``: images/s, one grouping
+    launch per batch, and the split (loader alone, forward, decode,
+    grouping, host post-processing, evaluator);
+18. the same net through the serving entry in bottom-up mode over HTTP on
+    127.0.0.1: a 640x480 PNG (served at 832x832), one grouping launch per
+    request, latency over 20 requests beside the service's ``latency_ms``,
+    the device operations of one request (torch.profiler); the fixture's
+    service on the card against the CPU (the kernel against the plain
+    matcher): the same persons, keypoints within 1e-3 px, scores within
+    1e-4; no thread left.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 15.
+started is still there after phase 18.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -128,7 +152,14 @@ from mindpose_tpu_torch.data.device_pipeline import (
     strip_host_target_transform,
 )
 from mindpose_tpu_torch.data.transform import box_to_center_scale
-from mindpose_tpu_torch.engine import TopDownPredictor, build_http_server, create_inferencer
+from mindpose_tpu_torch.data.transform.utils import transform_keypoints
+from mindpose_tpu_torch.engine import (
+    BottomUpPredictor,
+    PoseService,
+    TopDownPredictor,
+    build_http_server,
+    create_inferencer,
+)
 from mindpose_tpu_torch.models import (
     create_decoder,
     create_eval_network,
@@ -152,6 +183,9 @@ from mindpose_tpu_torch.ops.cuda.decode import (
     decode_heatmap,
     decode_heatmap_plain,
 )
+from mindpose_tpu_torch.ops import grouping as plain_grouping
+from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
+from mindpose_tpu_torch.ops.cuda import grouping as cuda_grouping
 from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
@@ -159,13 +193,24 @@ from mindpose_tpu_torch.tools import ablate_conv_chain as probe
 from mindpose_tpu_torch.tools import serve as serve_entry
 from mindpose_tpu_torch.tools import train as train_entry
 from mindpose_tpu_torch.tools.eval import evaluate
+from mindpose_tpu_torch.utils.match import match_by_tag
 from mindpose_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_net_state_dict,
     restore_train_state,
     save_checkpoint,
 )
-from tests.fixtures.eval_checks import CKPT, RECORD, decode_margin, register_port_backbone
+from mindpose_tpu_torch.config import parse_args
+from tests.fixtures import tiny_coco
+from tests.fixtures.eval_checks import (
+    BOTTOMUP_CKPT,
+    BOTTOMUP_RECORD,
+    CKPT,
+    RECORD,
+    decode_margin,
+    register_port_backbone,
+)
+from tests.fixtures.grouping_sets import ORDER, SETS, candidate_sets
 
 # configs/hrnet/hrnet_w32_tpu.yaml, the keys the serving and train paths read
 # (tests/test_torch_host_copies.py holds this literal equal to the yaml)
@@ -246,7 +291,7 @@ HEATMAP_RTOL = 2e-5
 REPEATS = 20  # timed runs of each request
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
 MAX_SMEM_PER_BLOCK = 232448  # Hopper, 227 KB
-KERNEL_SOURCES = ("decode", "conv_chain")
+KERNEL_SOURCES = ("decode", "conv_chain", "grouping")
 # the decoder's back-projection settings held bitwise to the plain version
 DECODE_MODES = (("to_original off", {"to_original": False, "use_udp": False}),
                 ("to_original on", {"to_original": True, "use_udp": False}),
@@ -304,6 +349,16 @@ FIXTURE_AP_ATOL = 0.005  # the fixture's AP at O0 on the GPU against the CPU's
 # EVAL_XY_ATOL, and at least 80% of all joints so
 FIXTURE_O2_AP_ATOL = 0.02
 O2_SCORE_RTOL, O2_AGREE = 0.02, 0.8
+# Phase 14, the DARK decoder on the card against the CPU. Its Newton step
+# divides by the Hessian of the log of the blurred heatmap, and the card's
+# blur sums its 121 products in another order than the CPU's: where that
+# Hessian is near singular (a flat or clamped heatmap), the step turns
+# rounding of the blurred heatmap into differences of tenths of a pixel (on
+# an H100, one joint in 2,176 of a 60-step checkpoint 1.13e-3 px apart). So
+# each joint is held within the larger of EVAL_XY_ATOL px and twice its
+# float32 rounding bound (``dark_rounding_bound``), and at least DARK_AGREE
+# of all joints within EVAL_XY_ATOL px (0.9995-1.0 of them there)
+DARK_AGREE = 0.95
 # Phase 12: synthetic COCO train frames (2 persons each: 1,280 records, 10
 # steps of 128 per epoch) and val frames (128 crops, one eval batch); 12
 # epochs of the recipe, warmup cut from 500 steps to 20 (the yaml's would
@@ -328,6 +383,14 @@ SB_YAML = os.path.join(CONFIGS, "simple_baseline", "resnet50_tpu.yaml")
 SB_DEEPER = {arch: os.path.join(CONFIGS, "simple_baseline", f"{arch}_tpu.yaml")
              for arch in ("resnet101", "resnet152")}
 SB_EPOCHS = 6
+HIGHER_YAML = os.path.join(CONFIGS, "higher_hrnet", "higher_hrnet_w32_tpu.yaml")
+GROUPING_SETS = 16  # images of each kind of SETS, per tag width and flags (512 in all)
+GROUPING_ITERS = 20  # queued launches per timing of the grouping kernel
+BU_EVAL_IMAGES = 64
+BU_EVAL_PEOPLE = 3
+BU_SPLIT_BATCHES = 8  # eval batches whose forward, decode and grouping are timed apart
+BU_STATS_ATOL = 1e-3  # the bottom-up fixture's stats against the JAX package's, O0
+BU_SCORE_ATOL = 1e-4  # a served person's score, on the card against the CPU
 
 
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
@@ -1640,13 +1703,131 @@ def eval_checkpoint(root: str, trained: dict, device: torch.device, dark: bool) 
     return run
 
 
+def dark_rounding_bound(heat: torch.Tensor, coords: torch.Tensor, kernel: torch.Tensor,
+                        px_per_cell: torch.Tensor) -> torch.Tensor:
+    """[N, K] first-order bound, in px of the original frame, on how far two
+    float32 runs of ``dark_udp_refine`` on the same heatmap and argmax
+    ``coords`` may put a joint apart when each sums and rounds in its own order.
+
+    Computed in float64 on the CPU. Each run's blurred value is within
+    gamma_n * (blur of |heatmap|) of the exact one (n = kernel taps, the
+    dot-product bound); through the clamp and the log that is an absolute
+    error of that over the clamped value, plus the log's own rounding. These
+    tap errors and the rounding of each derivative, the determinant and the
+    step go through the step's closed form to first order. Where the
+    determinant's error reaches half its value the bound is infinite.
+    ``px_per_cell`` [N, 2] scales heatmap cells to the original frame.
+    """
+    u = 2.0 ** -24
+    n = kernel.numel()
+    gamma = n * u / (1 - n * u)
+    heat = heat.detach().cpu().double()
+    b, k, h, w = heat.shape
+    filt = kernel.detach().cpu().double().expand(k, 1, *kernel.shape).contiguous()
+
+    def blur(m: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.conv2d(m, filt, padding="same", groups=k)
+
+    c = torch.clamp(blur(heat), 0.001, 50.0)
+    spread = blur(heat.abs())
+    log = torch.log(c)
+    err = 2 * gamma * spread / c + 8 * u * log.abs()
+    stride = w + 2
+    center = ((coords[..., 0].long() + 1) + (coords[..., 1].long() + 1) * stride).cpu()
+
+    def taps(m: torch.Tensor) -> dict:
+        flat = torch.nn.functional.pad(m, (1, 1, 1, 1)).reshape(b, k, (h + 2) * stride)
+        offsets = {"0": 0, "x": 1, "x_": -1, "y": stride, "y_": -stride, "xy": stride + 1,
+                   "xy_": -stride - 1}
+        return {name: torch.gather(flat, 2, (center + o)[..., None])[..., 0]
+                for name, o in offsets.items()}
+
+    t, e = taps(log), taps(err)
+    dx, dy = 0.5 * (t["x"] - t["x_"]), 0.5 * (t["y"] - t["y_"])
+    dxx = t["x"] - 2 * t["0"] + t["x_"]
+    dyy = t["y"] - 2 * t["0"] + t["y_"]
+    dxy = 0.5 * (t["xy"] - t["x"] - t["y"] + 2 * t["0"] - t["x_"] - t["y_"] + t["xy_"])
+    a, d, bb = dxx + 1e-7, dyy + 1e-7, dxy
+    det = a * d - bb * bb
+    # tap errors, plus 16 u of the sum of |terms| for each derivative's own rounding
+    e_dx = 0.5 * (e["x"] + e["x_"]) + 16 * u * 0.5 * (t["x"].abs() + t["x_"].abs())
+    e_dy = 0.5 * (e["y"] + e["y_"]) + 16 * u * 0.5 * (t["y"].abs() + t["y_"].abs())
+    e_a = e["x"] + 2 * e["0"] + e["x_"] + 16 * u * (t["x"].abs() + 2 * t["0"].abs()
+                                                    + t["x_"].abs())
+    e_d = e["y"] + 2 * e["0"] + e["y_"] + 16 * u * (t["y"].abs() + 2 * t["0"].abs()
+                                                    + t["y_"].abs())
+    names = ("xy", "x", "y", "0", "x_", "y_", "xy_")
+    weights = (1, 1, 1, 2, 1, 1, 1)
+    e_b = 0.5 * sum(wt * e[nm] for nm, wt in zip(names, weights)) + 16 * u * 0.5 * sum(
+        wt * t[nm].abs() for nm, wt in zip(names, weights))
+    e_det = (d.abs() * e_a + a.abs() * e_d + 2 * bb.abs() * e_b
+             + 8 * u * ((a * d).abs() + bb * bb))
+    num_x, num_y = d * dx - bb * dy, a * dy - bb * dx
+    e_num_x = (dx.abs() * e_d + d.abs() * e_dx + dy.abs() * e_b + bb.abs() * e_dy
+               + 8 * u * ((d * dx).abs() + (bb * dy).abs()))
+    e_num_y = (dy.abs() * e_a + a.abs() * e_dy + dx.abs() * e_b + bb.abs() * e_dx
+               + 8 * u * ((a * dy).abs() + (bb * dx).abs()))
+    step_x, step_y = num_x / det, num_y / det
+    # and the rounding of the step and of ``coords - step``
+    refined = coords.detach().cpu().double().abs() + torch.stack([step_x, step_y], -1).abs()
+    e_x = (e_num_x + step_x.abs() * e_det) / det.abs() + 8 * u * refined[..., 0]
+    e_y = (e_num_y + step_y.abs() * e_det) / det.abs() + 8 * u * refined[..., 1]
+    px = px_per_cell.detach().cpu().double()[:, None, :]
+    bound = torch.maximum(e_x * px[..., 0], e_y * px[..., 1])
+    return torch.where(e_det < 0.5 * det.abs(), bound, torch.full_like(bound, float("inf")))
+
+
+def compare_dark_with_cpu(dark, heat: torch.Tensor, crops: list) -> dict:
+    """The DARK decoder on the card and on the CPU, one heatmap: scores and
+    boxes equal, one decode launch, and the keypoints held as set out at
+    ``DARK_AGREE``. Returns the counts and differences it printed."""
+    argmax_shift_decode.launches = 0
+    preds_gpu, boxes_gpu = (t.cpu() for t in dark(heat, *crops))
+    launches = argmax_shift_decode.launches
+    heat_cpu, crops_cpu = heat.cpu(), [t.cpu() for t in crops]
+    preds_cpu, boxes_cpu = dark(heat_cpu, *crops_cpu)
+    coords, _ = argmax_shift_decode_plain(heat_cpu, False)
+    h, w = heat.shape[2:4]
+    cells = torch.tensor([w - 1.0, h - 1.0] if dark.use_udp else [w, h], dtype=torch.float64)
+    bound = dark_rounding_bound(heat_cpu, coords, torch.from_numpy(
+        gaussian_kernel_2d(dark.kernel_size)), crops_cpu[1].double() * dark.pixel_std / cells)
+    # and the back-projection's own rounding of two different coordinates
+    bound = bound + 8 * 2.0 ** -24 * preds_cpu[..., :2].abs().amax(-1).double()
+    xy_err = (preds_gpu[..., :2] - preds_cpu[..., :2]).abs().amax(-1).double()
+    within_bound = xy_err <= torch.clamp(2 * bound, min=EVAL_XY_ATOL)
+    out = {
+        "joints": xy_err.numel(),
+        "tight": int((bound <= EVAL_XY_ATOL / 2).sum()),
+        "unbounded": int(torch.isinf(bound).sum()),
+        "max_err": float(xy_err.max()),
+        "agree": float((xy_err <= EVAL_XY_ATOL).double().mean()),
+        "within_bound": int(within_bound.sum()),
+        "worst_err_over_bound": float((xy_err / bound)[bound > 0].max()),
+        "scores_equal": bitwise_equal(preds_gpu[..., 2], preds_cpu[..., 2]),
+        "boxes_close": torch.allclose(boxes_gpu, boxes_cpu, rtol=1e-6, atol=0),
+        "launches": launches,
+    }
+    print(f"DARK decoder on the card against its CPU run, {len(heat)} crops: keypoints max "
+          f"|diff| {out['max_err']:.3e} px; {out['within_bound']} of {out['joints']} joints "
+          f"within the larger of {EVAL_XY_ATOL} px and twice their float32 rounding bound "
+          f"({out['tight']} bounds <= {EVAL_XY_ATOL / 2} px, {out['unbounded']} infinite; "
+          f"largest |diff| / bound {out['worst_err_over_bound']:.3e}); {out['agree']:.4f} of all "
+          f"within {EVAL_XY_ATOL} px (at least {DARK_AGREE}); scores bitwise equal "
+          f"{out['scores_equal']}, boxes within rtol 1e-6 {out['boxes_close']}; {launches} "
+          f"decode launch")
+    if not (bool(within_bound.all()) and out["agree"] >= DARK_AGREE and out["scores_equal"]
+            and out["boxes_close"] and launches == 1):
+        raise AssertionError("the DARK decoder on the card disagrees with its CPU run")
+    return out
+
+
 def eval_simple_baseline(root: str, trained: dict, device: torch.device) -> dict:
     """Phase 14: phase 13's UDP checkpoint through the eval entry with
     ``dark_udp_refine`` off and on (``eval_checkpoint``). Then, on one real
     eval batch's heatmap: the DARK decoder's device operations
     (torch.profiler) and device time per 32-crop chunk beside the decoder
     without it, and the DARK decoder on the card against its CPU run
-    (coordinates within ``EVAL_XY_ATOL`` px, scores bitwise)."""
+    (``compare_dark_with_cpu``)."""
     args = trained["args"]
     runs = {dark: eval_checkpoint(root, trained, device, dark) for dark in (False, True)}
 
@@ -1675,18 +1856,7 @@ def eval_simple_baseline(root: str, trained: dict, device: torch.device) -> dict
           f"{dark_ms:.5f} ms, without DARK (one kernel launch) {plain_ms:.5f} ms; DARK per call "
           f"back to back {dark_back_ms:.5f} ms")
 
-    argmax_shift_decode.launches = 0
-    preds_gpu, boxes_gpu = (t.cpu() for t in dark(heat, *crops))
-    launches = argmax_shift_decode.launches
-    preds_cpu, boxes_cpu = dark(heat.cpu(), *(t.cpu() for t in crops))
-    xy_err = float((preds_gpu[..., :2] - preds_cpu[..., :2]).abs().max())
-    scores_equal = bitwise_equal(preds_gpu[..., 2], preds_cpu[..., 2])
-    print(f"DARK decoder on the card against its CPU run, {len(heat)} crops of a real eval "
-          f"heatmap: keypoints max |diff| {xy_err:.3e} px (tolerance {EVAL_XY_ATOL}), scores "
-          f"bitwise equal {scores_equal}; {launches} decode launch")
-    if not (xy_err <= EVAL_XY_ATOL and scores_equal and launches == 1
-            and torch.allclose(boxes_gpu, boxes_cpu, rtol=1e-6, atol=0)):
-        raise AssertionError("the DARK decoder on the card disagrees with its CPU run")
+    compare_dark_with_cpu(dark, heat, crops)
     return {"launches": runs[False]["launches"], "dark_launches": runs[True]["launches"],
             "batches": runs[True]["batches"], "dark_ms": dark_ms, "dark_ops": len(ops),
             "plain_ms": plain_ms}
@@ -1843,6 +2013,337 @@ def serve_simple_baseline(root: str, trained: dict, device: torch.device) -> dic
     return {"launches": launches, "latency_ms": medians, "deeper": deeper}
 
 
+
+def grouping_bound_ms(n: int, k: int, m: int, tag_dim: int, g: int) -> float:
+    """The matcher's least time on n images: one read of its candidates
+    (val_k, tag_k, ind_k) and one write of its groups and valid flags. Its
+    work is a chain of dependent steps (rows, augmenting paths, joints)
+    that no count of operations over a peak rate describes, so the bound
+    given is the bytes'."""
+    return (4 * n * k * m * (1 + tag_dim + 2) + 4 * n * g * k * (3 + tag_dim) + n * g) \
+        / HBM_BYTES_PER_MS
+
+
+def check_grouping(device: torch.device) -> dict:
+    """Phase 16: the grouping kernel against its plain version (ops/grouping.py,
+    numpy on the host) on ``GROUPING_SETS`` seeded candidate sets of each kind
+    of ``SETS`` (K=17, M=30: a few persons, close tags, more persons than the
+    capacity, a capacity of 4) for L = 1 and 2, the rounded norm on and off,
+    ``ignore_too_much`` on and off: groups and valid bitwise equal. Then at
+    the recipe's settings (L = 1, rounded, 5 persons) the kernel's device
+    time per batch of 1 and of 32 (CUDA events, queued), the plain version's
+    and the host Hungarian's (utils/match.py) host time per image."""
+    rng = np.random.RandomState(SEED + 30)
+    total = 0
+    for tag_dim in (1, 2):
+        for rounded in (True, False):
+            for ignore in (False, True):
+                for name, kwargs, cap in SETS:
+                    sets = candidate_sets(rng, GROUPING_SETS, tag_dim=tag_dim, **kwargs)
+                    kw = dict(vis_thr=0.1, tag_thr=1.0, use_rounded_norm=rounded,
+                              ignore_too_much=ignore, group_cap=cap)
+                    want = plain_grouping.match_by_tag_batch(*sets, ORDER, **kw)
+                    got = cuda_grouping.match_by_tag_batch(
+                        *(torch.from_numpy(a).to(device) for a in sets), ORDER, **kw)
+                    got = tuple(t.cpu().numpy() for t in got)
+                    equal = (np.array_equal(got[0].view(np.int32), want[0].view(np.int32))
+                             and np.array_equal(got[1], want[1]))
+                    total += len(sets[0])
+                    if not equal:
+                        bad = np.nonzero((got[0] != want[0]).any((2, 3)) | (got[1] != want[1]))
+                        raise AssertionError(
+                            f"grouping kernel differs from the plain version on {name}, L="
+                            f"{tag_dim}, rounded={rounded}, ignore_too_much={ignore}: (image, "
+                            f"group) {list(zip(*bad))[:5]}")
+    print(f"grouping kernel: {total} candidate sets (K=17, M=30; L=1, 2; rounded norm on, off; "
+          f"ignore_too_much on, off; {[name for name, _, _ in SETS]}): groups and valid "
+          f"bitwise equal to the plain version")
+
+    sets = candidate_sets(rng, BATCH_SIZE, **SETS[0][1])
+    dev = [torch.from_numpy(a).to(device) for a in sets]
+    one = [a[:1].contiguous() for a in dev]
+    out = {"sets": total, "max_abs_err": 0.0}
+    out["ms"] = time_ms(lambda: cuda_grouping.match_by_tag_batch(*dev, ORDER), True,
+                        iters=GROUPING_ITERS, repeats=5)
+    out["ms_1"] = time_ms(lambda: cuda_grouping.match_by_tag_batch(*one, ORDER), True,
+                          iters=GROUPING_ITERS, repeats=5)
+    start = time.perf_counter()
+    plain_grouping.match_by_tag_batch(*sets, ORDER)
+    out["plain_ms"] = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    for v, t, i in zip(*sets):
+        match_by_tag(v, t, i, ORDER)
+    out["library_ms"] = (time.perf_counter() - start) * 1e3
+    out["bound_ms"] = grouping_bound_ms(BATCH_SIZE, 17, 30, 1, 30)
+    print(f"grouping kernel, device time (queued): {out['ms_1']:.5f} ms per batch of 1, "
+          f"{out['ms']:.5f} ms per batch of {BATCH_SIZE} ({out['ms'] / BATCH_SIZE:.5f} ms per "
+          f"image); bound {out['bound_ms']:.5f} ms (bytes; the work is a chain of dependent "
+          f"steps); the plain version on the host {out['plain_ms'] / BATCH_SIZE:.3f} ms per "
+          f"image; the host Hungarian (utils/match.py, scipy) {out['library_ms'] / BATCH_SIZE:.3f}"
+          f" ms per image")
+    return out
+
+
+def bottomup_args(root: str, ckpt: str, images: tuple, **options) -> Config:
+    """higher_hrnet_w32_tpu.yaml as the eval entry parses it, on ``images``
+    (image root, annotation file) with ``ckpt``."""
+    flags = [f"val_root={images[0]}", f"val_label={images[1]}", f"ckpt={ckpt}",
+             f"result_path={os.path.join(root, 'bottomup_result.json')}"]
+    flags += [f"{k}={v}" for k, v in options.items()]
+    return parse_args(["--config", HIGHER_YAML, "--cfg-options", *flags])
+
+
+def bottomup_fixture_args(root: str, **eval_setting) -> Config:
+    """The bottom-up fixture's config on its val split under ``root``."""
+    img_root, ann = tiny_coco.write_val(os.path.join(root, "bottomup_fixture"))
+    cfg = dict(BOTTOMUP_RECORD["config"], val_root=img_root, val_label=ann, ckpt=BOTTOMUP_CKPT,
+               result_path=os.path.join(root, "bottomup_fixture_result.json"))
+    cfg["eval_setting"] = dict(cfg["eval_setting"], **eval_setting)
+    return Config(**cfg)
+
+
+def bottomup_eval(args: Config, device: torch.device, label: str) -> dict:
+    """Phase 17: one bottom-up evaluation through the eval entry, the grouping
+    kernel's launches counted on that run alone."""
+    timings = {}
+    torch.cuda.synchronize()
+    cuda_grouping.match_by_tag_batch.launches = 0
+    stats = evaluate(args, device=device, timings=timings)
+    launches = cuda_grouping.match_by_tag_batch.launches
+    records, batches, infer_s = timings["records"], timings["batches"], timings["infer_s"]
+    print(f"bottom-up eval {label}: {records} images in {batches} batches; inferencer "
+          f"{infer_s:.3f} s ({records / infer_s:.2f} images/s, host loading included), "
+          f"evaluator {timings['eval_s']:.3f} s; grouping kernel launches {launches}")
+    print(f"bottom-up eval {label} stats: {json.dumps({k: float(v) for k, v in stats.items()})}")
+    want = batches if args.eval_setting.get("device_grouping", True) else 0
+    if launches != want:
+        raise AssertionError(f"{label}: {batches} batches made {launches} grouping launches")
+    values = np.array([float(v) for v in stats.values()])
+    if len(values) != 10 or not (np.isfinite(values) & (values >= -1) & (values <= 1)).all():
+        raise AssertionError(f"bottom-up eval {label}: malformed COCO stats {stats}")
+    return dict(timings, launches=launches, stats=stats)
+
+
+def time_bottomup_batches(args: Config, device: torch.device) -> dict:
+    """Phase 17: where a bottom-up eval batch's time goes: the host loader
+    alone over the val set, then on ``BU_SPLIT_BATCHES`` batches the forward,
+    the decode and the grouping (the kernel, its result copied to the host)
+    each ended by a synchronize, and the host's post-processing (scores,
+    back-projection, with ``refine_missing_joint`` off as in the yaml);
+    medians in ms per batch."""
+    net = create_network_from_config(args)
+    net.load_state_dict(load_net_state_dict(args.ckpt, net), strict=True)
+    decoder = create_decoder(args.decoder_name, **args.decoder_setting)
+    inferencer = create_inferencer(create_eval_network(net, decoder),
+                                   name=args.inference_method, config=args.eval_setting,
+                                   dataset_config=args.dataset_setting, device=device,
+                                   amp_level=args.amp_level)
+    loader = eval_loader(args, args.batch_size)
+    start = time.perf_counter()
+    batches = list(loader)
+    loader_s = time.perf_counter() - start
+    split = {"forward": [], "decode": [], "grouping": [], "host": []}
+    with torch.inference_mode():
+        for batch in batches[:BU_SPLIT_BATCHES + 1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            image = inferencer._upload(batch["image"]).permute(0, 3, 1, 2).contiguous()
+            mask = inferencer._upload(batch["mask"])
+            with inferencer.precision():
+                raw = inferencer.net.net.eval()(image)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            val_k, tag_k, ind_k, heatmap, tags = decoder(raw, mask)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            persons = inferencer.group(val_k, tag_k, ind_k)
+            t3 = time.perf_counter()
+            [[y[:, 2].mean() for y in x] for x in persons]  # the scores
+            transform_keypoints(persons, np.asarray(batch["center"], np.float32),
+                                np.asarray(batch["scale"], np.float32),
+                                np.asarray(batch["image_shape"], np.float32)
+                                / args.eval_setting["downsample_scale"],
+                                pixel_std=args.dataset_setting["pixel_std"])
+            t4 = time.perf_counter()
+            for key, value in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[key].append(value * 1e3)
+    out = {key: statistics.median(v[1:]) for key, v in split.items()}  # the first warms up
+    out["loader_images_per_s"] = len(loader.dataset) / loader_s
+    out["persons"] = sum(len(p) for p in persons)
+    print(f"bottom-up eval loader alone: {len(loader.dataset)} images in {loader_s:.3f} s "
+          f"({out['loader_images_per_s']:.1f} images/s)")
+    print(f"bottom-up eval batch of {len(batches[0]['image'])} [{batches[0]['image'].shape[1]}x"
+          f"{batches[0]['image'].shape[2]}] at {args.amp_level}, median of "
+          f"{BU_SPLIT_BATCHES}: forward {out['forward']:.3f} ms, decode {out['decode']:.3f} ms, "
+          f"grouping (kernel + copy) {out['grouping']:.3f} ms, host post-processing "
+          f"{out['host']:.3f} ms")
+    del inferencer, net
+    return out
+
+
+def bottomup_evaluation(root: str, device: torch.device) -> dict:
+    """Phase 17.
+
+    (a) The bottom-up fixture (JAX-trained, tests/fixtures/) at O0 through the
+    eval entry: with ``device_grouping`` on (the kernel) its 10 stats within
+    ``BU_STATS_ATOL`` of the JAX package's with its matcher, and off (the
+    host Hungarian) of JAX's host stats; one kernel launch per batch.
+    (b) higher_hrnet_w32_tpu.yaml at full width, with random weights from a
+    numpy seed written as a port checkpoint, at O2 and batch 1 (the yaml's
+    non-square max_image_size) on ``BU_EVAL_IMAGES`` frames of
+    tools/make_synthetic_coco.py: images/s, one grouping launch per batch,
+    and the split of ``time_bottomup_batches``.
+    """
+    register_port_backbone()
+    fixture = {}
+    for grouping in (True, False):
+        args = bottomup_fixture_args(root, device_grouping=grouping)
+        label = f"fixture O0 {'matcher (kernel)' if grouping else 'host Hungarian'}"
+        run = bottomup_eval(args, device, label)
+        want = BOTTOMUP_RECORD["jax_stats"]["device_grouping" if grouping else "host"]
+        err = max(abs(float(run["stats"][k]) - v) for k, v in want.items())
+        print(f"bottom-up {label}: AP {float(run['stats']['AP']):.6f}, JAX "
+              f"{want['AP']:.6f}; largest stat difference {err:.2e} (limit {BU_STATS_ATOL})")
+        if err > BU_STATS_ATOL:
+            raise AssertionError(f"bottom-up {label}: stats {err} from JAX's")
+        fixture[grouping] = run
+
+    data = write_synthetic_coco(os.path.join(root, "bottomup"), 0, BU_EVAL_IMAGES,
+                                BU_EVAL_PEOPLE)
+    ckpt = os.path.join(root, "higher_hrnet_w32_random.ckpt")
+    probe = bottomup_args(root, ckpt, data["val"])
+    net = create_network_from_config(probe)
+    random_weights_(net, device)
+    save_checkpoint(ckpt, net)
+    del net
+    args = bottomup_args(root, ckpt, data["val"])
+    run = bottomup_eval(args, device, f"higher_hrnet_w32_tpu.yaml {args.amp_level}, random "
+                                      f"weights")
+    if run["batches"] != BU_EVAL_IMAGES:
+        raise AssertionError(f"the recipe's non-square max_image_size batched "
+                             f"{BU_EVAL_IMAGES} images into {run['batches']} batches")
+    split = time_bottomup_batches(args, device)
+    torch.cuda.empty_cache()
+    return {"fixture": fixture, "recipe": run, "split": split, "ckpt": ckpt,
+            "launches": fixture[True]["launches"] + run["launches"]}
+
+
+def serving_frame() -> np.ndarray:
+    """A 640x480 RGB frame holding a tiny_coco val frame (two drawn persons)
+    scaled by 2.5."""
+    with tempfile.TemporaryDirectory() as root:
+        img_root, _ = tiny_coco.write_val(root)
+        small = cv2.cvtColor(cv2.imread(os.path.join(img_root, "000000000001.png")),
+                             cv2.COLOR_BGR2RGB)
+    big = np.zeros((480, 640, 3), np.uint8)
+    big[40:440, 40:600] = cv2.resize(small, (560, 400), interpolation=cv2.INTER_LINEAR)
+    return big
+
+
+def check_persons(preds: np.ndarray, scores: list) -> None:
+    """[P, 17, 3] persons, finite, one score each."""
+    if preds.ndim != 3 or preds.shape[1:] != (17, 3) or len(scores) != len(preds):
+        raise AssertionError(f"persons of shape {preds.shape} with {len(scores)} scores")
+    if not np.isfinite(preds).all() or not np.isfinite(scores).all():
+        raise AssertionError("non-finite persons or scores")
+
+
+def serve_bottomup(root: str, ckpt: str, device: torch.device) -> dict:
+    """Phase 18: higher_hrnet_w32_tpu.yaml through the serving entry
+    (``tools/serve.build_service`` with phase 17's random-weight checkpoint,
+    behind ``build_http_server`` on 127.0.0.1): ``GET /healthz``, then
+    ``POST /predict`` of a 640x480 PNG (served at 832x832) over real HTTP,
+    one grouping launch per request, ``REPEATS`` timed requests beside the
+    service's ``latency_ms``, and the device operations of one request under
+    torch.profiler. Then the bottom-up fixture's service with
+    ``device_grouping`` on, on the card against the CPU (the plain matcher):
+    the same persons, keypoints within ``EVAL_XY_ATOL`` px, scores within
+    ``BU_SCORE_ATOL``. Every server is shut down and no thread is left."""
+    threads_before = set(threading.enumerate())
+    image = serving_frame()
+    ok, png = cv2.imencode(".png", cv2.cvtColor(image, cv2.COLOR_RGB2BGR))  # lossless
+    if not ok:
+        raise RuntimeError("cv2 could not encode the request image")
+    payload = {"image_b64": base64.b64encode(png.tobytes()).decode()}
+
+    args = serve_entry.parse_serve_args(["--config", HIGHER_YAML, "--ckpt", ckpt])
+    start = time.perf_counter()
+    service = serve_entry.build_service(args, device=device)
+    print(f"serving entry: higher_hrnet_w32_tpu.yaml (bottom-up) with random weights built in "
+          f"{time.perf_counter() - start:.2f} s")
+    http = HttpService(service)
+    try:
+        with urllib.request.urlopen(http.url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        print(f"serving entry GET /healthz: {health}")
+        if health != {"status": "ok", "mode": "bottomup", "num_joints": 17}:
+            raise AssertionError(f"unexpected /healthz answer {health}")
+        post(http.url + "/predict", payload)  # warm-up
+        torch.cuda.synchronize()
+        cuda_grouping.match_by_tag_batch.launches = 0
+        answer = post(http.url + "/predict", payload)
+        launches = cuda_grouping.match_by_tag_batch.launches
+        preds = np.asarray(answer["predictions"], np.float32)
+        check_persons(preds, answer["scores"])
+        print(f"serving entry, bottom-up 640x480 PNG: {len(preds)} persons; grouping kernel "
+              f"launches {launches} for 1 request")
+        if launches != 1:
+            raise AssertionError(f"one bottom-up request made {launches} grouping launches")
+        runs, served = [], []
+        for _ in range(REPEATS):
+            start = time.perf_counter()
+            served.append(post(http.url + "/predict", payload)["latency_ms"])
+            runs.append((time.perf_counter() - start) * 1e3)
+        latency = {"median": statistics.median(runs), "min": min(runs), "max": max(runs),
+                   "service_median": statistics.median(served)}
+        print(f"serving entry, bottom-up 640x480 over HTTP, {REPEATS} runs: median "
+              f"{latency['median']:.3f} ms, min {latency['min']:.3f}, max {latency['max']:.3f}; "
+              f"of it the predictor (the service's latency_ms) median "
+              f"{latency['service_median']:.3f} ms, min {min(served):.3f}, max {max(served):.3f}")
+        ops = device_ops(lambda: service.predictor(image))
+        kernels = sorted({name for name in ops})
+        print(f"serving entry, bottom-up request under torch.profiler: {len(ops)} device "
+              f"operations ({len(kernels)} distinct); grouping kernel among them: "
+              f"{any('match_kernel' in name for name in ops)}")
+    finally:
+        http.close()
+    del service
+    torch.cuda.empty_cache()
+
+    register_port_backbone()
+    fixture = bottomup_fixture_args(root, device_grouping=True)
+    with torch.device("meta"):
+        skeleton = create_network_from_config(fixture)
+    state = load_net_state_dict(BOTTOMUP_CKPT, skeleton)
+    answers = {}
+    for label, where in (("card", device), ("cpu", torch.device("cpu"))):
+        fixture_service = PoseService(BottomUpPredictor.from_config(fixture, state, device=where),
+                                      mode="bottomup", num_joints=17)
+        try:
+            answers[label] = fixture_service.predict(payload)
+        finally:
+            fixture_service.close()
+    got, want = (np.asarray(answers[k]["predictions"], np.float32) for k in ("card", "cpu"))
+    got_s, want_s = (np.asarray(answers[k]["scores"], np.float32) for k in ("card", "cpu"))
+    if got.shape != want.shape or len(got) < 2:
+        raise AssertionError(f"the fixture's persons on the card {got.shape}, on the CPU "
+                             f"{want.shape}")
+    xy_err = float(np.abs(got[..., :2] - want[..., :2]).max())
+    score_err = max(float(np.abs(got[..., 2] - want[..., 2]).max()),
+                    float(np.abs(got_s - want_s).max()))
+    print(f"bottom-up fixture served on the card against the CPU (device_grouping on: the "
+          f"kernel, the plain matcher): {len(got)} persons each; keypoints within {xy_err:.2e} "
+          f"px (limit {EVAL_XY_ATOL}), scores within {score_err:.2e} (limit {BU_SCORE_ATOL})")
+    if xy_err > EVAL_XY_ATOL or score_err > BU_SCORE_ATOL:
+        raise AssertionError("the bottom-up fixture served on the card differs from the CPU")
+
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    print(f"bottom-up serving: threads left running after shutdown: {left or 'none'}")
+    if left:
+        raise AssertionError(f"the bottom-up serving phase left threads running: {left}")
+    return {"launches": launches, "latency": latency, "device_ops": len(ops)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1904,6 +2405,10 @@ def main() -> int:
         plain_eval = eval_checkpoint(root, plain, device, dark=False)
         sb_eval = eval_simple_baseline(root, trained, device)
         sb_served = serve_simple_baseline(root, trained, device)
+        torch.cuda.empty_cache()
+        grouped = check_grouping(device)
+        bu_eval = bottomup_evaluation(root, device)
+        bu_served = serve_bottomup(root, bu_eval["ckpt"], device)
     check_no_processes_left()
 
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
@@ -1965,6 +2470,28 @@ def main() -> int:
         "bound_by": chain["bound_by"],
         # the plain version is the library's: cuDNN's conv per layer, then ReLU
         "library_ms": chain["plain_device_ms"],
+    }, {
+        "name": "tag_grouping",
+        "route": "cuda",
+        "source": "mindpose_tpu_torch/csrc/grouping.cu",
+        # the JAX package's fixed-capacity matcher under jit; no Pallas kernel
+        "replaces": "mindpose_tpu/ops/grouping.py:109",
+        # bottom-up evaluation (phase 17: one per batch, the fixture's and the
+        # recipe's) and serving (phase 18: one per request)
+        "launches": bu_eval["launches"] + bu_served["launches"],
+        "eval_launches": bu_eval["launches"],
+        "serve_launches": bu_served["launches"],
+        "sets_checked": grouped["sets"],
+        "max_abs_err": grouped["max_abs_err"],
+        # per batch of 32 images at the recipe's settings (L=1, rounded norm):
+        # the kernel's device time; the plain version's and the host
+        # Hungarian's host time
+        "ms": grouped["ms"],
+        "ms_batch_1": grouped["ms_1"],
+        "plain_ms": grouped["plain_ms"],
+        "bound_ms": grouped["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": grouped["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -2,10 +2,13 @@
 
 Counterpart of ``mindpose_tpu/data/data_factory.py:21-138``, with the same
 arguments: the top-down train and val pipelines (train: shuffled per epoch
-from ``seed``, the last partial batch dropped). An argument the port does
-not support (sharding, bucketing, frame-grouped shuffling, the
-decoded-frame cache, other methods) raises rather than being ignored.
+from ``seed``, the last partial batch dropped) and the bottom-up val
+pipeline, with the JAX package's batch rule for it (:93-118). An argument
+the port does not support (sharding, bucketing, frame-grouped shuffling, the
+decoded-frame cache, bottom-up training, other methods) raises rather than
+being ignored.
 """
+import logging
 from typing import Any, Dict, List, Optional, Union
 
 from ..register import entrypoint
@@ -78,7 +81,9 @@ def create_pipeline(
     pipeline ships keypoints in place of targets).
     """
     if method not in FINAL_COLUMN_MAP:
-        _refuse(f"method={method!r}", "Queue 1, HigherHRNet bottom-up")
+        _refuse(f"method={method!r}", "Queue 1")
+    if method == "bottomup" and is_train:
+        _refuse("bottom-up training", "Queue 1, HigherHRNet bottom-up: training")
     leftover = "Queue 1, the training entry's leftovers"
     for name, value, item in (
             ("hwc_to_chw", hwc_to_chw, leftover),
@@ -89,6 +94,8 @@ def create_pipeline(
         if value:
             _refuse(f"{name}={value!r}", item)
     bundle = dataset if isinstance(dataset, dict) else {"dataset": dataset, "num_workers": 1}
+    if method == "bottomup" and batch_size != 1:
+        batch_size = _bottomup_val_batch(transforms, config, batch_size)
     transform_funcs = _convert_names_to_transform(transforms, is_train=is_train, config=config)
     return DataLoader(
         dataset=bundle["dataset"],
@@ -102,6 +109,25 @@ def create_pipeline(
         num_workers=max(num_workers, bundle.get("num_workers", 1) or 1),
         seed=seed,
     )
+
+
+def _bottomup_val_batch(transforms, config: Optional[Dict[str, Any]], batch_size: int) -> int:
+    """The JAX package's rule: bottom-up images batch only where ``bottomup_pad``
+    gives them one shape, that is with a square ``max_image_size`` (the pad
+    swaps a non-square one's sides for portrait images); else batch 1."""
+    names = [t if isinstance(t, str) else next(iter(t)) for t in transforms]
+    max_size = (config or {}).get("max_image_size")
+    square = bool(max_size) and max_size[0] == max_size[1]
+    if "bottomup_pad" not in names:
+        logging.info("Set batch_size = 1 for `bottomup` evaluation (no bottomup_pad "
+                     "transform -> variable image sizes).")
+        return 1
+    if not square:
+        logging.info("Set batch_size = 1 for `bottomup` evaluation (non-square "
+                     "max_image_size %s pads portrait and landscape images to "
+                     "different shapes).", max_size)
+        return 1
+    return batch_size
 
 
 def _convert_names_to_transform(

@@ -1,3 +1,4 @@
+from .bottomup_transform import BottomUpPad, BottomUpRescale  # noqa: F401
 from .topdown_transform import (  # noqa: F401
     TopDownAffine,
     TopDownBoxToCenterScale,

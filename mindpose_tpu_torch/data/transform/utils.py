@@ -3,8 +3,9 @@
 Copies of ``mindpose_tpu/data/transform/utils.py``: the joints' horizontal
 flip and its permutation (:15-66), the center/scale -> affine-matrix
 construction (pixel_std=200 convention), a 2x3 matrix applied to a point
-(:125), the UDP closed-form warp matrix (:142-167) and a matrix applied to
-joint arrays (:170).
+(:125), the UDP closed-form warp matrix (:142-167), a matrix applied to
+joint arrays (:170), and the bottom-up back-projection of grouped
+keypoints to the original frame (``transform_keypoints``, :186).
 The port cannot import the JAX package (its ``__init__`` imports JAX), so
 these live here; tests/test_torch_host_copies.py holds each copy equal to
 its original.
@@ -21,6 +22,7 @@ __all__ = [
     "affine_transform",
     "get_warp_matrix",
     "warp_affine_joints",
+    "transform_keypoints",
 ]
 
 
@@ -168,3 +170,31 @@ def warp_affine_joints(joints: np.ndarray, mat: np.ndarray) -> np.ndarray:
     """Apply a 2x3 affine matrix to [..., 2] joint coordinates."""
     ones = np.ones((*joints.shape[:-1], 1), dtype=np.float32)
     return np.concatenate((joints, ones), axis=-1) @ np.asarray(mat).T
+
+
+def transform_keypoints(
+    coords: List[np.ndarray],
+    center: np.ndarray,
+    scale: np.ndarray,
+    heatmap_shape: np.ndarray,
+    pixel_std: float = 200.0,
+) -> List[np.ndarray]:
+    """Map heatmap-frame coords back to the original image frame.
+
+    coords: list over batch of [M, K, >=2] (or empty); center/scale [N, 2];
+    heatmap_shape [N, 2].
+    """
+    scale = np.asarray(scale, dtype=np.float64) * pixel_std
+    scale_x = scale[:, 0] / heatmap_shape[:, 0]
+    scale_y = scale[:, 1] / heatmap_shape[:, 1]
+
+    out = []
+    for i, coord in enumerate(coords):
+        if coord.size == 0:
+            out.append(coord)
+            continue
+        t = coord.copy()
+        t[..., 0] = coord[..., 0] * scale_x[i] + center[i, 0] - scale[i, 0] * 0.5
+        t[..., 1] = coord[..., 1] * scale_y[i] + center[i, 1] - scale[i, 1] * 0.5
+        out.append(t)
+    return out

@@ -1,2 +1,3 @@
+from .bottomup_evaluator import BottomUpEvaluator  # noqa: F401
 from .evaluator import Evaluator  # noqa: F401
 from .topdown_evaluator import TopDownEvaluator  # noqa: F401

@@ -1,2 +1,3 @@
+from .bottomup_inferencer import BottomUpHeatMapAEInferencer  # noqa: F401
 from .inferencer import Inferencer  # noqa: F401
 from .topdown_inferencer import TopDownHeatMapInferencer  # noqa: F401

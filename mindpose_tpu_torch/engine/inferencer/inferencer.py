@@ -14,6 +14,7 @@ import contextlib
 import logging
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ...models.networks import EvalNet
@@ -51,6 +52,10 @@ class Inferencer:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         return contextlib.nullcontext()
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host batch column as float32 on the inferencer's device."""
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
 
     def load_inference_cfg(self) -> Dict[str, Any]:
         raise NotImplementedError("Child class must implement this method.")

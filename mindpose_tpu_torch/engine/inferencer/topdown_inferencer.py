@@ -35,9 +35,6 @@ class TopDownHeatMapInferencer(Inferencer):
         cfg["flip_pairs"] = np.array(self.config["flip_pairs"])
         return cfg
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
-
     @torch.inference_mode()
     def heatmaps(self, image: torch.Tensor) -> torch.Tensor:
         """NCHW crops -> [N, K, H, W] heatmaps, merged with the mirrored

@@ -1,12 +1,20 @@
-"""Serving API: raw image + person boxes -> keypoints.
+"""Serving API: a raw image (and, top-down, person boxes) -> keypoints.
 
-Counterpart of ``mindpose_tpu/engine/predictor.py:TopDownPredictor``, with
-the same call: ``predictor(image HWC uint8 RGB, boxes xywh [M, 4],
+Counterpart of ``mindpose_tpu/engine/predictor.py``, with the same calls.
+
+``TopDownPredictor``: ``predictor(image HWC uint8 RGB, boxes xywh [M, 4],
 box_scores) -> [M, K, 3]`` in the original image frame. The host computes
 each box's center/scale and warp matrix in numpy; the device does the rest:
 the crop (a bilinear warp by gather, ``ops/image.affine_warp``, in place of
 the JAX predictor's cv2.warpAffine), normalization, the forward pass and the
 decode, whose argmax+shift is the hand-written kernel on a CUDA device.
+
+``BottomUpPredictor``: ``predictor(image) -> (preds [P, K, 3 + L], scores
+[P])``, every person in the image, no boxes given: the host rescales and
+pads the image (the val transforms, cv2), the device normalizes it and runs
+the forward, the decode and the tag grouping (the matcher's kernel, one
+launch per request), and the host maps the persons back to the original
+frame.
 """
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -21,7 +29,27 @@ from ..models.model_factory import (
 )
 from ..ops.image import affine_warp, normalize_image
 
-__all__ = ["TopDownPredictor"]
+__all__ = ["TopDownPredictor", "BottomUpPredictor"]
+
+
+def _default_device(device: Optional[torch.device], who: str) -> torch.device:
+    """``device``, or the current CUDA device; without CUDA the default raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who} serves on the GPU by default, and CUDA is not "
+                               "available; pass device='cpu' to serve on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _net_from_config(args: Any, net_state: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+    """The net the config names, built without initializing its weights, which
+    ``net_state`` then overwrites all (a strict load)."""
+    with torch.device("meta"):
+        net = create_network_from_config(args)
+    net = net.to_empty(device="cpu")
+    net.load_state_dict(net_state, strict=True)
+    return net
 
 
 class TopDownPredictor:
@@ -68,12 +96,7 @@ class TopDownPredictor:
             raise ValueError(f"unknown quantize mode: {quantize!r}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("TopDownPredictor serves on the GPU by default, and CUDA is "
-                                   "not available; pass device='cpu' to serve on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = _default_device(device, "TopDownPredictor")
         self.batch_size = batch_size
         self.mean = tuple(normalize_mean)
         self.std = tuple(normalize_std)
@@ -98,12 +121,8 @@ class TopDownPredictor:
         ``kwargs`` (``batch_size``, ``quantize``, ``device``) go to the
         constructor.
         """
-        with torch.device("meta"):
-            net = create_network_from_config(args)
-        net = net.to_empty(device="cpu")
-        net.load_state_dict(net_state, strict=True)
         return cls(
-            net,
+            _net_from_config(args, net_state),
             dataset_setting=args.dataset_setting,
             decoder_setting=getattr(args, "decoder_setting", None),
             normalize_mean=args.normalize_mean,
@@ -173,3 +192,100 @@ class TopDownPredictor:
             chunk = slice(i, min(i + self.batch_size, m))
             preds.append(self._eval_net(x[chunk], centers[chunk], scales[chunk], scores[chunk])[0])
         return torch.cat(preds).cpu().numpy()
+
+
+class BottomUpPredictor:
+    """Single-image multi-person bottom-up predictor (no detector needed).
+
+    Args:
+        net: the port's ``Net`` (backbone + ``higher_hrnet_head``), with its
+            weights loaded; it is moved to ``device`` and put in eval mode.
+        dataset_setting: the config's dataset_setting dict (max_image_size,
+            pixel_std, flip_pairs, ...). ``max_image_size`` is made square
+            (its longer side), as the JAX predictor does, so that landscape
+            and portrait images take one shape: a 640x480 image at the
+            HigherHRNet-W32 recipe's [832, 512] runs at 832x832.
+        eval_setting: the config's eval_setting dict (joint_order, tag_thr,
+            vis_thr, downsample_scale, device_grouping, TTA, ...).
+        decoder_setting: the ``bottomup_heatmap_ae`` decoder's kwargs.
+        device: where the forward, the decode and the grouping run. Default:
+            the current CUDA device; without CUDA the default raises, and a
+            caller who wants the CPU passes ``device="cpu"``.
+
+    It serves in float32 with TF32 off, as the inferencer runs at O0.
+    """
+
+    def __init__(
+        self,
+        net: torch.nn.Module,
+        dataset_setting: Dict[str, Any],
+        eval_setting: Dict[str, Any],
+        decoder_setting: Optional[Dict[str, Any]] = None,
+        normalize_mean=(0.485, 0.456, 0.406),
+        normalize_std=(0.229, 0.224, 0.225),
+        device: Optional[torch.device] = None,
+    ) -> None:
+        from ..data.transform.bottomup_transform import BottomUpPad, BottomUpRescale
+        from .factory import create_inferencer
+
+        self.device = _default_device(device, "BottomUpPredictor")
+        self.mean = tuple(normalize_mean)
+        self.std = tuple(normalize_std)
+        setting = dict(dataset_setting)
+        mw, mh = setting["max_image_size"]
+        side = max(int(mw), int(mh))
+        setting["max_image_size"] = [side, side]
+        self._rescale = BottomUpRescale(is_train=False, config=setting)
+        self._pad = BottomUpPad(is_train=False, config=setting)
+        self._num_joints = int((decoder_setting or {}).get("num_joints", 17))
+        decoder = create_decoder("bottomup_heatmap_ae", **(decoder_setting or {}))
+        eval_net = create_eval_network(
+            net, decoder, output_raw=eval_setting.get("has_heatmap_output", True))
+        self.inferencer = create_inferencer(
+            eval_net, name="bottomup_heatmap_ae", config=dict(eval_setting),
+            dataset_config=setting, device=self.device)
+
+    @classmethod
+    def from_config(cls, args: Any, net_state: Mapping[str, torch.Tensor],
+                    device: Optional[torch.device] = None) -> "BottomUpPredictor":
+        """Build from a parsed config namespace and the net's weights, as
+        ``TopDownPredictor.from_config`` does."""
+        return cls(
+            _net_from_config(args, net_state),
+            dataset_setting=args.dataset_setting,
+            eval_setting=args.eval_setting,
+            decoder_setting=getattr(args, "decoder_setting", None),
+            normalize_mean=args.normalize_mean,
+            normalize_std=args.normalize_std,
+            device=device,
+        )
+
+    @property
+    def net(self) -> torch.nn.Module:
+        """The served net (eval mode, on ``self.device``)."""
+        return self.inferencer.net.net
+
+    @torch.inference_mode()
+    def __call__(self, image: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Predict all persons in an RGB uint8 image.
+
+        Returns ``(preds, scores)``: keypoints [P, K, 3 + L] (x, y, score,
+        tags) in the original image frame and per-person scores [P].
+        """
+        image = np.asarray(image)
+        if image.ndim != 3 or image.dtype != np.uint8:
+            raise ValueError(f"want an HWC uint8 image, got {image.dtype} {image.shape}")
+        state = {"image": image}
+        state.update(self._rescale.transform(state))
+        state.update(self._pad.transform(state))
+        img = torch.from_numpy(np.ascontiguousarray(state["image"])).to(self.device)
+        x = normalize_image(img[None], self.mean, self.std).permute(0, 3, 1, 2).contiguous()
+        mask = torch.from_numpy(state["mask"]).to(self.device)[None].float()
+        batch = {key: np.asarray(state[key])[None] for key in ("center", "scale", "image_shape")}
+        (preds,), (scores,) = self.inferencer.persons(self.inferencer.forward_decode(x, mask),
+                                                       batch)
+        preds = np.asarray(preds, np.float32)
+        if preds.size == 0:
+            return (np.zeros((0, self._num_joints, 3), np.float32),
+                    np.zeros((0,), np.float32))
+        return preds, np.asarray(scores, np.float32).reshape(-1)

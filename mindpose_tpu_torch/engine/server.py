@@ -1,15 +1,17 @@
-"""HTTP pose-estimation service around the top-down predictor (stdlib only).
+"""HTTP pose-estimation service around the predictors (stdlib only).
 
-Counterpart of mindpose_tpu/engine/server.py, with the same wire format.
-Only the top-down mode is served: the bottom-up predictor is not ported yet.
+Counterpart of mindpose_tpu/engine/server.py, with the same wire format,
+for ``TopDownPredictor`` (``mode="topdown"``) and ``BottomUpPredictor``
+(``mode="bottomup"``: every person in the image, no boxes).
 
 Endpoints:
-    GET  /healthz   -> {"status": "ok", "mode": "topdown", "num_joints": ...}
+    GET  /healthz   -> {"status": "ok", "mode": ..., "num_joints": ...}
     POST /predict   body {"image_b64": <base64 jpeg/png>,
-                          "boxes": [[x, y, w, h], ...] (optional —
+                          "boxes": [[x, y, w, h], ...] (top-down; optional —
                           defaults to one whole-image box),
                           "box_scores": [...] (optional)}
                     -> {"predictions": [[[x, y, score] * K] * M],
+                        "scores": [...] (bottom-up only),
                         "latency_ms": float}
 
 Inference runs on one long-lived worker thread of the service (one model,
@@ -39,8 +41,8 @@ class PoseService:
     one worker thread that ``close`` ends."""
 
     def __init__(self, predictor, mode: str, num_joints: int) -> None:
-        if mode != "topdown":
-            raise ValueError(f"unknown or unported mode: {mode!r}")
+        if mode not in ("topdown", "bottomup"):
+            raise ValueError(f"unknown mode: {mode!r}")
         self.predictor = predictor
         self.mode = mode
         self.num_joints = num_joints
@@ -69,6 +71,13 @@ class PoseService:
         image = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
 
         start = time.perf_counter()
+        if self.mode == "bottomup":
+            preds, scores = self._worker.submit(self.predictor, image).result()
+            return {
+                "predictions": [np.asarray(p)[:, :3].tolist() for p in preds],
+                "scores": [float(s) for s in scores],
+                "latency_ms": (time.perf_counter() - start) * 1e3,
+            }
         boxes = request.get("boxes")
         if boxes is None:
             boxes = [[0, 0, image.shape[1], image.shape[0]]]

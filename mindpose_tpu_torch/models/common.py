@@ -18,6 +18,7 @@ __all__ = [
     "conv1x1",
     "conv3x3",
     "he_normal_",
+    "resize_bilinear",
     "resize_nearest",
 ]
 
@@ -112,3 +113,12 @@ def resize_nearest(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
         x = x[:, :, :, None, :, None].expand(n, c, h, fh, w, fw)
         return x.reshape(n, c, height, width)
     return F.interpolate(x, size=(height, width), mode="nearest-exact")
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor with half-pixel centres, like
+    ``jax.image.resize(method="bilinear")``, which widens its kernel (an
+    antialiasing triangle filter) where it downsamples: ``antialias=True``
+    does the same, and changes nothing where it upsamples."""
+    return F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False,
+                         antialias=True)

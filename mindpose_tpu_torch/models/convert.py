@@ -26,6 +26,7 @@ from torch import nn
 
 from .backbones.hrnet import HRNet
 from .backbones.resnet import ResNet
+from .heads.higher_hrnet_head import HigherHRNetHead
 from .heads.hrnet_head import HRNetHead
 from .heads.simple_baseline_head import SimpleBaselineHead
 
@@ -133,7 +134,8 @@ def resnet_mapping(block_counts: Sequence[int]) -> List[Entry]:
 
 
 def head_mapping(head: nn.Module) -> List[Entry]:
-    """The entries of a port head: ``hrnet_head`` or ``simple_baseline_head``."""
+    """The entries of a port head: ``hrnet_head``, ``simple_baseline_head`` or
+    ``higher_hrnet_head``."""
     if isinstance(head, HRNetHead):
         return [("conv_bias", "head", ("head",))]
     if isinstance(head, SimpleBaselineHead):
@@ -143,6 +145,18 @@ def head_mapping(head: nn.Module) -> List[Entry]:
             entries.append(("deconv", f"deconv_layers.{i}", (f"ConvTranspose_{n}",)))
             entries.append(("bn", f"deconv_layers.{i + 1}", (f"BatchNorm_{n}",)))
         return entries + [("conv_bias", "final_layer", ("final_layer",))]
+    if isinstance(head, HigherHRNetHead):
+        entries = [("conv_bias", f"final_layers.{i}", (f"final_{i}",))
+                   for i in range(len(head.final_layers))]
+        g = 0  # flax numbers the BasicBlocks of all stages in one sequence
+        for i, stage in enumerate(head.deconv_layers):
+            entries.append(("deconv", f"deconv_layers.{i}.0", (f"ConvTranspose_{i}",)))
+            entries.append(("bn", f"deconv_layers.{i}.1", (f"BatchNorm_{i}",)))
+            for b in range(3, len(stage)):
+                entries += _residual_block(f"deconv_layers.{i}.{b}", (f"BasicBlock_{g}",), 2,
+                                           downsample=False)
+                g += 1
+        return entries
     raise NotImplementedError(f"no JAX variable mapping for the head {type(head).__name__}")
 
 

@@ -1,2 +1,3 @@
+from .bottom_up_decoder import BottomUpHeatMapAEDecoder  # noqa: F401
 from .decoder import Decoder  # noqa: F401
 from .top_down_decoder import TopDownHeatMapDecoder  # noqa: F401

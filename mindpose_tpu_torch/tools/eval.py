@@ -1,8 +1,10 @@
 """Evaluation CLI: checkpoint -> COCO keypoint AP, on the GPU.
 
 Counterpart of ``tools/eval.py`` (:36-132): the val dataset and loader, the
-network with the checkpoint's weights, the inferencer (hflip TTA as the
-config says) and the evaluator (rescoring, OKS-NMS, COCO AP). The
+network with the checkpoint's weights, the inferencer (TTA as the config
+says) and the evaluator (COCO AP), top-down (rescoring, OKS-NMS) or
+bottom-up (``pipeline_method: bottomup``: whole images, tag grouping; on
+the GPU the grouping kernel unless ``device_grouping`` is false). The
 checkpoint is the port's own (``utils/checkpoint.save_checkpoint``) or the
 JAX package's flax msgpack file. ``amp_level`` other than O0 runs the
 forward in bf16 autocast, as the JAX tool evaluates in bf16; O0 runs it in
@@ -12,6 +14,8 @@ float32. The 10 COCO stats go to ``result_path`` (default
 Usage:
     python3 -m mindpose_tpu_torch.tools.eval --config configs/hrnet/hrnet_w32_tpu.yaml \\
         --ckpt ckpt/last.pt [--device cpu] [--cfg-options val_root=... val_label=...]
+    python3 -m mindpose_tpu_torch.tools.eval \\
+        --config configs/higher_hrnet/higher_hrnet_w32_tpu.yaml --ckpt <file> ...
 """
 import json
 import logging

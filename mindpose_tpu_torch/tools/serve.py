@@ -1,24 +1,27 @@
 """Serving CLI: a pose model over HTTP (JSON in, keypoints out), on the GPU.
 
-Counterpart of ``tools/serve.py`` (:36-106) for top-down configs: the net
-the config names, with the weights of ``--ckpt``, behind
-``TopDownPredictor`` and the stdlib HTTP ``PoseService``
-(``engine/server.py`` gives the wire format: ``POST /predict``,
-``GET /healthz``). The checkpoint is the port's own (the training entry's
-``*_last.ckpt``, ``*_best.ckpt``) or the JAX package's flax msgpack file;
+Counterpart of ``tools/serve.py`` (:36-106): the net the config names,
+with the weights of ``--ckpt``, behind ``TopDownPredictor`` (or, for
+``pipeline_method: bottomup``, ``BottomUpPredictor``: every person of an
+image, no boxes) and the stdlib HTTP ``PoseService`` (``engine/server.py``
+gives the wire format: ``POST /predict``, ``GET /healthz``). The
+checkpoint is the port's own (the training entry's ``*_last.ckpt``,
+``*_best.ckpt``) or the JAX package's flax msgpack file;
 ``utils/checkpoint.load_net_state_dict`` tells them apart. Without
 ``--ckpt`` it serves the net's own initial weights from a fixed seed, and
 says so in a warning.
 
 It serves on the current CUDA device unless ``--device`` says otherwise, and
-raises without CUDA; it never falls back to the CPU. Refused, each naming
-its ROADMAP item: ``pipeline_method: bottomup`` (HigherHRNet bottom-up) and
-``--quantize int8`` (the rest: int8).
+raises without CUDA; it never falls back to the CPU. Refused:
+``--quantize int8`` (ROADMAP.md, the rest: int8), and any ``--quantize``
+with a bottom-up config, as the JAX tool refuses it.
 
 Usage:
     python3 -m mindpose_tpu_torch.tools.serve --config configs/simple_baseline/resnet50_tpu.yaml \\
         --ckpt ckpt/resnet50_tpu_last.ckpt [--host 127.0.0.1] [--port 8080] [--batch-size 32] \\
         [--device cpu]
+    python3 -m mindpose_tpu_torch.tools.serve \\
+        --config configs/higher_hrnet/higher_hrnet_w32_tpu.yaml --ckpt <file>
 """
 import logging
 from typing import Any, Optional, Sequence
@@ -26,7 +29,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from ..config import Config, parse_args
-from ..engine import PoseService, TopDownPredictor, build_http_server
+from ..engine import BottomUpPredictor, PoseService, TopDownPredictor, build_http_server
 from ..models import create_network_from_config
 from ..utils.checkpoint import load_net_state_dict
 
@@ -38,13 +41,15 @@ SEED = 0  # the torch seed of the initial weights served without --ckpt
 def build_service(args: Any, batch_size: int = 32,
                   device: Optional[torch.device] = None) -> PoseService:
     """The service of a parsed config: its net with ``args.ckpt``'s weights
-    (or seeded initial ones) behind a ``TopDownPredictor`` on ``device``
-    (default: the current CUDA device)."""
+    (or seeded initial ones) behind a ``TopDownPredictor`` or, for
+    ``pipeline_method: bottomup``, a ``BottomUpPredictor``, on ``device``
+    (default: the current CUDA device). ``batch_size`` is the top-down
+    predictor's boxes per forward pass."""
     mode = getattr(args, "pipeline_method", "topdown") or "topdown"
-    if mode == "bottomup":
-        raise NotImplementedError(
-            "bottom-up serving is not ported (ROADMAP.md, Queue 1, HigherHRNet bottom-up)")
     quantize = getattr(args, "quantize", "") or ""
+    if mode == "bottomup" and quantize:
+        raise ValueError("--quantize is implemented for the top-down predictor only; "
+                         "refusing to silently serve full-precision bottom-up weights")
     if quantize == "int8":
         raise NotImplementedError(
             "--quantize int8 is not ported (ROADMAP.md, Queue 1, the rest: int8)")
@@ -60,8 +65,11 @@ def build_service(args: Any, batch_size: int = 32,
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(SEED)
             net_state = create_network_from_config(args).state_dict()
-    predictor = TopDownPredictor.from_config(args, net_state, batch_size=batch_size,
-                                             quantize=quantize, device=device)
+    if mode == "bottomup":
+        predictor = BottomUpPredictor.from_config(args, net_state, device=device)
+    else:
+        predictor = TopDownPredictor.from_config(args, net_state, batch_size=batch_size,
+                                                 quantize=quantize, device=device)
     return PoseService(predictor, mode=mode, num_joints=args.num_joints)
 
 
@@ -71,7 +79,7 @@ def parse_serve_args(argv: Optional[Sequence[str]] = None) -> Config:
         {"names": ["--host"], "type": str, "default": "127.0.0.1"},
         {"names": ["--port"], "type": int, "default": 8080},
         {"names": ["--batch-size"], "type": int, "default": 32,
-         "help": "boxes per forward pass"},
+         "help": "boxes per forward pass (top-down)"},
         {"names": ["--quantize"], "type": str, "default": "",
          "help": "weight quantization: '' only ('int8' is not ported)"},
         {"names": ["--device"], "default": None,

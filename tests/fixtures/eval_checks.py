@@ -6,6 +6,9 @@ torch and the port only, never JAX.
 - ``RECORD`` and ``CKPT``: the fixture's record (its eval config, stage
   config and the JAX package's stats) and its checkpoint, both written by
   ``tests/make_torch_eval_fixture.py``;
+- ``BOTTOMUP_RECORD`` and ``BOTTOMUP_CKPT``: the bottom-up fixture's (the
+  same reduced HRNet with a ``higher_hrnet_head``), written by
+  ``tests/make_torch_bottomup_fixture.py``;
 - ``register_port_backbone``: the fixture's reduced HRNet in the port's
   registry, under the name the record's config gives it;
 - ``decode_margin``: how far a heatmap is from decoding otherwise, which
@@ -23,11 +26,17 @@ FIXTURE_DIR = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(FIXTURE_DIR, "tiny_hrnet_topdown.msgpack")
 with open(os.path.join(FIXTURE_DIR, "tiny_hrnet_topdown.json")) as f:
     RECORD = json.load(f)
+BOTTOMUP_CKPT = os.path.join(FIXTURE_DIR, "tiny_higher_hrnet_bottomup.msgpack")
+with open(os.path.join(FIXTURE_DIR, "tiny_higher_hrnet_bottomup.json")) as f:
+    BOTTOMUP_RECORD = json.load(f)
 
 
 def register_port_backbone() -> None:
-    """Register the fixture's reduced HRNet in the port's registry (once)."""
+    """Register the fixtures' reduced HRNet in the port's registry (once); both
+    fixtures name the same one."""
     name = RECORD["config"]["backbone_name"]
+    assert BOTTOMUP_RECORD["config"]["backbone_name"] == name
+    assert BOTTOMUP_RECORD["stage_cfg"] == RECORD["stage_cfg"]
     if name in list_components("backbone"):
         return
     stage_cfg = RECORD["stage_cfg"]

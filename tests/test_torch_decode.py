@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mindpose_tpu.models.decoders.top_down_decoder import TopDownHeatMapDecoder as JaxDecoder
 from mindpose_tpu.ops.heatmap import argmax_coords as jax_argmax_coords
@@ -33,9 +34,11 @@ from mindpose_tpu_torch.ops.cuda.decode import (
     decode_heatmap,
     decode_heatmap_plain,
 )
+from mindpose_tpu_torch.ops import heatmap as heatmap_ops
 from mindpose_tpu_torch.ops.heatmap import (
     argmax_coords,
     dark_udp_refine,
+    gaussian_blur_depthwise,
     gaussian_kernel_2d,
     quarter_offset,
 )
@@ -250,6 +253,45 @@ def test_dark_decoder_takes_its_argmax_from_the_kernel_wrapper(monkeypatch):
     hm, center, scale, score = (torch.from_numpy(a) for a in _decoder_inputs())
     create_decoder("topdown_heatmap", use_udp=True, dark_udp_refine=True)(hm, center, scale, score)
     assert calls == [False]
+
+
+def _blur_float64(heatmap, kernel):
+    k = heatmap.shape[1]
+    filt = kernel.double().expand(k, 1, *kernel.shape).contiguous()
+    return F.conv2d(heatmap.double(), filt, padding="same", groups=k).float()
+
+
+def _blur_flipped(heatmap, kernel):
+    return gaussian_blur_depthwise(heatmap.flip(2, 3), kernel.flip(0, 1)).flip(2, 3)
+
+
+@pytest.mark.parametrize("blur", [_blur_float64, _blur_flipped], ids=["float64", "flipped"])
+@pytest.mark.parametrize("case", ["peaks", "border", "flat", "weak"])
+def test_dark_rounding_bound_covers_another_summation_order(monkeypatch, case, blur):
+    """chip_smoke.py holds the DARK decoder on the card to its CPU run within
+    twice ``dark_rounding_bound``: the refinement with its blur summed in
+    another order (exactly, then rounded; or over the flipped map) stays
+    within the bound at every joint, and the bound is finite and below 1e-2
+    heatmap px wherever a clear peak stands. "weak" maps peak at 1e-3-1e-2
+    over noise of sd 1e-3, the near-singular Newton steps the bound is for."""
+    import chip_smoke
+
+    hm = _dark_heatmaps("peaks" if case == "weak" else case)
+    if case == "weak":
+        hm = hm * 0.01 + np.random.RandomState(11).normal(0, 1e-3, hm.shape).astype(np.float32)
+    hm = torch.from_numpy(hm)
+    kernel = torch.from_numpy(gaussian_kernel_2d(11))
+    coords = argmax_coords(hm)[0]
+    want = dark_udp_refine(coords, hm, kernel)
+    monkeypatch.setattr(heatmap_ops, "gaussian_blur_depthwise", blur)
+    got = dark_udp_refine(coords, hm, kernel)
+    bound = chip_smoke.dark_rounding_bound(hm, coords, kernel, torch.ones(len(hm), 2))
+    err = (got - want).abs().amax(-1).double()
+    assert bool((err <= bound).all()), float((err / bound).max())
+    if case == "peaks":
+        assert float(bound.max()) < 1e-2
+    if case == "weak":
+        assert float(err.max()) > 0  # the other order did move a joint
 
 
 @pytest.mark.parametrize("setting", DECODER_SETTINGS)

@@ -294,7 +294,8 @@ def test_pipeline_refuses_what_it_does_not_support(tiny):
                            config=DATASET_SETTING, use_gt_bbox_for_val=True)
     ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
                         use_gt_bbox_for_val=True)
-    for kwargs in ({"method": "bottomup"}, {"decode_cache_mb": 64},
+    for kwargs in ({"method": "bottomup", "is_train": True}, {"method": "imagefolder_bottomup"},
+                   {"decode_cache_mb": 64},
                    {"image_bucket": 32}, {"hwc_to_chw": True}, {"frame_grouped_shuffle": True},
                    {"patch_grouped_batching": True}):
         with pytest.raises(NotImplementedError):
@@ -314,3 +315,92 @@ def test_config_and_merge(tmp_path, caplog):
     with caplog.at_level(logging.WARNING):
         assert _merged({"a": 1, "b": 2}, None, {"b": 3}) == {"a": 1, "b": 3}
     assert "Duplicated keys" in caplog.text
+
+
+# ---------------------------------------------------------------- bottom-up
+
+BOTTOMUP_SETTING = dict(
+    DATASET_SETTING, image_size=[64, 64], heatmap_sizes=[[16, 16], [32, 32]], sigma=2.0,
+    expand_mask=True, tag_per_joint=True)
+BOTTOMUP_EVAL = dict(EVAL_SETTING, use_nms=True, oks_thr=0.9)
+
+
+def _bottomup_records(ann_path, seed):
+    """Inferencer-style bottom-up records: per image, its persons' keypoints
+    with noise (and a false positive), their scores."""
+    rng = np.random.RandomState(seed)
+    coco = JaxCOCO(ann_path)
+    records = []
+    for img_id in coco.getImgIds():
+        persons = []
+        for a in coco.loadAnns(coco.getAnnIds(imgIds=img_id)):
+            kp = np.asarray(a["keypoints"], np.float32).reshape(-1, 3)
+            kp[:, :2] += rng.randn(len(kp), 2).astype(np.float32) * 4
+            kp[:, 2] = rng.uniform(0, 1, len(kp))
+            persons.append(np.concatenate([kp, rng.randn(len(kp), 1).astype(np.float32)], 1))
+        persons.append(persons[0] + np.float32(2.0))
+        records.append({"pred": persons, "score": [np.float32(rng.uniform(0.2, 1))
+                                                   for _ in persons],
+                        "image_path": os.path.join("images", coco.imgs[img_id]["file_name"])})
+    return records
+
+
+@pytest.mark.parametrize("setting", [{}, {"use_nms": False}, {"soft_nms": True}])
+def test_bottomup_evaluator_bitwise(tiny, tmp_path, numpy_only, setting):
+    ann = tiny[1]
+    config = dict(BOTTOMUP_EVAL, **setting)
+    records = _bottomup_records(ann, seed=8)
+    port = create_evaluator(ann, name="bottomup", metric=["AP"], config=config,
+                            result_path=str(tmp_path / "port.json"), remove_result_file=False)
+    want = jax_create_evaluator(ann, name="bottomup", metric=["AP"], config=config,
+                                result_path=str(tmp_path / "jax.json"),
+                                remove_result_file=False)
+    got, expected = port(records), want(records)
+    assert list(got) == list(expected)
+    np.testing.assert_array_equal(list(got.values()), list(expected.values()))
+    with open(tmp_path / "port.json") as a, open(tmp_path / "jax.json") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("max_size,batch,want_batch", [
+    ([96, 64], 4, 1),  # non-square: portrait and landscape pad apart, batch 1
+    ([96, 96], 3, 3),  # square: one shape, batches stack
+])
+def test_bottomup_val_loader_batches_bitwise(tiny, max_size, batch, want_batch):
+    """coco_bottomup val records, bottomup_rescale and bottomup_pad, and the
+    batch rule, equal to the JAX package's loader's batches."""
+    img_root, ann, _ = tiny
+    setting = dict(BOTTOMUP_SETTING, max_image_size=max_size)
+    port_ds = create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=False,
+                             config=setting)
+    jax_ds = jax_create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=False,
+                                config=setting)
+    assert len(port_ds["dataset"]) == len(jax_ds["dataset"]) == 4
+    for i in range(4):
+        assert port_ds["dataset"][i] == jax_ds["dataset"][i]
+    transforms = ["bottomup_rescale", "bottomup_pad"]
+    port_loader = create_pipeline(port_ds, transforms, method="bottomup", batch_size=batch,
+                                  is_train=False, config=setting, num_workers=2)
+    jax_loader = jax_create_pipeline(jax_ds, transforms, method="bottomup", batch_size=batch,
+                                     is_train=False, config=setting)
+    assert port_loader.batch_size == jax_loader.batch_size == want_batch
+    port_batches, jax_batches = list(port_loader), list(jax_loader)
+    assert len(port_batches) == len(jax_batches)
+    for got, want in zip(port_batches, jax_batches):
+        assert list(got) == list(want)
+        for col in want:
+            assert got[col].dtype == want[col].dtype and got[col].shape == want[col].shape, col
+            np.testing.assert_array_equal(got[col], want[col], err_msg=col)
+
+
+def test_bottomup_training_is_refused(tiny):
+    img_root, ann, _ = tiny
+    with pytest.raises(NotImplementedError, match="bottom-up: training"):
+        create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=True,
+                       config=BOTTOMUP_SETTING)
+    from mindpose_tpu_torch.register import entrypoint
+
+    for name in ("bottomup_random_affine", "bottomup_horizontal_random_flip",
+                 "bottomup_generate_target"):
+        with pytest.raises(NotImplementedError, match="bottom-up: training"):
+            entrypoint("transform", name)(is_train=True, config=BOTTOMUP_SETTING)

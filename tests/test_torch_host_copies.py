@@ -2,7 +2,9 @@
 
 The port cannot import ``mindpose_tpu`` (its ``__init__`` imports JAX), so
 the crop geometry, the joints' flip permutation and the DARK refinement's
-Gaussian kernel live in the port as copies; these tests pin each copy to
+Gaussian kernel, and the bottom-up host path (the host Hungarian matcher
+``utils/match.py``, ``transform_keypoints``, ``bottomup_rescale`` and
+``bottomup_pad``) live in the port as copies; these tests pin each copy to
 its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
 """
@@ -13,11 +15,19 @@ import pytest
 import yaml
 
 from mindpose_tpu.data.transform import utils as jax_utils
+from mindpose_tpu.data.transform.bottomup_transform import BottomUpPad as JaxBottomUpPad
+from mindpose_tpu.data.transform.bottomup_transform import (
+    BottomUpRescale as JaxBottomUpRescale,
+)
 from mindpose_tpu.data.transform.topdown_transform import TopDownAffine, TopDownBoxToCenterScale
 from mindpose_tpu.ops.heatmap import gaussian_kernel_2d as jax_gaussian_kernel_2d
+from mindpose_tpu.utils.match import match_by_tag as jax_match_by_tag
 from mindpose_tpu_torch.data.transform import utils
+from mindpose_tpu_torch.data.transform.bottomup_transform import BottomUpPad, BottomUpRescale
 from mindpose_tpu_torch.data.transform.topdown_transform import box_to_center_scale, crop_matrix
 from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
+from mindpose_tpu_torch.utils.match import match_by_tag
+from tests.fixtures.grouping_sets import ORDER, candidate_sets
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SETTING = {
@@ -155,3 +165,59 @@ def test_gaussian_kernel_2d(size):
     got = gaussian_kernel_2d(size)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tag_dim", [1, 2])
+@pytest.mark.parametrize("rounded,ignore", [(True, False), (False, False), (True, True)])
+def test_host_matcher(tag_dim, rounded, ignore):
+    """utils/match.py on seeded candidate sets (a few persons, close tags,
+    more persons than candidates): the same groups, bit for bit."""
+    rng = np.random.RandomState(10 * tag_dim + 2 * rounded + ignore)
+    for kwargs in (dict(persons=5, spread=3.0, visible=0.3), dict(persons=5, spread=0.5),
+                   dict(persons=40, spread=10.0, visible=1.0)):
+        val_k, tag_k, ind_k = candidate_sets(rng, 3, tag_dim=tag_dim, **kwargs)
+        for v, t, i in zip(val_k, tag_k, ind_k):
+            kw = dict(vis_thr=0.1, tag_thr=1.0, use_rounded_norm=rounded, ignore_too_much=ignore)
+            got, want = match_by_tag(v, t, i, ORDER, **kw), jax_match_by_tag(v, t, i, ORDER, **kw)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+
+
+def test_transform_keypoints():
+    rng = np.random.RandomState(11)
+    coords = [rng.uniform(0, 200, (3, 17, 4)).astype(np.float32), np.zeros((0, 17, 4), np.float32),
+              rng.uniform(0, 200, (1, 17, 4)).astype(np.float32)]
+    center = rng.uniform(0, 500, (3, 2)).astype(np.float32)
+    scale = rng.uniform(0.5, 4, (3, 2)).astype(np.float32)
+    shape = rng.randint(64, 512, (3, 2)).astype(np.float32) / 2
+    for pixel_std in (200.0, 1.0):
+        got = utils.transform_keypoints(coords, center, scale, shape, pixel_std=pixel_std)
+        want = jax_utils.transform_keypoints(coords, center, scale, shape, pixel_std=pixel_std)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+
+BOTTOMUP = {
+    "image_size": [512, 512], "heatmap_sizes": [[128, 128], [256, 256]], "pixel_std": 200.0,
+    "tag_per_joint": True, "flip_pairs": [[1, 2], [3, 4]],
+}
+
+
+@pytest.mark.parametrize("max_size", [[832, 512], [832, 832], [96, 64]])
+def test_bottomup_rescale_and_pad(max_size):
+    """Landscape, portrait, square, odd-sized and already-fitting images."""
+    rng = np.random.RandomState(12)
+    config = dict(BOTTOMUP, max_image_size=max_size)
+    for h, w in ((480, 640), (640, 480), (500, 500), (37, 123), (64, 96), (1, 2)):
+        image = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        state, jax_state = {"image": image}, {"image": image.copy()}
+        for port_cls, jax_cls in ((BottomUpRescale, JaxBottomUpRescale),
+                                  (BottomUpPad, JaxBottomUpPad)):
+            state.update(port_cls(is_train=False, config=config).transform(state))
+            jax_state.update(jax_cls(is_train=False, config=config).transform(jax_state))
+        assert sorted(state) == sorted(jax_state)
+        for key in jax_state:
+            got, want = np.asarray(state[key]), np.asarray(jax_state[key])
+            assert got.dtype == want.dtype and got.shape == want.shape, key
+            np.testing.assert_array_equal(got, want, err_msg=key)

@@ -12,8 +12,10 @@ as the JAX package's flax msgpack file:
   file: keypoints within test_torch_predictor.py's tolerances for the cv2
   crop (JAX) against the gather warp (the port): a median distance under
   0.1 px, scores within half their mean;
-- the refusals (bottom-up, int8), the CPU only on request, the seeded
-  weights without ``--ckpt``, and the CLI's flags.
+- the refusals (``--quantize`` with a bottom-up config, as the JAX tool
+  refuses it; int8), the CPU only on request, the seeded weights without
+  ``--ckpt``, and the CLI's flags. Bottom-up serving itself is
+  tests/test_torch_bottomup_serve.py's.
 """
 import base64
 import importlib.util
@@ -155,17 +157,18 @@ def test_service_matches_the_jax_serve_composition(ckpts, monkeypatch):
     assert np.abs(got[..., 2] - want[..., 2]).mean() < 0.5 * np.abs(want[..., 2]).mean()
 
 
-@pytest.mark.parametrize("case,item", [
-    ("bottomup", "HigherHRNet bottom-up"),
-    ("int8", "the rest: int8"),
+@pytest.mark.parametrize("case,error,item", [
+    ("bottomup quantized", ValueError, "top-down predictor only"),
+    ("int8", NotImplementedError, "the rest: int8"),
 ])
-def test_refusals_name_their_roadmap_item(ckpts, case, item):
-    if case == "bottomup":
-        args = serve.parse_serve_args(["--config", BOTTOM_UP, "--device", "cpu"])
+def test_refusals_name_their_roadmap_item(ckpts, case, error, item):
+    if case == "bottomup quantized":
+        args = serve.parse_serve_args(["--config", BOTTOM_UP, "--device", "cpu",
+                                       "--quantize", "int8"])
         assert args.pipeline_method == "bottomup"
     else:
         args = _args("--ckpt", ckpts[0], "--quantize", "int8")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         serve.build_service(args, device="cpu")
 
 

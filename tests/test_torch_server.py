@@ -114,8 +114,12 @@ def test_unknown_path_is_404(server):
 
 
 def test_only_the_ported_mode_is_served():
-    with pytest.raises(ValueError, match="bottomup"):
-        PoseService(predictor=None, mode="bottomup", num_joints=17)
+    with pytest.raises(ValueError, match="sideways"):
+        PoseService(predictor=None, mode="sideways", num_joints=17)
+    for mode in ("topdown", "bottomup"):
+        service = PoseService(predictor=None, mode=mode, num_joints=17)
+        assert service.health() == {"status": "ok", "mode": mode, "num_joints": 17}
+        service.close()
 
 
 class _ThreadRecorder:
