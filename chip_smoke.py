@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32 and SimpleBaseline, bottom-up HigherHRNet-W32) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32 and SimpleBaseline, bottom-up HigherHRNet-W32 inference and training) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -113,17 +113,38 @@ no result, when there is no CUDA device or when any phase fails:
     the device operations of one request (torch.profiler); the fixture's
     service on the card against the CPU (the kernel against the plain
     matcher): the same persons, keypoints within 1e-3 px, scores within
-    1e-4; no thread left.
+    1e-4; no thread left;
+19. bottom-up training: (a) the bottom-up fixture's reduced HigherHRNet
+    (128x128, levels 32x32 and 64x64), one step of the yaml's loss,
+    optimizer and schedule on a loader batch, on the card against the CPU
+    (float64, the loss too: loss vector, gradients and BatchNorm
+    statistics within 1e-8; float32 at O0 as phase 11 holds it); (b)
+    higher_hrnet_w32_tpu.yaml as parsed through the train entry (full
+    width, O2, batch 32, adam, host targets, 8 loader threads, random
+    weights) on synthetic COCO, 3 epochs of 5 steps, evaluating twice on 16
+    frames: per epoch img/s, the step median, the wait on the loader, the
+    loss vector and the AP, the peak memory, the allocator's calls, and
+    one warm step under torch.profiler (its device busy time against its
+    wall time, the device targets' share, the top kernels); it holds finite
+    losses, the last epoch's summed loss below the first's, one grouping
+    launch per eval batch of the callback, every train forward in train
+    mode and every evaluation's in eval mode, the last checkpoint equal to
+    the trained net bit for bit, and that checkpoint through the eval entry
+    giving the callback's last persons (within 1e-3) and stats (within
+    1e-4); (c) the same run with ``device_pipeline: true``, after its
+    device targets on one batch are held within 1e-6 of the host
+    ``bottomup_generate_target``'s on the same warped keypoints.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 18.
+started is still there after phase 19.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import base64
+import contextlib
 import copy
 import ctypes
 import itertools
@@ -148,8 +169,11 @@ from mindpose_tpu_torch.config import Config
 from mindpose_tpu_torch.data import create_dataset, create_pipeline
 from mindpose_tpu_torch.data.loader import DataLoader, stop_worker_servers
 from mindpose_tpu_torch.data.device_pipeline import (
+    BOTTOMUP_DEVICE_FINAL_COLUMNS,
+    build_bottomup_preprocess,
     build_topdown_preprocess,
     strip_host_target_transform,
+    swap_bottomup_target_transform,
 )
 from mindpose_tpu_torch.data.transform import box_to_center_scale
 from mindpose_tpu_torch.data.transform.utils import transform_keypoints
@@ -187,10 +211,12 @@ from mindpose_tpu_torch.ops import grouping as plain_grouping
 from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
 from mindpose_tpu_torch.ops.cuda import grouping as cuda_grouping
 from mindpose_tpu_torch.optim import create_optimizer
+from mindpose_tpu_torch.register import entrypoint
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import ablate_conv_chain as probe
 from mindpose_tpu_torch.tools import serve as serve_entry
+from mindpose_tpu_torch.tools import eval as eval_entry
 from mindpose_tpu_torch.tools import train as train_entry
 from mindpose_tpu_torch.tools.eval import evaluate
 from mindpose_tpu_torch.utils.match import match_by_tag
@@ -207,7 +233,9 @@ from tests.fixtures.eval_checks import (
     BOTTOMUP_RECORD,
     CKPT,
     RECORD,
+    compare_callback_with_eval_entry,
     decode_margin,
+    recording_entry,
     register_port_backbone,
 )
 from tests.fixtures.grouping_sets import ORDER, SETS, candidate_sets
@@ -391,6 +419,41 @@ BU_EVAL_PEOPLE = 3
 BU_SPLIT_BATCHES = 8  # eval batches whose forward, decode and grouping are timed apart
 BU_STATS_ATOL = 1e-3  # the bottom-up fixture's stats against the JAX package's, O0
 BU_SCORE_ATOL = 1e-4  # a served person's score, on the card against the CPU
+# Phase 19, bottom-up training. (a) The bottom-up fixture's reduced net
+# (tests/fixtures: 128x128, levels 32x32 and 64x64) one step on the card
+# against the CPU, on a batch of BU_CPU_BATCH tiny_coco frames. Float64,
+# its loss too, is held to TRAIN_F64_RTOL; float32 (TF32 off): the loss vector to
+# TRAIN_LOSS_RTOL of its largest entry (the push loss subtracts the
+# instance count from a sum of ones, so its own relative error is that
+# much larger), the running statistics to TRAIN_STATS_RTOL, and each
+# gradient against the CPU's float64 at most TRAIN_GRAD_FACTOR times as far
+# as the CPU's float32, or within BU_GRAD_FLOOR of its largest entry (the
+# reduced net's float32 gradients sit ~5e-6 from float64 where no ReLU
+# input crosses 0, so a factor of small errors alone would flap).
+# (b) higher_hrnet_w32_tpu.yaml through the train entry on synthetic COCO:
+# BU_TRAIN_IMAGES frames of BU_TRAIN_PEOPLE persons (5 steps of 32 per
+# epoch), BU_TRAIN_EPOCHS epochs, the warmup cut from 500 steps to
+# BU_TRAIN_WARMUP, evaluating every BU_TRAIN_VAL_INTERVAL epochs and after
+# the last on BU_TRAIN_VAL_IMAGES frames (batch 1: the yaml's non-square
+# max_image_size); (c) the same with ``device_pipeline: true``, its device
+# targets held within BU_TARGET_ATOL of the host's (float32 exp on the card
+# against numpy's)
+BU_CPU_BATCH = 4
+BU_GRAD_FLOOR = 1e-4
+BU_TRAIN_IMAGES = 160
+BU_TRAIN_PEOPLE = 3
+BU_TRAIN_VAL_IMAGES = 16
+BU_TRAIN_EPOCHS = 3
+BU_TRAIN_WARMUP = 5
+BU_TRAIN_VAL_INTERVAL = 2
+BU_TARGET_ATOL = 1e-6
+# the callback's last persons against the eval entry's on its last
+# checkpoint: keypoints (x, y, score, tags) and scores
+BU_ENTRY_PERSON_ATOL = 1e-3
+# the entry's step calls timed apart in each run: call 1 between two
+# synchronizations, calls 2 and 3 under torch.profiler (call 3 measured); in
+# epoch 1, which the reported medians leave out
+BU_PROFILED_CALL = 3
 
 
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
@@ -887,7 +950,8 @@ def make_requests(rng: np.random.RandomState):
 
 
 def check_preds(preds: np.ndarray, boxes: np.ndarray) -> None:
-    """[M, 17, 3], finite, and each keypoint inside its box's padded crop window."""
+    """[M, 17, 3], finite, and each keypoint inside its box's padded crop
+    window, up to the back-projection's float32 rounding."""
     m = len(boxes)
     if preds.shape != (m, 17, 3):
         raise AssertionError(f"preds shape {preds.shape}, want {(m, 17, 3)}")
@@ -898,10 +962,16 @@ def check_preds(preds: np.ndarray, boxes: np.ndarray) -> None:
           for b in boxes]
     centers = np.stack([c for c, _ in cs])
     half = np.stack([s for _, s in cs]) * ds["pixel_std"] / 2
-    lo, hi = centers - half, centers + half
+    # the back-projection takes 4 float32 operations, each rounded: a joint
+    # on the heatmap's border lands on the window's edge up to a few ulps
+    # out (tests/test_torch_decode.py)
+    atol = 4 * np.spacing(np.maximum(abs(centers - half), abs(centers + half)).astype(np.float32))
+    lo, hi = centers - half - atol, centers + half + atol
     xy = preds[..., :2]
     if not ((xy >= lo[:, None]).all() and (xy <= hi[:, None]).all()):
-        raise AssertionError("keypoints outside their crop windows")
+        excess = float(np.maximum(lo[:, None] - xy, xy - hi[:, None]).max())
+        raise AssertionError(f"keypoints outside their crop windows: {excess:.3e} px beyond "
+                             f"the window and its rounding")
 
 
 def serve(predictor: TopDownPredictor, image, requests) -> dict:
@@ -2344,6 +2414,377 @@ def serve_bottomup(root: str, ckpt: str, device: torch.device) -> dict:
     return {"launches": launches, "latency": latency, "device_ops": len(ops)}
 
 
+def bottomup_step_inputs(batch: dict, dtype=torch.float32) -> list:
+    """A bottom-up train batch as the train entry uploads it: image NHWC ->
+    NCHW, target [N, S, H, W, K] -> [N, S, K, H, W], mask and tag_ind as
+    they are (on the CPU)."""
+    return [torch.from_numpy(batch["image"]).permute(0, 3, 1, 2).contiguous().to(dtype),
+            torch.from_numpy(batch["target"]).permute(0, 1, 4, 2, 3).contiguous().to(dtype),
+            torch.from_numpy(batch["mask"]), torch.from_numpy(batch["tag_ind"])]
+
+
+def compare_bottomup_train_with_cpu(root: str, device: torch.device) -> dict:
+    """Phase 19 (a): one bottom-up train step of the fixture's reduced
+    HigherHRNet (its JAX-trained weights) on the card against the CPU, on
+    one loader batch of tiny_coco frames with higher_hrnet_w32_tpu.yaml's
+    train transforms, loss, optimizer and schedule (whose first step has lr
+    0). Float64 and float32 (O0), held as ``BU_CPU_BATCH``'s comment says."""
+    register_port_backbone()
+    cfg = BOTTOMUP_RECORD["config"]
+    recipe = parse_args(["--config", HIGHER_YAML])
+    setting = cfg["dataset_setting"]
+    img_root, ann = tiny_coco.write_split(os.path.join(root, "bottomup_step"), 2 * BU_CPU_BATCH,
+                                          tiny_coco.TRAIN_SEED)
+    np.random.seed(SEED)
+    dataset = create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=True,
+                             config=setting)
+    batch = next(iter(create_pipeline(dataset, recipe.train_transforms, method="bottomup",
+                                      batch_size=BU_CPU_BATCH, is_train=True, config=setting,
+                                      num_workers=1, seed=SEED)))
+    loss_setting = dict(recipe.loss_setting, stage_sizes=setting["heatmap_sizes"])
+    cpu = torch.device("cpu")
+
+    def make(dev, dtype):
+        net = create_network(cfg["backbone_name"], cfg["head_name"], num_joints=17,
+                             head_args=cfg["head_setting"])
+        net.load_state_dict(load_net_state_dict(BOTTOMUP_CKPT, net), strict=True)
+        net.to(dev, dtype)
+        nwl = create_network_with_loss(net, create_loss(recipe.loss, **loss_setting),
+                                       has_extra_inputs=True)
+        return net, nwl, [t.to(dev) for t in bottomup_step_inputs(batch, dtype)]
+
+    out = {}
+    for name, dev in (("gpu32", device), ("cpu32", cpu)):
+        net, nwl, inputs = make(dev, torch.float32)
+        optimizer = create_optimizer(net, recipe.optimizer, learning_rate=recipe.lr,
+                                     weight_decay=recipe.weight_decay,
+                                     filter_bias_and_bn=recipe.filter_bias_and_bn)
+        schedule = create_lr_scheduler(recipe.scheduler, lr=recipe.lr, total_epochs=1,
+                                       steps_per_epoch=2 * BU_TRAIN_WARMUP,
+                                       warmup=BU_TRAIN_WARMUP)
+        loss = build_train_step(nwl, optimizer, schedule, amp_level="O0")(*inputs)
+        out[name] = (loss.double().cpu(), *_grads_and_stats(net))
+    # a float64 net's losses are float64 too (in float32 the AE loss's sums
+    # round apart on the card and the CPU, and its gradient seeds with them:
+    # 2.4e-8 of a gradient tensor's largest entry)
+    for name, dev in (("gpu64", device), ("cpu64", cpu)):
+        net, nwl, inputs = make(dev, torch.float64)
+        loss = accum_loss_and_grads(nwl, inputs)
+        out[name] = (loss.cpu(), *_grads_and_stats(net))
+
+    def loss_err(a, b):
+        return float((out[a][0] - out[b][0]).abs().max() / out[b][0].abs().max())
+
+    grads64 = _errors(out["gpu64"][1], out["cpu64"][1])
+    f64 = {"loss": loss_err("gpu64", "cpu64"), "gradients": max(grads64.values()),
+           "statistics": max(_errors(out["gpu64"][2], out["cpu64"][2]).values())}
+    print(f"bottom-up train step card-vs-CPU, fixture net, batch {BU_CPU_BATCH}, float64: loss "
+          f"{out['gpu64'][0].tolist()} against {out['cpu64'][0].tolist()}; max|diff|/max|x| of "
+          f"the loss {f64['loss']:.3e}, {len(grads64)} gradients {_summary(grads64)}, "
+          f"{len(out['cpu64'][2])} running statistics {f64['statistics']:.3e}; bound "
+          f"{TRAIN_F64_RTOL} each")
+    f32_loss = loss_err("gpu32", "cpu32")
+    stats_err = _errors(out["gpu32"][2], out["cpu32"][2])
+    want = out["cpu64"][1]
+    gpu_err, cpu_err = _errors(out["gpu32"][1], want), _errors(out["cpu32"][1], want)
+    print(f"bottom-up train step card-vs-CPU, float32 (O0): loss {out['gpu32'][0].tolist()} "
+          f"against {out['cpu32'][0].tolist()}, max|diff|/max|loss| {f32_loss:.3e} (bound "
+          f"{TRAIN_LOSS_RTOL}); BN running statistics {_summary(stats_err)} (bound "
+          f"{TRAIN_STATS_RTOL}); gradients against the CPU's float64: GPU {_summary(gpu_err)}, "
+          f"CPU {_summary(cpu_err)} (bound the larger of {TRAIN_GRAD_FACTOR} x the CPU's and "
+          f"{BU_GRAD_FLOOR}); worst GPU {_worst(gpu_err)}")
+    grads_ok = all(
+        agg(gpu_err.values()) <= max(TRAIN_GRAD_FACTOR * agg(cpu_err.values()), BU_GRAD_FLOOR)
+        for agg in (statistics.median, max))
+    if max(f64.values()) > TRAIN_F64_RTOL:
+        raise AssertionError(f"the float64 bottom-up train step on the card disagrees with the "
+                             f"CPU's: {f64}")
+    if not (f32_loss <= TRAIN_LOSS_RTOL and max(stats_err.values()) <= TRAIN_STATS_RTOL
+            and grads_ok):
+        raise AssertionError("the float32 bottom-up train step on the card disagrees with the "
+                             "CPU beyond the tolerances")
+    return {"f64": f64, "f32_loss": f32_loss}
+
+
+def bottomup_train_args(root: str, data: dict, device: torch.device, label: str,
+                        *options: str) -> Config:
+    """higher_hrnet_w32_tpu.yaml as the train entry parses it, with phase
+    19's overrides: the data paths, ``num_epochs``, ``warmup``,
+    ``val_interval``, ``ckpt_save_dir``, and ``options``."""
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    return train_entry.parse_train_args(
+        ["--config", HIGHER_YAML, "--device", str(device), "--cfg-options",
+         f"train_root={train_root}", f"train_label={train_label}", f"val_root={val_root}",
+         f"val_label={val_label}", f"ckpt_save_dir={os.path.join(root, label)}",
+         f"num_epochs={BU_TRAIN_EPOCHS}", f"warmup={BU_TRAIN_WARMUP}",
+         f"val_interval={BU_TRAIN_VAL_INTERVAL}", *options])
+
+
+class _TracedStep:
+    """A train entry's step whose calls ``BU_PROFILED_CALL - 2`` to
+    ``BU_PROFILED_CALL`` (from 0) are timed apart (``traced_entry_step``)."""
+
+    def __init__(self, step, out: dict, preprocess_events: dict) -> None:
+        self.step, self.out, self.events = step, out, preprocess_events
+        self.calls = 0
+        self.prof = None
+
+    @property
+    def count(self) -> int:
+        return self.step.count
+
+    def __call__(self, *batch):
+        call, self.calls = self.calls, self.calls + 1
+        if call == BU_PROFILED_CALL - 2:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss = self.step(*batch)
+            self.out["issue_ms"] = (time.perf_counter() - start) * 1e3
+            torch.cuda.synchronize()
+            self.out["wall_ms"] = (time.perf_counter() - start) * 1e3
+            return loss
+        if call == BU_PROFILED_CALL - 1:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            loss = self.step(*batch)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            return loss
+        if call != BU_PROFILED_CALL:
+            return self.step(*batch)
+        mark = "chip_smoke.traced_step"
+        self.events["on"] = True
+        with record_function(mark):
+            loss = self.step(*batch)
+            torch.cuda.synchronize()
+        self.events["on"] = False
+        self.prof.__exit__(None, None, None)
+        events = self.prof.events()
+        cut = next(e.time_range.start for e in events if e.name == mark) - 5000
+        ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.start >= cut and e.name != mark]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in ops)
+        busy, reach = 0.0, float("-inf")
+        for begin, end in spans:  # the union of the operations' intervals
+            busy += max(0.0, end - max(begin, reach))
+            reach = max(reach, end)
+        by_name = {}
+        for e in ops:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        start, end = self.events.get("targets", (None, None))
+        self.out.update(
+            device_ops=len(ops), busy_ms=busy / 1e3,
+            span_ms=(spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0,
+            targets_ms=start.elapsed_time(end) if start is not None else None,
+            top=[(name[:60], us / 1e3) for name, us in top])
+        self.prof = None
+        return loss
+
+
+@contextlib.contextmanager
+def traced_entry_step():
+    """Within the block, the train entry's step (``build_train_step``) is a
+    ``_TracedStep`` and the device pipeline's preprocess, at the traced
+    call, is timed with CUDA events. Yields the dict the traced calls fill:
+    ``issue_ms`` and ``wall_ms`` (call ``BU_PROFILED_CALL - 2`` from a
+    synchronization until the step returns, and until the device has
+    finished it), and of call ``BU_PROFILED_CALL`` (the one before it
+    in the same trace: a trace may miss the device operations at its
+    start, see ``device_ops``) ``device_ops``, ``busy_ms`` (the union of
+    their intervals), ``span_ms``, ``targets_ms`` and ``top``."""
+    out, events = {}, {"on": False}
+    build_step = train_entry.build_train_step
+    build_preprocess = train_entry.build_bottomup_preprocess
+
+    def build_train_step(*args, **kwargs):
+        return _TracedStep(build_step(*args, **kwargs), out, events)
+
+    def build_bottomup_preprocess(*args, **kwargs):
+        preprocess = build_preprocess(*args, **kwargs)
+
+        def timed(*columns):
+            if not events["on"]:
+                return preprocess(*columns)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            result = preprocess(*columns)
+            end.record()
+            events["targets"] = (start, end)
+            return result
+
+        return timed
+
+    train_entry.build_train_step = build_train_step
+    train_entry.build_bottomup_preprocess = build_bottomup_preprocess
+    try:
+        yield out
+    finally:
+        train_entry.build_train_step = build_step
+        train_entry.build_bottomup_preprocess = build_preprocess
+
+
+def train_bottomup(args: Config, device: torch.device, label: str) -> dict:
+    """Phase 19 (b), (c): one run of the train entry on ``args``, the grouping
+    kernel's launches counted on it alone. Prints per epoch the img/s, the
+    step median, the wait on ``next(batches)``, the loss vector and the AP,
+    then the peak memory. Holds: finite losses, the last epoch's summed loss
+    below the first's, at least two evaluations, one grouping launch per
+    eval batch and none of the decode kernel, the last checkpoint written.
+    Also prints the memory live at its start, the allocator's calls over
+    the run, and one warm step timed apart (``traced_entry_step``)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    counters = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    before = torch.cuda.memory_stats()
+    start = time.perf_counter()
+    cuda_grouping.match_by_tag_batch.launches = 0
+    argmax_shift_decode.launches = 0
+    with recording_entry(train_entry) as seen, traced_entry_step() as traced:
+        result = train_entry.train(args)
+    launches = cuda_grouping.match_by_tag_batch.launches
+    decode_launches = argmax_shift_decode.launches
+    train_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_stats()
+    allocator = {k: after.get(k, 0) - before.get(k, 0) for k in counters}
+    epochs = result["epochs"]
+    rate = entry_epochs(label, epochs)
+    with open(os.path.join(args.ckpt_save_dir, "summary", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    vectors = [[r[f"train/loss_{i}"] for i in range(3)] for r in records]
+    step_median_ms = statistics.median(e["step_median_s"] for e in epochs[1:]) * 1e3
+    wait_ms = statistics.median(e["wait_median_s"] for e in epochs[1:]) * 1e3
+    evals = [e for e in epochs if e["metrics"]]
+    val_batches = BU_TRAIN_VAL_IMAGES  # batch 1
+    print(f"{label}: loss vectors [mse, push, pull] per epoch {vectors}")
+    print(f"{label} ({args.amp_level}, batch {args.batch_size}, {args.num_parallel_workers} "
+          f"loader threads): epochs 2-{len(epochs)} {rate:.2f} img/s with the loader feeding "
+          f"the step, median of the epochs' step medians {step_median_ms:.1f} ms, of their waits "
+          f"on next(batches) {wait_ms:.1f} ms; {sum(e['steps'] for e in epochs)} steps and "
+          f"{len(evals)} evaluations in {train_s:.1f} s; peak torch.cuda.max_memory_allocated "
+          f"{peak} B ({peak / 2**30:.2f} GiB)")
+    stats = {k: float(v) for k, v in evals[-1]["metrics"].items()} if evals else {}
+    print(f"{label}: {len(evals)} evaluations of {val_batches} batches, grouping kernel "
+          f"launches in the callback {launches}, decode kernel launches {decode_launches}; last "
+          f"stats {json.dumps(stats)}")
+    print(f"{label}: memory live at the start {live} B, reserved {reserved} B; over the run "
+          f"{json.dumps(allocator)}")
+    top = "; ".join(f"{name} {ms:.3f} ms" for name, ms in traced["top"])
+    targets = ("none" if traced["targets_ms"] is None
+               else f"{traced['targets_ms']:.3f} ms (CUDA events)")
+    if not traced["device_ops"]:
+        raise AssertionError(f"{label}: the traced step holds no device operation")
+    idle = 1 - traced["busy_ms"] / traced["span_ms"]
+    print(f"{label}: step call {BU_PROFILED_CALL - 2} from a synchronization: issued in "
+          f"{traced['issue_ms']:.3f} ms, done on the device in {traced['wall_ms']:.3f} ms; call "
+          f"{BU_PROFILED_CALL} under torch.profiler: "
+          f"{traced['device_ops']} device operations, busy {traced['busy_ms']:.3f} ms of a "
+          f"{traced['span_ms']:.3f} ms span (idle share {idle:.3f}), device targets "
+          f"{targets}; top by device time: {top}")
+    losses = [e["loss"] for e in epochs]
+    if not (np.isfinite(losses).all() and np.isfinite(vectors).all()) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the losses are not finite or did not fall: {losses}")
+    if len(evals) < 2 or launches != len(evals) * val_batches or decode_launches:
+        raise AssertionError(f"{label}: {len(evals)} evaluations of {val_batches} batches made "
+                             f"{launches} grouping and {decode_launches} decode launches")
+    name = os.path.splitext(os.path.basename(HIGHER_YAML))[0]
+    last_path = os.path.join(args.ckpt_save_dir, f"{name}_last.ckpt")
+    if not os.path.isfile(last_path):
+        raise AssertionError(f"the callback did not write {last_path}")
+    return {"launches": launches, "stats": stats, "ckpt": last_path, "images_per_sec": rate,
+            "step_median_ms": step_median_ms, "wait_median_ms": wait_ms, "peak_bytes": peak,
+            "loss_vectors": vectors, "evaluations": len(evals), "seen": seen, "traced": traced,
+            "allocator": allocator}
+
+
+def check_device_targets(args: Config, device: torch.device) -> dict:
+    """Phase 19 (c): one batch of the device pipeline's loader (the host's
+    warp and ``bottomup_generate_tag_ind``), its targets rendered on the
+    card by ``build_bottomup_preprocess`` against the host
+    ``bottomup_generate_target`` on the same warped keypoints, within
+    ``BU_TARGET_ATOL``; the tag indices equal. Also times both per batch."""
+    transforms, sigma = swap_bottomup_target_transform(args.train_transforms)
+    np.random.seed(SEED)
+    dataset = create_dataset(args.train_root, args.train_label,
+                             dataset_format=args.dataset_format, is_train=True,
+                             config=args.dataset_setting)
+    loader = create_pipeline(dataset, transforms, method="bottomup", batch_size=args.batch_size,
+                             is_train=True, normalize=False, config=args.dataset_setting,
+                             num_workers=args.num_parallel_workers, seed=SEED,
+                             final_columns=BOTTOMUP_DEVICE_FINAL_COLUMNS)
+    batch = next(iter(loader))
+    preprocess = build_bottomup_preprocess(args.dataset_setting["heatmap_sizes"],
+                                           args.normalize_mean, args.normalize_std, sigma=sigma)
+    inputs = [torch.from_numpy(batch[c]).to(device) for c in BOTTOMUP_DEVICE_FINAL_COLUMNS]
+    target = preprocess(*inputs)[1].cpu()
+    device_ms = time_ms(lambda: preprocess(*inputs), queued=False, iters=5, repeats=3)
+    kwargs = next(next(iter(t.values())) for t in args.train_transforms
+                  if isinstance(t, dict) and "bottomup_generate_target" in t)
+    host = entrypoint("transform", "bottomup_generate_target")(
+        is_train=True, config=args.dataset_setting, **kwargs)
+    start = time.perf_counter()
+    want = [host({"keypoints": k}) for k in batch["keypoints"]]
+    host_ms = (time.perf_counter() - start) * 1e3
+    err = max(float(np.abs(target[i].numpy() - w["target"].transpose(0, 3, 1, 2)).max())
+              for i, w in enumerate(want))
+    tags_equal = all(np.array_equal(w["tag_ind"], batch["tag_ind"][i])
+                     for i, w in enumerate(want))
+    peak = float(target.max())
+    print(f"bottom-up device targets [{', '.join(map(str, target.shape))}] against the host "
+          f"bottomup_generate_target on the same warped keypoints: max |diff| {err:.3e} (bound "
+          f"{BU_TARGET_ATOL}), largest value {peak:.6f}; tag indices equal: {tags_equal}; the "
+          f"device preprocess {device_ms:.3f} ms per batch of {len(want)} (CUDA events, calls "
+          f"back to back), the host targets {host_ms:.1f} ms on one thread")
+    if err > BU_TARGET_ATOL or not tags_equal or not peak > 0.9:
+        raise AssertionError("the bottom-up device targets differ from the host's")
+    return {"max_abs_err": err, "device_ms": device_ms, "host_ms": host_ms}
+
+
+def bottomup_training(root: str, device: torch.device) -> dict:
+    """Phase 19: (a) the reduced net's step on the card against the CPU;
+    (b) higher_hrnet_w32_tpu.yaml through the train entry, host targets, 8
+    loader threads, random weights, its last checkpoint through the eval
+    entry with the callback's last persons and stats; (c) the same with
+    ``device_pipeline: true``, its device targets against the host's."""
+    step = compare_bottomup_train_with_cpu(root, device)
+    data = write_synthetic_coco(os.path.join(root, "bottomup_train"), BU_TRAIN_IMAGES,
+                                BU_TRAIN_VAL_IMAGES, BU_TRAIN_PEOPLE)
+    args = bottomup_train_args(root, data, device, "bottomup_entry")
+    host = train_bottomup(args, device, "bottom-up entry, host targets")
+    check_bottomup_checkpoint(root, args, host, device)
+    args = bottomup_train_args(root, data, device, "bottomup_entry_device", "device_pipeline=True")
+    targets = check_device_targets(args, device)
+    on_device = train_bottomup(args, device, "bottom-up entry, device_pipeline: true")
+    return {"step": step, "host": host, "device": on_device, "targets": targets,
+            "launches": host["launches"] + on_device["launches"]}
+
+
+def check_bottomup_checkpoint(root: str, args: Config, host: dict, device: torch.device) -> None:
+    """Phase 19 (b): the run's last checkpoint holds the trained net, and
+    through the eval entry gives the callback's last persons and stats; the
+    callback evaluated in eval mode the net each step left in train mode."""
+    with recording_entry(eval_entry) as evaluated:
+        stats = evaluate(Config(**dict(vars(args), ckpt=host["ckpt"],
+                                       result_path=os.path.join(root, "bottomup_entry.json"))),
+                         device=device)
+    same = compare_callback_with_eval_entry(host["seen"], evaluated, load_checkpoint(host["ckpt"]))
+    worst = max(abs(float(stats[k]) - host["stats"][k]) for k in host["stats"])
+    print(f"bottom-up entry's last checkpoint through the eval entry: "
+          f"{json.dumps({k: float(v) for k, v in stats.items()})}; max |diff| against the "
+          f"callback's {worst:.2e} (tolerance {ENTRY_STATS_ATOL}); the checkpoint holds the "
+          f"trained net bit for bit; {same['evaluations']} evaluations, each after a train-mode "
+          f"step, in eval mode; the callback's last pass {same['persons']} persons, the eval "
+          f"entry's within {same['pred_err']:.3e} (keypoints) and {same['score_err']:.3e} "
+          f"(scores), tolerance {BU_ENTRY_PERSON_ATOL}")
+    if worst > ENTRY_STATS_ATOL:
+        raise AssertionError("the bottom-up last checkpoint's stats differ from the callback's")
+    if not same["persons"] or max(same["pred_err"], same["score_err"]) > BU_ENTRY_PERSON_ATOL:
+        raise AssertionError("the bottom-up last checkpoint's persons differ from the callback's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2409,6 +2850,8 @@ def main() -> int:
         grouped = check_grouping(device)
         bu_eval = bottomup_evaluation(root, device)
         bu_served = serve_bottomup(root, bu_eval["ckpt"], device)
+        torch.cuda.empty_cache()
+        bu_trained = bottomup_training(root, device)
     check_no_processes_left()
 
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
@@ -2477,10 +2920,12 @@ def main() -> int:
         # the JAX package's fixed-capacity matcher under jit; no Pallas kernel
         "replaces": "mindpose_tpu/ops/grouping.py:109",
         # bottom-up evaluation (phase 17: one per batch, the fixture's and the
-        # recipe's) and serving (phase 18: one per request)
-        "launches": bu_eval["launches"] + bu_served["launches"],
+        # recipe's), serving (phase 18: one per request) and the train entry's
+        # callbacks (phase 19: one per eval batch)
+        "launches": bu_eval["launches"] + bu_served["launches"] + bu_trained["launches"],
         "eval_launches": bu_eval["launches"],
         "serve_launches": bu_served["launches"],
+        "train_eval_launches": bu_trained["launches"],
         "sets_checked": grouped["sets"],
         "max_abs_err": grouped["max_abs_err"],
         # per batch of 32 images at the recipe's settings (L=1, rounded norm):

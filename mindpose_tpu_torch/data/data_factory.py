@@ -1,12 +1,11 @@
 """Dataset + pipeline factories.
 
 Counterpart of ``mindpose_tpu/data/data_factory.py:21-138``, with the same
-arguments: the top-down train and val pipelines (train: shuffled per epoch
-from ``seed``, the last partial batch dropped) and the bottom-up val
-pipeline, with the JAX package's batch rule for it (:93-118). An argument
+arguments: the top-down and bottom-up train and val pipelines (train:
+shuffled per epoch from ``seed``, the last partial batch dropped), with the
+JAX package's batch rule for bottom-up evaluation (:93-118). An argument
 the port does not support (sharding, bucketing, frame-grouped shuffling, the
-decoded-frame cache, bottom-up training, other methods) raises rather than
-being ignored.
+decoded-frame cache, other methods) raises rather than being ignored.
 """
 import logging
 from typing import Any, Dict, List, Optional, Union
@@ -74,16 +73,14 @@ def create_pipeline(
 ) -> DataLoader:
     """Build the transform pipeline and return a batched DataLoader.
 
-    Batches are NHWC numpy arrays (train targets HWK), as the JAX loader
-    gives them; the inferencer and the train entry turn them to NCHW on the
-    device. ``seed`` seeds the training shuffle; evaluation does not read it.
+    Batches are NHWC numpy arrays (train targets HWK; bottom-up
+    ``[S, Hmax, Wmax, K]`` per record), as the JAX loader gives them; the
+    inferencer and the train entry turn them to NCHW on the device. ``seed`` seeds the training shuffle; evaluation does not read it.
     ``final_columns`` overrides the method's projection (the device
     pipeline ships keypoints in place of targets).
     """
     if method not in FINAL_COLUMN_MAP:
         _refuse(f"method={method!r}", "Queue 1")
-    if method == "bottomup" and is_train:
-        _refuse("bottom-up training", "Queue 1, HigherHRNet bottom-up: training")
     leftover = "Queue 1, the training entry's leftovers"
     for name, value, item in (
             ("hwc_to_chw", hwc_to_chw, leftover),
@@ -94,7 +91,7 @@ def create_pipeline(
         if value:
             _refuse(f"{name}={value!r}", item)
     bundle = dataset if isinstance(dataset, dict) else {"dataset": dataset, "num_workers": 1}
-    if method == "bottomup" and batch_size != 1:
+    if method == "bottomup" and not is_train and batch_size != 1:
         batch_size = _bottomup_val_batch(transforms, config, batch_size)
     transform_funcs = _convert_names_to_transform(transforms, is_train=is_train, config=config)
     return DataLoader(

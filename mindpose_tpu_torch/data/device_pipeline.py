@@ -1,20 +1,26 @@
 """On-device input pipeline: normalize + target encode inside the train step.
 
 Counterpart of mindpose_tpu/data/device_pipeline.py for ``device_pipeline:
-true`` on the top-down path: host workers stop at the affine crop, and raw
+true``. Top-down: host workers stop at the affine crop, and raw
 uint8-range crops with post-affine keypoints go to the device, where the
 train step normalizes them and renders the Gaussian targets
-(``ops/target.py``). The model takes NCHW, so the preprocess returns the
-image NCHW; targets are NCHW too.
+(``ops/target.py``). Bottom-up (:180-219): the host stops after the warp
+and the AE tag indices (``bottomup_generate_tag_ind``), and the
+multi-level targets render on the device from the per-level keypoints
+(~12 KB per record in place of ~9 MB of targets at 512x512). The model
+takes NCHW, so the preprocess returns the image NCHW; targets put the
+joint axis before the spatial ones too.
 """
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
 from ..ops.image import normalize_image
-from ..ops.target import generate_topdown_targets
+from ..ops.target import generate_bottomup_targets, generate_topdown_targets
 
-__all__ = ["strip_host_target_transform", "build_topdown_preprocess"]
+__all__ = ["strip_host_target_transform", "build_topdown_preprocess",
+           "BOTTOMUP_DEVICE_FINAL_COLUMNS", "swap_bottomup_target_transform",
+           "build_bottomup_preprocess"]
 
 
 def strip_host_target_transform(
@@ -76,5 +82,55 @@ def build_topdown_preprocess(
         target, weight = generate_topdown_targets(
             keypoints, heatmap_size=hm, image_size=im, sigma=sigma, use_udp=use_udp)
         return image, target, weight
+
+    return preprocess
+
+
+BOTTOMUP_DEVICE_FINAL_COLUMNS = ["image", "keypoints", "mask", "tag_ind"]
+
+
+def swap_bottomup_target_transform(transforms: List[Any]) -> Tuple[List[Any], float]:
+    """Replace the host ``bottomup_generate_target`` by ``bottomup_generate_tag_ind``
+    with the same arguments, as the JAX train entry does (``tools/train.py:135``);
+    returns the new list and the target's ``sigma``."""
+    sigma = 2.0
+    swapped = []
+    for t in transforms:
+        name = t if isinstance(t, str) else next(iter(t))
+        if name == "bottomup_generate_target":
+            kwargs = dict() if isinstance(t, str) else dict(next(iter(t.values())) or {})
+            sigma = float(kwargs.get("sigma", 2.0))
+            swapped.append({"bottomup_generate_tag_ind": kwargs})
+        else:
+            swapped.append(t)
+    return swapped, sigma
+
+
+def build_bottomup_preprocess(
+    heatmap_sizes,
+    normalize_mean,
+    normalize_std,
+    sigma: float = 2.0,
+) -> Callable:
+    """Preprocess for build_train_step: (image [N, H, W, 3] uint8-range,
+    keypoints [N, S, max_num, K, 3] in each level's heatmap frame, mask
+    [N, S, Hmax, Wmax] uint8, tag_ind) -> (normalized image [N, 3, H, W]
+    float32, target [N, S, K, Hmax, Wmax] float32, each level zero-padded
+    to the largest, mask as float32, tag_ind)."""
+    mean, std = tuple(normalize_mean), tuple(normalize_std)
+    sizes = [(int(w), int(h)) for w, h in heatmap_sizes]
+    hmax = max(h for _, h in sizes)
+    wmax = max(w for w, _ in sizes)
+
+    def preprocess(image: torch.Tensor, keypoints: torch.Tensor, mask: torch.Tensor,
+                   tag_ind: torch.Tensor):
+        image = normalize_image(image, mean, std).permute(0, 3, 1, 2).contiguous()
+        n, k = keypoints.shape[0], keypoints.shape[3]
+        target = torch.zeros((n, len(sizes), k, hmax, wmax), dtype=torch.float32,
+                             device=keypoints.device)
+        for s, (w, h) in enumerate(sizes):
+            target[:, s, :, :h, :w] = generate_bottomup_targets(
+                keypoints[:, s], heatmap_size=(w, h), sigma=sigma)
+        return image, target, mask.float(), tag_ind
 
     return preprocess

@@ -1,4 +1,11 @@
-from .bottomup_transform import BottomUpPad, BottomUpRescale  # noqa: F401
+from .bottomup_transform import (  # noqa: F401
+    BottomUpGenerateTagInd,
+    BottomUpGenerateTarget,
+    BottomUpHorizontalRandomFlip,
+    BottomUpPad,
+    BottomUpRandomAffine,
+    BottomUpRescale,
+)
 from .topdown_transform import (  # noqa: F401
     TopDownAffine,
     TopDownBoxToCenterScale,

@@ -4,7 +4,8 @@ Copies of ``mindpose_tpu/data/transform/utils.py``: the joints' horizontal
 flip and its permutation (:15-66), the center/scale -> affine-matrix
 construction (pixel_std=200 convention), a 2x3 matrix applied to a point
 (:125), the UDP closed-form warp matrix (:142-167), a matrix applied to
-joint arrays (:170), and the bottom-up back-projection of grouped
+joint arrays (:170), the zero-padding of arrays to their common shape
+(``pad_to_same``, :176) and the bottom-up back-projection of grouped
 keypoints to the original frame (``transform_keypoints``, :186).
 The port cannot import the JAX package (its ``__init__`` imports JAX), so
 these live here; tests/test_torch_host_copies.py holds each copy equal to
@@ -22,6 +23,7 @@ __all__ = [
     "affine_transform",
     "get_warp_matrix",
     "warp_affine_joints",
+    "pad_to_same",
     "transform_keypoints",
 ]
 
@@ -170,6 +172,16 @@ def warp_affine_joints(joints: np.ndarray, mat: np.ndarray) -> np.ndarray:
     """Apply a 2x3 affine matrix to [..., 2] joint coordinates."""
     ones = np.ones((*joints.shape[:-1], 1), dtype=np.float32)
     return np.concatenate((joints, ones), axis=-1) @ np.asarray(mat).T
+
+
+def pad_to_same(arrays: List[np.ndarray]) -> List[np.ndarray]:
+    """Zero-pad arrays to their common max shape."""
+    shapes = np.array([x.shape for x in arrays])
+    max_shape = shapes.max(axis=0, keepdims=True)
+    offsets = max_shape - shapes
+    return [
+        np.pad(x, [(0, int(o)) for o in offsets[i]]) for i, x in enumerate(arrays)
+    ]
 
 
 def transform_keypoints(

@@ -1,2 +1,4 @@
+from .ae import AELoss  # noqa: F401
 from .loss import Loss  # noqa: F401
 from .mse import JointsMSELoss, JointsMSELossWithMask  # noqa: F401
+from .multi_loss import AEMultiLoss  # noqa: F401

@@ -2,9 +2,9 @@
 
 Counterpart of mindpose_tpu/models/loss/mse.py, in the port's layout:
 heatmaps [N, K, H, W], target weights [N, K], masks [N, H, W]. The loss is
-taken in float32 whatever the heatmaps' dtype. The target weight multiplies
-the squared error once, as in the JAX package (not squared, as the
-reference's HRNet loss has it).
+taken in the heatmaps' dtype promoted to at least float32 (``loss_dtype``).
+The target weight multiplies the squared error once, as in the JAX package
+(not squared, as the reference's HRNet loss has it).
 """
 import dataclasses
 from typing import Optional
@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from ...register import register
-from .loss import Loss
+from .loss import Loss, loss_dtype
 
 
 @register("loss", extra_name="joint_mse")
@@ -27,7 +27,8 @@ class JointsMSELoss(Loss):
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor,
                  target_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-        loss = torch.square(pred.float() - target.float())
+        dtype = loss_dtype(pred)
+        loss = torch.square(pred.to(dtype) - target.to(dtype))
         if self.use_target_weight:
             return self.get_loss(loss, target_weight[:, :, None, None])
         return self.get_loss(loss)
@@ -43,5 +44,6 @@ class JointsMSELossWithMask(Loss):
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-        loss = torch.square(pred.float() - target.float())
-        return self.get_loss(loss, mask[:, None, :, :].float())
+        dtype = loss_dtype(pred)
+        loss = torch.square(pred.to(dtype) - target.to(dtype))
+        return self.get_loss(loss, mask[:, None, :, :].to(dtype))

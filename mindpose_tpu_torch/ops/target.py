@@ -1,7 +1,9 @@
-"""Gaussian heatmap targets for top-down training, on the device.
+"""Gaussian heatmap targets for training, on the device.
 
-Counterpart of ``mindpose_tpu/ops/target.py:generate_topdown_targets``: the
-whole target renders as one elementwise expression, with the reference's
+Counterparts of ``mindpose_tpu/ops/target.py:generate_topdown_targets`` and
+``generate_bottomup_targets`` (:25-97). A top-down target renders as one
+elementwise expression; a bottom-up level as one such expression per
+instance slot, combined by a running max. Both keep the reference's
 semantics (round-to-pixel centres, the 3-sigma window, the UDP sub-pixel
 variant, zero weight out of bounds), in the port's NCHW layout. The details
 that decide where a Gaussian lands are the JAX package's:
@@ -16,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["generate_topdown_targets"]
+__all__ = ["generate_topdown_targets", "generate_bottomup_targets"]
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -78,3 +80,66 @@ def generate_topdown_targets(
     active = (weight > 0.5)[..., None, None]
     target = torch.where(win & active, g, 0.0)
     return target, weight
+
+
+def generate_bottomup_targets(
+    keypoints: torch.Tensor,
+    heatmap_size: Tuple[int, int],
+    sigma: float = 2.0,
+) -> torch.Tensor:
+    """Multi-instance Gaussian heatmaps with a per-pixel max, one level.
+
+    The host ``bottomup_generate_target``'s rasterization, in its float32
+    arithmetic: each visible point's patch starts at ``ul`` (the rounded
+    centre minus ``3 * sigma``, truncated toward zero; the window is
+    ``[ul, br)``), its sub-pixel centre in patch coordinates is
+    ``(size_f // 2 + x) - round(x)`` with ``size_f // 2`` a float, and a
+    pixel's distance is taken from its patch index ``xs - ul``; instances
+    combine by max. So the targets differ from the host's by ``exp``'s
+    rounding alone. (The JAX package's device targets take the centre as
+    ``(ul + size_f // 2) + (x - round(x))`` in map coordinates, which rounds
+    otherwise: up to ~1.6e-6 from its own host targets.) Each instance slot
+    renders over the whole map and the canvas keeps the running max, so the
+    temporaries are [N, K, H, W] per slot, never [M, N, K, H, W] (at batch
+    32 a 256x256 level of 17 joints is 142 MB).
+
+    Args:
+        keypoints: [N, M, K, 3] in this level's heatmap coordinates
+            (x, y, visibility); padded instance slots have visibility 0.
+        heatmap_size: (W, H).
+
+    Returns:
+        target [N, K, H, W] float32.
+    """
+    w, h = int(heatmap_size[0]), int(heatmap_size[1])
+    tmp_size = sigma * 3.0
+    size_f = 2.0 * tmp_size + 1.0
+    x0 = size_f // 2  # float floor-half (6.0 for sigma=2)
+
+    keypoints = keypoints.float()
+    n, m, k = keypoints.shape[:3]
+    xs = torch.arange(w, dtype=torch.float32, device=keypoints.device)  # [W]
+    ys = torch.arange(h, dtype=torch.float32, device=keypoints.device)[:, None]  # [H, 1]
+    two_sigma2 = _f32(2.0 * sigma**2, keypoints)
+    canvas = torch.zeros((n, k, h, w), dtype=torch.float32, device=keypoints.device)
+    for slot in range(m):
+        px, py, vis = keypoints[:, slot].unbind(-1)  # [N, K] each
+        mu_x = torch.round(px).to(torch.int32)  # half to even
+        mu_y = torch.round(py).to(torch.int32)
+        ul_x = torch.trunc(mu_x - tmp_size).to(torch.int32)
+        ul_y = torch.trunc(mu_y - tmp_size).to(torch.int32)
+        br_x = torch.trunc(mu_x + tmp_size + 1).to(torch.int32)
+        br_y = torch.trunc(mu_y + tmp_size + 1).to(torch.int32)
+        sel = (vis > 0) & (ul_x < w) & (ul_y < h) & (br_x >= 0) & (br_y >= 0)  # [N, K]
+
+        # patch-local sub-pixel centres and each pixel's patch index, as the host has them
+        fx = ((x0 + px) - mu_x.float())[..., None, None]  # [N, K, 1, 1]
+        fy = ((x0 + py) - mu_y.float())[..., None, None]
+        ux, uy = ul_x.float()[..., None, None], ul_y.float()[..., None, None]
+        g = torch.square((xs - ux) - fx) + torch.square((ys - uy) - fy)  # [N, K, H, W]
+        g = torch.exp(g.neg_().div_(two_sigma2))
+        win = (((xs >= ul_x[..., None, None]) & (xs < br_x[..., None, None]))
+               & ((ys >= ul_y[..., None, None]) & (ys < br_y[..., None, None]))
+               & sel[..., None, None])
+        torch.maximum(canvas, g.masked_fill_(~win, 0.0), out=canvas)
+    return canvas

@@ -9,11 +9,14 @@ package TrainState, :308); EMA; the inferencer and evaluator; the
 ``EvalCallback``; the epoch loop with ``StepTimer``; the wait for pending
 checkpoint writes; and a crash checkpoint on any exception (:504-517).
 
-The loader's batches are NHWC images and HWK targets, as the JAX loader
-gives them; they are uploaded (``device_prefetch: N``: from pinned memory,
-N batches ahead) and turned to NCHW on the device, where the net and
-``joint_mse`` take them. ``device_pipeline: true`` ships the crops and
-keypoints instead, and the step renders the targets on the device. As in
+The loader's batches are NHWC images and HWK targets (bottom-up:
+[S, Hmax, Wmax, K] per record, with its mask and tag indices), as the JAX
+loader gives them; they are uploaded (``device_prefetch: N``: from pinned
+memory, N batches ahead) and turned to NCHW on the device (the joint axis
+before the spatial ones), where the net and the loss take them.
+``device_pipeline: true`` ships the crops and their keypoints instead
+(bottom-up: the warped image, its per-level keypoints, mask and tag
+indices), and the step renders the targets on the device. As in
 the JAX entry, a resumed run counts its epochs from 1 while the step count,
 and with it the schedule, continues.
 
@@ -37,7 +40,13 @@ from ..callbacks import EvalCallback
 from ..config import parse_args
 from ..data import create_dataset, create_pipeline
 from ..data.column_names import FINAL_COLUMN_MAP
-from ..data.device_pipeline import build_topdown_preprocess, strip_host_target_transform
+from ..data.device_pipeline import (
+    BOTTOMUP_DEVICE_FINAL_COLUMNS,
+    build_bottomup_preprocess,
+    build_topdown_preprocess,
+    strip_host_target_transform,
+    swap_bottomup_target_transform,
+)
 from ..data.loader import DevicePrefetcher
 from ..engine import create_evaluator, create_inferencer
 from ..models import (
@@ -147,7 +156,15 @@ def train(args: Any) -> Dict[str, Any]:
     train_transforms = args.train_transforms
     preprocess = None
     final_columns = FINAL_COLUMN_MAP[args.pipeline_method]["train"]
-    if device_pipeline:
+    if device_pipeline and args.pipeline_method == "bottomup":
+        # the host stops at the warp and the tag indices; normalize and the
+        # multi-level targets run in the step
+        train_transforms, sigma = swap_bottomup_target_transform(train_transforms)
+        preprocess = build_bottomup_preprocess(
+            heatmap_sizes=args.dataset_setting["heatmap_sizes"],
+            normalize_mean=args.normalize_mean, normalize_std=args.normalize_std, sigma=sigma)
+        final_columns = BOTTOMUP_DEVICE_FINAL_COLUMNS
+    elif device_pipeline:
         # the host stops at the affine crop; normalize and targets run in the step
         train_transforms, target_kwargs = strip_host_target_transform(train_transforms)
         preprocess = build_topdown_preprocess(
@@ -272,8 +289,11 @@ def train(args: Any) -> Dict[str, Any]:
         if preprocess is not None:  # the preprocess takes NHWC crops itself
             return arrays
         image, target, *extra = arrays
+        # the joint axis before the spatial ones: NHWK -> NKHW (top-down),
+        # N S H W K -> N S K H W (bottom-up, whose mask and tag_ind pass as they are)
+        order = (0, 3, 1, 2) if target.dim() == 4 else (0, 1, 4, 2, 3)
         return [image.permute(0, 3, 1, 2).contiguous(),  # NHWC -> NCHW
-                target.permute(0, 3, 1, 2).contiguous(), *extra]  # NHWK -> NKHW
+                target.permute(*order).contiguous(), *extra]
 
     epochs = []
     try:

@@ -12,11 +12,16 @@ torch and the port only, never JAX.
 - ``register_port_backbone``: the fixture's reduced HRNet in the port's
   registry, under the name the record's config gives it;
 - ``decode_margin``: how far a heatmap is from decoding otherwise, which
-  says which joints two nearly equal heatmaps must decode alike.
+  says which joints two nearly equal heatmaps must decode alike;
+- ``recording_entry`` and ``compare_callback_with_eval_entry``: what a
+  train entry's callback evaluated, held against its last checkpoint
+  through the eval entry.
 """
+import contextlib
 import json
 import os
 
+import numpy as np
 import torch
 
 from mindpose_tpu_torch.models.backbones.hrnet import HRNet
@@ -72,3 +77,81 @@ def decode_margin(heat: torch.Tensor, shift: bool = True) -> torch.Tensor:
     dx = torch.where((x >= 1) & (x <= w - 2), (tap(1) - tap(-1)).abs(), inf)
     dy = torch.where((y >= 1) & (y <= h - 2), (tap(w) - tap(-w)).abs(), inf)
     return torch.minimum(margin, torch.minimum(dx, dy))
+
+
+@contextlib.contextmanager
+def recording_entry(entry):
+    """Within the block, the inferencers that ``entry.create_inferencer``
+    makes keep each pass's outputs in ``seen["outputs"]``; where ``entry``
+    makes its net with ``create_network`` (the train entry), the net goes to
+    ``seen["net"]`` and each of its forwards appends (``training``,
+    ``torch.is_inference_mode_enabled()``) to ``seen["modes"]``."""
+    seen = {"outputs": [], "modes": [], "net": None}
+    make_inferencer = entry.create_inferencer
+    make_net = getattr(entry, "create_network", None)
+
+    def create_inferencer(*args, **kwargs):
+        inferencer = make_inferencer(*args, **kwargs)
+        infer = inferencer.infer
+
+        def recorded(dataset):
+            outputs = infer(dataset)
+            seen["outputs"].append(outputs)
+            return outputs
+
+        inferencer.infer = recorded
+        return inferencer
+
+    def create_network(*args, **kwargs):
+        net = make_net(*args, **kwargs)
+        net.register_forward_pre_hook(lambda module, _: seen["modes"].append(
+            (module.training, torch.is_inference_mode_enabled())))
+        seen["net"] = net
+        return net
+
+    entry.create_inferencer = create_inferencer
+    if make_net is not None:
+        entry.create_network = create_network
+    try:
+        yield seen
+    finally:
+        entry.create_inferencer = make_inferencer
+        if make_net is not None:
+            entry.create_network = make_net
+
+
+def compare_callback_with_eval_entry(trained: dict, evaluated: dict, ckpt: dict) -> dict:
+    """What a train entry's callback evaluated (``recording_entry``'s record of
+    the train entry) against its last checkpoint ``ckpt`` (as
+    ``load_checkpoint`` reads it) through the eval entry (its record).
+
+    Raises unless every forward of a train step ran in train mode and every
+    forward of an evaluation in eval mode, each evaluation following a train
+    step's forward; the checkpoint holds the trained net's tensors bit for
+    bit; and the eval entry saw the callback's last images, with as many
+    persons in each. Returns the evaluations, the persons found, and the
+    largest differences of the persons' keypoints (x, y, score, tags) and
+    of their scores, for the caller to hold."""
+    modes = trained["modes"]
+    if any(training == inference for training, inference in modes):
+        raise AssertionError("a train forward ran in eval mode or an evaluation in train mode")
+    evaluations = sum(1 for before, after in zip(modes, modes[1:])
+                      if not before[1] and after[1])
+    if evaluations != len(trained["outputs"]) or not evaluations:
+        raise AssertionError(f"{evaluations} evaluations after a train step, "
+                             f"{len(trained['outputs'])} callback passes")
+    state = trained["net"].state_dict()
+    if set(state) != set(ckpt["net"]) or not all(
+            torch.equal(value.cpu(), ckpt["net"][name]) for name, value in state.items()):
+        raise AssertionError("the last checkpoint does not hold the trained net")
+    got, want = evaluated["outputs"][-1], trained["outputs"][-1]
+    if [r["image_path"] for r in got] != [r["image_path"] for r in want] or any(
+            np.shape(g["pred"]) != np.shape(w["pred"]) for g, w in zip(got, want)):
+        raise AssertionError("the eval entry found other images or persons than the callback")
+    persons = sum(len(r["pred"]) for r in want)
+    pred_err = max((float(np.abs(np.asarray(g["pred"]) - np.asarray(w["pred"])).max())
+                    for g, w in zip(got, want) if len(w["pred"])), default=0.0)
+    score_err = max((float(np.abs(np.asarray(g["score"]) - np.asarray(w["score"])).max())
+                     for g, w in zip(got, want) if len(w["score"])), default=0.0)
+    return {"evaluations": evaluations, "persons": persons, "pred_err": pred_err,
+            "score_err": score_err}

@@ -26,6 +26,7 @@ from mindpose_tpu.ops.heatmap import argmax_coords as jax_argmax_coords
 from mindpose_tpu.ops.heatmap import dark_udp_refine as jax_dark_udp_refine
 from mindpose_tpu.ops.heatmap import quarter_offset as jax_quarter_offset
 from mindpose_tpu.ops.pallas.decode import argmax_shift_decode as pallas_decode
+from mindpose_tpu_torch.data.transform import box_to_center_scale
 from mindpose_tpu_torch.models import create_decoder
 from mindpose_tpu_torch.models.decoders import top_down_decoder
 from mindpose_tpu_torch.ops.cuda.decode import (
@@ -292,6 +293,64 @@ def test_dark_rounding_bound_covers_another_summation_order(monkeypatch, case, b
         assert float(bound.max()) < 1e-2
     if case == "weak":
         assert float(err.max()) > 0  # the other order did move a joint
+
+
+def _card_back_projection(coord, center, big, n):
+    """The decode kernel's back-projection of one axis, each operation rounded
+    in float32: coord * (S * (1 / n)) + center - S * 0.5."""
+    f = np.float32
+    step = f(big * (f(1) / f(n)))
+    return f(f(f(coord) * step) + f(center)) - f(big * f(0.5))
+
+
+@pytest.mark.parametrize("use_udp", [True, False], ids=["udp", "plain"])
+def test_serving_window_check_takes_the_back_projection_s_rounding(use_udp):
+    """chip_smoke.py's ``check_preds`` holds each served keypoint inside its
+    box's crop window. A joint on the heatmap's border lands on the window's
+    edge up to the back-projection's float32 rounding. Every corner of the
+    heatmap, for every box of the requests chip_smoke serves, back-projected
+    as the card does and by the plain decoder on the CPU, passes the check;
+    some land outside the exact window, so the check must allow for it; a
+    keypoint 1e-3 px outside still fails."""
+    import chip_smoke
+
+    _, requests = chip_smoke.make_requests(np.random.RandomState(chip_smoke.SEED + 20))
+    ds = chip_smoke.HRNET_W32["dataset_setting"]
+    w, h = ds["heatmap_size"]
+    n_x, n_y = (w - 1, h - 1) if use_udp else (w, h)
+    corners = [(x, y) for x in (0, w - 1) for y in (0, h - 1)]
+    outside = 0
+    for boxes in requests:
+        cs = [box_to_center_scale(b, ds["image_size"], ds["pixel_std"], ds["scale_padding"])
+              for b in boxes]
+        center = torch.from_numpy(np.stack([c for c, _ in cs]).astype(np.float32))
+        scale = torch.from_numpy(np.stack([s for _, s in cs]).astype(np.float32))
+        big = scale.numpy() * np.float32(ds["pixel_std"])
+        card = np.zeros((len(boxes), 17, 3), np.float32)
+        for j in range(17):
+            x, y = corners[j % 4]
+            card[:, j, 0] = [_card_back_projection(x, c, b, n_x)
+                             for c, b in zip(center[:, 0].numpy(), big[:, 0])]
+            card[:, j, 1] = [_card_back_projection(y, c, b, n_y)
+                             for c, b in zip(center[:, 1].numpy(), big[:, 1])]
+        hm = np.zeros((len(boxes), 17, h, w), np.float32)
+        for j in range(17):
+            x, y = corners[j % 4]
+            hm[:, j, y, x] = 1.0
+        plain, _ = decode_heatmap_plain(
+            torch.from_numpy(hm), center, scale, torch.ones(len(boxes)), shift=False,
+            to_original=True, use_udp=use_udp, pixel_std=ds["pixel_std"])
+        half = scale.double().numpy() * ds["pixel_std"] / 2
+        lo, hi = center.double().numpy() - half, center.double().numpy() + half
+        for preds in (card, plain.numpy()):
+            chip_smoke.check_preds(preds, boxes)
+            xy = preds[..., :2]
+            outside += int(((xy < lo[:, None]) | (xy > hi[:, None])).sum())
+        moved = card.copy()
+        moved[0, 0, 0] = hi[0, 0] + 1e-3
+        with pytest.raises(AssertionError, match="outside their crop windows"):
+            chip_smoke.check_preds(moved, boxes)
+    assert outside > 0
 
 
 @pytest.mark.parametrize("setting", DECODER_SETTINGS)

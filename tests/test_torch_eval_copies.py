@@ -294,13 +294,16 @@ def test_pipeline_refuses_what_it_does_not_support(tiny):
                            config=DATASET_SETTING, use_gt_bbox_for_val=True)
     ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
                         use_gt_bbox_for_val=True)
-    for kwargs in ({"method": "bottomup", "is_train": True}, {"method": "imagefolder_bottomup"},
-                   {"decode_cache_mb": 64},
+    for kwargs in ({"method": "imagefolder_bottomup"}, {"decode_cache_mb": 64},
                    {"image_bucket": 32}, {"hwc_to_chw": True}, {"frame_grouped_shuffle": True},
                    {"patch_grouped_batching": True}):
         with pytest.raises(NotImplementedError):
             create_pipeline(ds, VAL_TRANSFORMS, **dict({"is_train": False}, **kwargs),
                             config=DATASET_SETTING)
+    # bottom-up training is ported: the same call builds a train loader
+    loader = create_pipeline(ds, VAL_TRANSFORMS, **dict({"is_train": False}, method="bottomup",
+                                                        is_train=True), config=DATASET_SETTING)
+    assert loader.is_train and loader.final_columns == ["image", "target", "mask", "tag_ind"]
 
 
 def test_config_and_merge(tmp_path, caplog):
@@ -394,13 +397,16 @@ def test_bottomup_val_loader_batches_bitwise(tiny, max_size, batch, want_batch):
 
 
 def test_bottomup_training_is_refused(tiny):
+    """Named for when the port refused bottom-up training: the same calls now
+    build the train records and the train transforms
+    (tests/test_torch_bottomup_train_data.py holds them to JAX's)."""
     img_root, ann, _ = tiny
-    with pytest.raises(NotImplementedError, match="bottom-up: training"):
-        create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=True,
-                       config=BOTTOMUP_SETTING)
+    ds = create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=True,
+                        config=BOTTOMUP_SETTING)["dataset"]
+    assert len(ds) == 4 and ds[0]["mask"].shape[0] == len(BOTTOMUP_SETTING["heatmap_sizes"])
     from mindpose_tpu_torch.register import entrypoint
 
     for name in ("bottomup_random_affine", "bottomup_horizontal_random_flip",
-                 "bottomup_generate_target"):
-        with pytest.raises(NotImplementedError, match="bottom-up: training"):
-            entrypoint("transform", name)(is_train=True, config=BOTTOMUP_SETTING)
+                 "bottomup_generate_target", "bottomup_generate_tag_ind"):
+        assert callable(entrypoint("transform", name)(
+            is_train=True, config=dict(BOTTOMUP_SETTING, max_image_size=[96, 96])))

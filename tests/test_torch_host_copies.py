@@ -3,8 +3,10 @@
 The port cannot import ``mindpose_tpu`` (its ``__init__`` imports JAX), so
 the crop geometry, the joints' flip permutation and the DARK refinement's
 Gaussian kernel, and the bottom-up host path (the host Hungarian matcher
-``utils/match.py``, ``transform_keypoints``, ``bottomup_rescale`` and
-``bottomup_pad``) live in the port as copies; these tests pin each copy to
+``utils/match.py``, ``transform_keypoints``, ``bottomup_rescale``,
+``bottomup_pad`` and the levels' ``pad_to_same``) live in the port as
+copies (the bottom-up train transforms' own test is
+tests/test_torch_bottomup_train_data.py); these tests pin each copy to
 its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
 """
@@ -157,6 +159,22 @@ def test_joint_helpers():
             np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="flip_index"):
         utils.fliplr_joints(np.zeros((5, 3)), 10, flip_index=np.arange(4))
+
+
+@pytest.mark.parametrize("shapes", [
+    [(17, 16, 16), (17, 32, 32)],  # the bottom-up targets of two levels
+    [(16, 16), (32, 24), (8, 40)],  # the levels' masks
+    [(5, 3)],
+])
+def test_pad_to_same(shapes):
+    rng = np.random.RandomState(len(shapes))
+    arrays = [rng.randint(0, 255, s).astype(np.uint8 if len(s) == 2 else np.float32)
+              for s in shapes]
+    got, want = utils.pad_to_same(arrays), jax_utils.pad_to_same(arrays)
+    assert len(got) == len(want) == len(arrays)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("size", [3, 5, 7, 10, 11, 17])

@@ -33,6 +33,7 @@ from mindpose_tpu.models import create_network as jax_create_network
 from mindpose_tpu.models.backbones.convert import resnet_mapping as jax_resnet_mapping
 from mindpose_tpu.models.backbones.resnet import ResNet as JaxResNet
 from mindpose_tpu.models.heads.simple_baseline_head import SimpleBaselineHead as JaxHead
+from mindpose_tpu.models.loss import mse as jax_mse_module
 from mindpose_tpu.models.model_factory import create_loss as jax_create_loss
 from mindpose_tpu.models.model_factory import create_network_with_loss as jax_create_nwl
 from mindpose_tpu.models.networks import Net as JaxNet
@@ -68,6 +69,7 @@ from mindpose_tpu_torch.parallel import build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import train as port_train
 from mindpose_tpu_torch.utils.checkpoint import restore_train_state
+from tests.test_torch_bottomup_loss import Float64Numpy
 from tests.test_torch_train_step import YAML, _as, _keypoints, _schedule_kwargs
 
 BLOCKS = (1, 1, 1, 1)
@@ -392,15 +394,14 @@ def test_jax_resnet50_train_state_restores_into_the_port(full, tmp_path):
 
 IMAGE_SIZE = (64, 64)  # (W, H): a reduced ResNet's 2x2 map gives a 16x16 heatmap
 HEATMAP_SIZE = (16, 16)
-# float64 on both sides from the same inputs; but both packages take the
-# loss in float32 (models/loss/mse.py), so the gradient's seed is rounded to
-# float32 on each side, in other orders: every gradient and parameter is off
-# by ~1 float32 ulp of its scale (measured: 5.3e-8 at worst, 4.1e-8 median
-# over tensors), where a fault in any layer shows as O(1)
+# float64 on both sides from the same inputs, the loss too (the JAX
+# package's float32 loss cast lifted, as in tests/test_torch_bottomup_loss.py;
+# the port takes a float64 net's loss in float64), where a fault in any layer
+# shows as O(1)
 F64_RTOL = 1e-6
 
 
-def test_three_steps_match_jax_float64(reduced):
+def test_three_steps_match_jax_float64(reduced, monkeypatch):
     """The yaml's optimizer and schedule (warmup shortened to 2) for 3 steps of
     the reduced net on one batch of 4, the port's step and the JAX package's
     both in float64, on the same crops, targets and joint weights (the port's
@@ -431,6 +432,7 @@ def test_three_steps_match_jax_float64(reduced):
         scale = max(float(want.abs().max()), 1e-30)
         assert float((got - want).abs().max()) <= F64_RTOL * scale, name
 
+    monkeypatch.setattr(jax_mse_module, "jnp", Float64Numpy())
     with jax.enable_x64(True):
         jax_net = JaxNet(backbone=JaxResNet(block_counts=BLOCKS, dtype=jnp.float64),
                          head=JaxHead(num_deconv_filters=FILTERS, dtype=jnp.float64))

@@ -238,7 +238,13 @@ def test_refusals(train_split):
         entrypoint("transform", "topdown_generate_target")(
             is_train=True, config=RECIPE["dataset_setting"], use_different_joint_weights=True)
     for kwargs in ({"image_bucket": 64}, {"decode_cache_mb": 64}, {"frame_grouped_shuffle": True},
-                   {"patch_grouped_batching": True}, {"method": "bottomup"}):
+                   {"patch_grouped_batching": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_pipeline({"dataset": ds}, TRAIN_TRANSFORMS, **dict(
                 {"is_train": True, "config": SETTING}, **kwargs))
+    # bottom-up training is ported: the same call builds a train loader, whose
+    # batch size the bottom-up evaluation's batch rule leaves alone
+    loader = create_pipeline({"dataset": ds}, TRAIN_TRANSFORMS, **dict(
+        {"is_train": True, "config": SETTING}, method="bottomup", batch_size=BATCH))
+    assert isinstance(loader, DataLoader) and loader.is_train and loader.batch_size == BATCH
+    assert loader.final_columns == ["image", "target", "mask", "tag_ind"]
