@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32 and SimpleBaseline, bottom-up HigherHRNet-W32 inference and training) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline and ViTPose, bottom-up HigherHRNet-W32 inference and training) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -133,12 +133,32 @@ no result, when there is no CUDA device or when any phase fails:
     giving the callback's last persons (within 1e-3) and stats (within
     1e-4); (c) the same run with ``device_pipeline: true``, after its
     device targets on one batch are held within 1e-6 of the host
-    ``bottomup_generate_target``'s on the same warped keypoints.
+    ``bottomup_generate_target``'s on the same warped keypoints;
+20. configs/vitpose/vitpose_b_tpu.yaml as parsed (ViT-B/16 + the deconv
+    head at full width, 256x192, O2, batch 128, adamw) through the train
+    entry on phase 12's data, 3 epochs of 10 steps, evaluating after the
+    last, from a ViT-B backbone file saved at 224x224 (random weights from a
+    numpy seed; its 14x14 position grid resized on load): the tensors
+    loaded, img/s with the loader, the step median, peak memory, the losses
+    (finite, falling), one decode launch per val batch; the last checkpoint
+    through the eval entry (the callback's keypoints within 1e-3 and stats
+    within 1e-4, one decode launch per batch) and through the serving entry
+    as in phase 15 (1, 5 and 40 boxes, one decode launch per 32-crop chunk,
+    the card against the CPU at phase 5's tolerance, keypoints within 1e-3
+    px: the card's back-projection rounds apart from the CPU's in the last
+    bits);
+21. vitpose_s_tpu.yaml, vitpose_l_tpu.yaml (layer decay 0.8) and
+    vitpose_h_tpu.yaml (``parallel_mode: fsdp`` on one card, 4
+    microbatches, layer decay 0.8) through the train entry, 2 epochs on 64
+    synthetic frames, evaluating after the last: img/s, the step median,
+    peak memory, finite losses, one decode launch per val batch; each last
+    checkpoint through the eval entry (the callback's stats) and the
+    serving entry (a 40-box request, 2 decode launches).
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 19.
+started is still there after phase 21.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -185,6 +205,7 @@ from mindpose_tpu_torch.engine import (
     create_inferencer,
 )
 from mindpose_tpu_torch.models import (
+    create_backbone,
     create_decoder,
     create_eval_network,
     create_loss,
@@ -456,6 +477,22 @@ BU_ENTRY_PERSON_ATOL = 1e-3
 BU_PROFILED_CALL = 3
 
 
+# Phases 20-21: the ViTPose recipes. Phase 20 trains vitpose_b_tpu.yaml as
+# parsed on phase 12's data from a ViT-B backbone saved at 224x224 (a 14x14
+# position grid, resized onto the recipe's 16x12 as it loads), 3 epochs of
+# 10 steps, evaluating after the last; phase 21 trains vitpose_s_tpu.yaml,
+# vitpose_l_tpu.yaml and vitpose_h_tpu.yaml 2 epochs each on 64 frames of
+# their own.
+VITPOSE_YAML = {arch: os.path.join(CONFIGS, "vitpose", f"vitpose_{arch}_tpu.yaml")
+                for arch in ("s", "b", "l", "h")}
+VIT_EPOCHS = 3
+VIT_PRETRAINED_SIZE = (224, 224)
+# flax leaves per block: 2 LayerNorms (4), query/key/value (6), out (2), 2 Dense (4)
+VIT_LEAVES_PER_BLOCK = 16
+VIT_SMALL_IMAGES = 64  # phase 21: 128 records, per epoch 1 step of ViT-S, 2 of ViT-L, 4 of ViT-H
+VIT_SMALL_VAL_IMAGES = 16
+VIT_SMALL_EPOCHS = 2
+VIT_SMALL_WARMUP = 2
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
 
@@ -1035,10 +1072,12 @@ def compare_with_cpu(predictor: TopDownPredictor, cpu_predictor: TopDownPredicto
     top2 = torch.topk(heat_cpu.flatten(2), 2, dim=2).values
     # a peak that leads by more than both maps' error can not change place
     qualified = ((top2[..., 0] - top2[..., 1]) > 2 * tol).numpy()
-    same = (np.abs(preds_gpu[..., :2] - preds_cpu[..., :2]) <= xy_atol).all(-1)
+    xy_err = np.abs(preds_gpu[..., :2] - preds_cpu[..., :2]).max(-1)
+    same = xy_err <= xy_atol
     print(f"card-vs-CPU keypoints: {int(qualified.sum())} of {qualified.size} joints have a "
           f"top-2 gap > {2 * tol:.3e}; {int(same[qualified].sum())} of them agree "
-          + (f"within {xy_atol} px" if xy_atol else "exactly"))
+          + (f"within {xy_atol} px" if xy_atol else "exactly")
+          + f" (max |diff| among them {float(xy_err[qualified].max()):.3e} px)")
     if not qualified.any() or not same[qualified].all():
         raise AssertionError("keypoints differ where the heatmap peak is clear")
     score_err = float(np.abs(preds_gpu[..., 2] - preds_cpu[..., 2]).max())
@@ -1987,36 +2026,37 @@ def time_requests(url: str, payloads: list, requests: list) -> list:
     return medians
 
 
-def serve_simple_baseline(root: str, trained: dict, device: torch.device) -> dict:
-    """Phase 15: phase 13's checkpoint through the serving entry.
-
-    ``tools/serve.build_service`` on resnet50_udp_tpu.yaml with ``--ckpt``,
-    behind ``build_http_server`` on 127.0.0.1: ``GET /healthz``, then
-    ``POST /predict`` with 1, 5 and 40 boxes over real HTTP (one decode
-    launch per 32-crop chunk), each timed over ``REPEATS`` runs; the 5-box
-    answer against the same service on the CPU (phase 5's tolerance, the
-    keypoints within ``EVAL_XY_ATOL`` px: the card's UDP back-projection
-    multiplies by the float reciprocal of 47 where the CPU divides). Then
-    resnet101_tpu.yaml and resnet152_tpu.yaml through the same entry, with
-    random weights from a numpy seed written as a port checkpoint, answering
-    a 40-box request each. Every server is shut down and its thread joined;
-    no thread of this phase is left.
-    """
-    threads_before = set(threading.enumerate())
-    image, requests = make_requests(np.random.RandomState(SEED + 20))
+def request_payloads(seed: int):
+    """``make_requests``'s image and 1/5/40-box requests, with their
+    ``POST /predict`` payloads (a lossless PNG) and their 32-crop chunks."""
+    image, requests = make_requests(np.random.RandomState(seed))
     ok, png = cv2.imencode(".png", cv2.cvtColor(image, cv2.COLOR_RGB2BGR))  # lossless
     if not ok:
         raise RuntimeError("cv2 could not encode the request image")
     image_b64 = base64.b64encode(png.tobytes()).decode()
     payloads = [{"image_b64": image_b64, "boxes": b.tolist()} for b in requests]
     chunks = sum(-(-len(b) // BATCH_SIZE) for b in requests)
+    return image, requests, payloads, chunks
 
-    args = serve_entry.parse_serve_args(["--config", UDP_YAML, "--ckpt", trained["ckpt"],
+
+def serve_checkpoint(recipe: str, ckpt: str, label: str, device: torch.device,
+                     xy_atol: float) -> dict:
+    """Phases 15 and 20: ``recipe`` with ``ckpt`` through the serving entry.
+
+    ``tools/serve.build_service`` behind ``build_http_server`` on 127.0.0.1:
+    ``GET /healthz``, then ``POST /predict`` with 1, 5 and 40 boxes over real
+    HTTP (one decode launch per 32-crop chunk), each timed over ``REPEATS``
+    runs; the 5-box answer against the same service on the CPU (phase 5's
+    tolerance, the keypoints within ``xy_atol`` px). The server is shut down
+    and its thread joined.
+    """
+    image, requests, payloads, chunks = request_payloads(SEED + 20)
+    name = os.path.basename(recipe)
+    args = serve_entry.parse_serve_args(["--config", recipe, "--ckpt", ckpt,
                                          "--batch-size", str(BATCH_SIZE)])
     start = time.perf_counter()
     service = serve_entry.build_service(args, batch_size=args.batch_size, device=device)
-    print(f"serving entry: resnet50_udp_tpu.yaml with phase 13's checkpoint built in "
-          f"{time.perf_counter() - start:.2f} s")
+    print(f"serving entry: {name} with {label} built in {time.perf_counter() - start:.2f} s")
     http = HttpService(service)
     try:
         with urllib.request.urlopen(http.url + "/healthz", timeout=60) as resp:
@@ -2029,7 +2069,7 @@ def serve_simple_baseline(root: str, trained: dict, device: torch.device) -> dic
         argmax_shift_decode.launches = 0
         answers = [serve_request(http.url, p, b) for p, b in zip(payloads, requests)]
         launches = argmax_shift_decode.launches
-        print(f"serving entry: decode kernel launches {launches} for requests of "
+        print(f"serving entry, {name}: decode kernel launches {launches} for requests of "
               f"{[len(b) for b in requests]} boxes ({chunks} chunks)")
         if launches != chunks:
             raise AssertionError(f"{chunks} chunks made {launches} decode launches")
@@ -2042,9 +2082,27 @@ def serve_simple_baseline(root: str, trained: dict, device: torch.device) -> dic
     cpu_answer = np.asarray(cpu_service.predict(payloads[1])["predictions"], np.float32)
     cpu_service.close()
     compare_with_cpu(service.predictor, cpu_service.predictor, image, requests[1],
-                     xy_atol=EVAL_XY_ATOL, answers=(answers[1], cpu_answer))
-    del service, cpu_service
+                     xy_atol=xy_atol, answers=(answers[1], cpu_answer))
+    return {"launches": launches, "latency_ms": medians}
+
+
+def serve_simple_baseline(root: str, trained: dict, device: torch.device) -> dict:
+    """Phase 15: phase 13's checkpoint through the serving entry.
+
+    ``serve_checkpoint`` on resnet50_udp_tpu.yaml, the keypoints on the card
+    against the CPU within ``EVAL_XY_ATOL`` px (the card's UDP
+    back-projection multiplies by the float reciprocal of 47 where the CPU
+    divides). Then resnet101_tpu.yaml and resnet152_tpu.yaml through the same
+    entry, with random weights from a numpy seed written as a port
+    checkpoint, answering a 40-box request each. Every server is shut down
+    and its thread joined; no thread of this phase is left.
+    """
+    threads_before = set(threading.enumerate())
+    served = serve_checkpoint(UDP_YAML, trained["ckpt"], "phase 13's checkpoint", device,
+                              EVAL_XY_ATOL)
+    launches, medians = served["launches"], served["latency_ms"]
     torch.cuda.empty_cache()
+    _, requests, payloads, _ = request_payloads(SEED + 20)
 
     deeper = {}
     for arch, yaml_path in SB_DEEPER.items():
@@ -2785,6 +2843,232 @@ def check_bottomup_checkpoint(root: str, args: Config, host: dict, device: torch
         raise AssertionError("the bottom-up last checkpoint's persons differ from the callback's")
 
 
+def random_vit_backbone(arch: str, image_size) -> nn.Module:
+    """A ViT backbone at ``image_size`` ([W, H]) with weights from a numpy
+    seed: kernels with variance 1 / fan_in, LayerNorm scales in [0.5, 1.5],
+    biases 0.1 sd, the position grid 0.02 sd. On the CPU."""
+    backbone = create_backbone(arch, image_size=image_size)
+    rng = np.random.RandomState(SEED + 30)
+    with torch.no_grad():
+        for name, p in backbone.named_parameters():
+            if name == "pos_embed":
+                w = 0.02 * rng.standard_normal(p.shape)
+            elif p.dim() >= 2:
+                w = rng.standard_normal(p.shape) / np.sqrt(p[0].numel())
+            elif name.endswith("weight"):
+                w = rng.uniform(0.5, 1.5, p.shape)
+            else:
+                w = 0.1 * rng.standard_normal(p.shape)
+            p.copy_(torch.from_numpy(w.astype(np.float32)))
+    return backbone
+
+
+def vitpose_args(recipe: str, data: dict, ckpt_dir: str, device: torch.device,
+                 *options: str) -> Config:
+    """A ViTPose recipe as the train entry parses it, with the data paths and
+    ``ckpt_save_dir`` of this run and ``options``."""
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    return train_entry.parse_train_args(
+        ["--config", recipe, "--device", str(device), "--cfg-options",
+         f"train_root={train_root}", f"train_label={train_label}", f"val_root={val_root}",
+         f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}", *options])
+
+
+def vitpose_training(root: str, data: dict, device: torch.device) -> dict:
+    """Phase 20: vitpose_b_tpu.yaml through the train, eval and serving entries.
+
+    The yaml as parsed (ViT-B/16 at full width, 256x192, O2, batch 128,
+    adamw with weight decay 0.1, host targets) on phase 12's synthetic COCO,
+    overridden: the data paths, ``num_epochs``, ``warmup``, ``val_interval``
+    (one evaluation, after the last epoch), ``ckpt_save_dir``, and
+    ``backbone_pretrained`` with ``backbone_ckpt_url`` naming a port file of
+    a ViT-B saved at 224x224, whose 14x14 position grid is resized on load.
+    It holds: every backbone tensor loaded, finite losses, the last epoch's
+    below the first's, one decode launch per val batch, every train forward
+    in train mode and each evaluation in eval mode, the last checkpoint the
+    trained net bit for bit; that checkpoint through the eval entry giving
+    the callback's keypoints (within ``BU_ENTRY_PERSON_ATOL``) and stats
+    (within ``ENTRY_STATS_ATOL``), one decode launch per eval batch; and
+    through the serving entry (``serve_checkpoint``: 1, 5 and 40 boxes, one
+    decode launch per 32-crop chunk, the card against the CPU at phase 5's
+    tolerance, keypoints within ``EVAL_XY_ATOL`` px).
+    """
+    backbone_path = os.path.join(root, "vit_b_224.ckpt")
+    backbone = random_vit_backbone("vit_b", VIT_PRETRAINED_SIZE)
+    save_checkpoint(backbone_path, backbone)
+    want_tensors = 5 + VIT_LEAVES_PER_BLOCK * backbone.depth  # patch 2, grid 1, norm 2
+    del backbone
+    ckpt_dir = os.path.join(root, "vitpose_b")
+    args = vitpose_args(VITPOSE_YAML["b"], data, ckpt_dir, device, f"num_epochs={VIT_EPOCHS}",
+                        f"warmup={ENTRY_WARMUP}", f"val_interval={VIT_EPOCHS}",
+                        "backbone_pretrained=True", f"backbone_ckpt_url={backbone_path}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    argmax_shift_decode.launches = 0
+    with recording_entry(train_entry) as seen:
+        result = train_entry.train(args)
+    launches = argmax_shift_decode.launches
+    train_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    epochs = result["epochs"]
+    print(f"vitpose_b_tpu: {result['pretrained_tensors']} backbone tensors loaded from a "
+          f"ViT-B saved at {VIT_PRETRAINED_SIZE[1]}x{VIT_PRETRAINED_SIZE[0]} (its 14x14 position "
+          f"grid resized onto {seen['net'].backbone.grid[0]}x{seen['net'].backbone.grid[1]}), "
+          f"of {want_tensors}")
+    if result["pretrained_tensors"] != want_tensors:
+        raise AssertionError("the pretrained backbone did not load every tensor")
+    rate = entry_epochs("vitpose_b_tpu", epochs)
+    steps = sum(e["steps"] for e in epochs)
+    step_median_ms = statistics.median(e["step_median_s"] for e in epochs[1:]) * 1e3
+    evals = [e for e in epochs if e["metrics"]]
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    losses = [e["loss"] for e in epochs]
+    stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
+    print(f"vitpose_b_tpu ({args.amp_level}, batch {args.batch_size}): epochs 2-{len(epochs)} "
+          f"{rate:.1f} img/s with the loader feeding the step, median of the epochs' step "
+          f"medians {step_median_ms:.1f} ms; {steps} steps and the evaluation in {train_s:.1f} "
+          f"s; peak torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); losses "
+          f"{losses}; {len(evals)} evaluation(s) of {val_batches} batch(es), decode kernel "
+          f"launches {launches}; stats {json.dumps(stats)}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"vitpose_b_tpu's losses are not finite or did not fall: {losses}")
+    if launches != len(evals) * val_batches:
+        raise AssertionError(f"{len(evals)} evaluations of {val_batches} batches made "
+                             f"{launches} decode launches")
+
+    last_path = os.path.join(ckpt_dir, "vitpose_b_tpu_last.ckpt")
+    argmax_shift_decode.launches = 0
+    with recording_entry(eval_entry) as evaluated:
+        got = evaluate(Config(**dict(vars(args), ckpt=last_path,
+                                     result_path=os.path.join(root, "vitpose_b_entry.json"))),
+                       device=device)
+    eval_launches = argmax_shift_decode.launches
+    same = compare_callback_with_eval_entry(seen, evaluated, load_checkpoint(last_path))
+    worst = max(abs(float(got[k]) - stats[k]) for k in stats)
+    print(f"vitpose_b_tpu's last checkpoint through the eval entry: "
+          f"{json.dumps({k: float(v) for k, v in got.items()})}; max |diff| against the "
+          f"callback's {worst:.2e} (tolerance {ENTRY_STATS_ATOL}); the checkpoint holds the "
+          f"trained net bit for bit; {same['evaluations']} evaluation(s), each after a "
+          f"train-mode step, in eval mode; {same['persons']} crops, keypoints within "
+          f"{same['pred_err']:.3e} of the callback's (tolerance {BU_ENTRY_PERSON_ATOL}); decode "
+          f"kernel launches {eval_launches}")
+    if worst > ENTRY_STATS_ATOL:
+        raise AssertionError("the last checkpoint's stats differ from the callback's")
+    if not same["persons"] or same["pred_err"] > BU_ENTRY_PERSON_ATOL:
+        raise AssertionError("the last checkpoint's keypoints differ from the callback's")
+    if eval_launches != val_batches:
+        raise AssertionError(f"{val_batches} eval batches made {eval_launches} decode launches")
+    del seen, evaluated
+    torch.cuda.empty_cache()
+
+    threads_before = set(threading.enumerate())
+    # the card's back-projection multiplies by the float reciprocal of 48
+    # where the CPU divides (csrc/decode.cu), so x and y may differ in their
+    # last bits (6.1e-5 px at 640); phase 5's net happens to land where none do
+    served = serve_checkpoint(VITPOSE_YAML["b"], last_path, "phase 20's checkpoint", device,
+                              xy_atol=EVAL_XY_ATOL)
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"the ViTPose serving phase left threads running: {left}")
+    return {"launches": launches, "eval_launches": eval_launches,
+            "serve_launches": served["launches"], "latency_ms": served["latency_ms"],
+            "images_per_sec": rate, "step_median_ms": step_median_ms, "peak_bytes": peak,
+            "stats": stats}
+
+
+def vitpose_recipes(root: str, device: torch.device) -> dict:
+    """Phase 21: vitpose_s_tpu.yaml, vitpose_l_tpu.yaml (layer decay 0.8,
+    batch 64) and vitpose_h_tpu.yaml (``parallel_mode: fsdp`` on one card:
+    nothing is sharded; batch 32 in 4 microbatches; layer decay 0.8) through
+    the train entry as parsed, random weights, on 64 synthetic frames of
+    their own for 2 epochs, evaluating after the last on 16 frames;
+    overridden: the data paths, ``num_epochs``, ``warmup``, ``val_interval``
+    and ``ckpt_save_dir``. Per recipe: img/s of epoch 2, the step median, the
+    peak memory; it holds finite losses and one decode launch per val batch.
+    Then each last checkpoint through the eval entry (the callback's stats
+    within ``ENTRY_STATS_ATOL``, one decode launch per batch) and the
+    serving entry (a 40-box request, checked as phase 4 checks it, one
+    decode launch per 32-crop chunk)."""
+    data = write_synthetic_coco(os.path.join(root, "vit_small"), VIT_SMALL_IMAGES,
+                                VIT_SMALL_VAL_IMAGES, ENTRY_PEOPLE)
+    image, requests, payloads, _ = request_payloads(SEED + 21)
+    out = {}
+    for arch in ("s", "l", "h"):
+        name = f"vitpose_{arch}_tpu"
+        ckpt_dir = os.path.join(root, name)
+        args = vitpose_args(VITPOSE_YAML[arch], data, ckpt_dir, device,
+                            f"num_epochs={VIT_SMALL_EPOCHS}", f"warmup={VIT_SMALL_WARMUP}",
+                            f"val_interval={VIT_SMALL_EPOCHS}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        argmax_shift_decode.launches = 0
+        result = train_entry.train(args)
+        launches = argmax_shift_decode.launches
+        train_s = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        epochs = result["epochs"]
+        rate = entry_epochs(name, epochs)
+        losses = [e["loss"] for e in epochs]
+        val_batches = -(-VIT_SMALL_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+        evals = [e for e in epochs if e["metrics"]]
+        print(f"{name} ({args.backbone_name}, {args.amp_level}, batch {args.batch_size}, "
+              f"grad_accum_steps {getattr(args, 'grad_accum_steps', 1)}, parallel_mode "
+              f"{getattr(args, 'parallel_mode', 'data')}, optimizer_setting "
+              f"{args.optimizer_setting}): epoch 2 {rate:.1f} img/s with the loader feeding the "
+              f"step, step median {epochs[-1]['step_median_s'] * 1e3:.1f} ms; {result['step']} "
+              f"steps and the evaluation in {train_s:.1f} s; peak "
+              f"torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); losses "
+              f"{losses}; decode kernel launches {launches}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name}'s losses are not finite: {losses}")
+        if launches != len(evals) * val_batches or not evals:
+            raise AssertionError(f"{len(evals)} evaluations of {val_batches} batches made "
+                                 f"{launches} decode launches")
+        stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
+        last_path = os.path.join(ckpt_dir, f"{name}_last.ckpt")
+        torch.cuda.empty_cache()
+
+        argmax_shift_decode.launches = 0
+        got = evaluate(Config(**dict(vars(args), ckpt=last_path,
+                                     result_path=os.path.join(root, f"{name}_entry.json"))),
+                       device=device)
+        eval_launches = argmax_shift_decode.launches
+        worst = max(abs(float(got[k]) - stats[k]) for k in stats)
+        serve_args = serve_entry.parse_serve_args(["--config", VITPOSE_YAML[arch], "--ckpt",
+                                                   last_path, "--batch-size", str(BATCH_SIZE)])
+        service = serve_entry.build_service(serve_args, batch_size=BATCH_SIZE, device=device)
+        try:
+            service.predict(payloads[-1])  # warm-up
+            torch.cuda.synchronize()
+            argmax_shift_decode.launches = 0
+            start = time.perf_counter()
+            answer = service.predict(payloads[-1])
+            serve_ms = (time.perf_counter() - start) * 1e3
+            serve_launches = argmax_shift_decode.launches
+        finally:
+            service.close()
+        check_preds(np.asarray(answer["predictions"], np.float32), requests[-1])
+        print(f"{name}'s last checkpoint: through the eval entry max |diff| against the "
+              f"callback's stats {worst:.2e} (tolerance {ENTRY_STATS_ATOL}), decode kernel "
+              f"launches {eval_launches}; through the serving entry a 40-box request in "
+              f"{serve_ms:.3f} ms (warm, one run; the service's latency_ms "
+              f"{answer['latency_ms']:.3f}), decode kernel launches {serve_launches}")
+        if worst > ENTRY_STATS_ATOL:
+            raise AssertionError(f"{name}'s last checkpoint's stats differ from the callback's")
+        if eval_launches != val_batches or serve_launches != -(-40 // BATCH_SIZE):
+            raise AssertionError(f"{name}: {eval_launches} decode launches for {val_batches} "
+                                 f"eval batches, {serve_launches} for 40 boxes")
+        out[name] = {"launches": launches, "eval_launches": eval_launches,
+                     "serve_launches": serve_launches, "images_per_sec": rate,
+                     "peak_bytes": peak, "step_median_ms": epochs[-1]["step_median_s"] * 1e3,
+                     "serve_40_ms": serve_ms}
+        del service
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2852,7 +3136,16 @@ def main() -> int:
         bu_served = serve_bottomup(root, bu_eval["ckpt"], device)
         torch.cuda.empty_cache()
         bu_trained = bottomup_training(root, device)
+        torch.cuda.empty_cache()
+        vit = vitpose_training(root, entry["data"], device)
+        torch.cuda.empty_cache()
+        vit_recipes = vitpose_recipes(root, device)
     check_no_processes_left()
+    vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
+                                      ("launches", "eval_launches", "serve_launches")},
+                    **{name: {key: r[key] for key in
+                              ("launches", "eval_launches", "serve_launches")}
+                       for name, r in vit_recipes.items()}}
 
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
     chain = next(r for r in probed["rows"] if r["b"] == HRNET_W32["batch_size"])
@@ -2864,10 +3157,13 @@ def main() -> int:
         "replaces": "mindpose_tpu/ops/pallas/decode.py:27",
         # serving's launches, evaluation's (phases 8 and 14), the training
         # entry's callbacks' (phases 12 and 13: one per eval batch), the DARK
-        # evaluation's (phase 14) and the serving entry's (phase 15)
+        # evaluation's (phase 14), the serving entry's (phase 15) and
+        # ViTPose's (phases 20 and 21: callbacks, the eval entry, serving)
         "launches": (served["launches"] + evaluated["launches"] + entry["launches"]
                      + trained["launches"] + plain["launches"] + plain_eval["launches"]
-                     + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]),
+                     + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]
+                     + sum(sum(r.values()) for r in vit_launches.values())),
+        "vitpose_launches": vit_launches,
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],

@@ -228,14 +228,10 @@ def w_cfg(width: int) -> Dict[str, Dict[str, Any]]:
     }
 
 
-def _hrnet(width: int, pretrained: bool, in_channels: int, kwargs: Dict[str, Any]) -> HRNet:
+def _hrnet(width: int, in_channels: int, kwargs: Dict[str, Any]) -> HRNet:
     unknown = sorted(set(kwargs) - set(_KNOBS))
     if unknown:
         raise TypeError(f"unknown HRNet settings: {unknown}")
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained backbones are loaded as a state_dict "
-            "(mindpose_tpu_torch.models.convert), not at build")
     if kwargs.get("remat", False):
         raise NotImplementedError("remat is not ported (no memory need shown on the GPU yet)")
     check_bn_settings(kwargs.get("bn_grad_stats", "exact"), kwargs.get("bn_stats_frac", 1.0))
@@ -246,11 +242,11 @@ def _hrnet(width: int, pretrained: bool, in_channels: int, kwargs: Dict[str, Any
 def hrnet_w32(pretrained: bool = False, ckpt_url: str = "", in_channels: int = 3,
               **kwargs: Any) -> HRNet:
     """HRNet-W32."""
-    return _hrnet(32, pretrained, in_channels, kwargs)
+    return _hrnet(32, in_channels, kwargs)
 
 
 @register("backbone")
 def hrnet_w48(pretrained: bool = False, ckpt_url: str = "", in_channels: int = 3,
               **kwargs: Any) -> HRNet:
     """HRNet-W48."""
-    return _hrnet(48, pretrained, in_channels, kwargs)
+    return _hrnet(48, in_channels, kwargs)

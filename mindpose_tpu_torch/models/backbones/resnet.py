@@ -10,8 +10,9 @@ layer1.0.downsample.0), so torchvision checkpoints and the JAX package's
 ``export_backbone_state(..., naming="torch")`` load with ``strict=True``.
 
 The JAX package's BatchNorm knobs are checked as HRNet's are
-(``common.check_bn_settings``); ``pretrained`` is refused: loading an
-ImageNet backbone belongs to the training entry's leftovers.
+(``common.check_bn_settings``); ``pretrained`` and ``ckpt_url`` are accepted
+and ignored, as in the JAX package: the train entry loads the file
+(``utils/checkpoint.load_pretrained_backbone``).
 """
 from typing import Any, Sequence
 
@@ -122,15 +123,10 @@ class ResNet(Backbone):
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 
-def _resnet(block_counts: Sequence[int], pretrained: bool, in_channels: int,
-            kwargs: Any) -> ResNet:
+def _resnet(block_counts: Sequence[int], in_channels: int, kwargs: Any) -> ResNet:
     unknown = sorted(set(kwargs) - {"bn_stats_frac", "bn_grad_stats"})
     if unknown:
         raise TypeError(f"unknown ResNet settings: {unknown}")
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained ImageNet backbones are not ported (ROADMAP.md, Queue 1, the training "
-            "entry's leftovers: load_pretrained_backbone)")
     check_bn_settings(kwargs.get("bn_grad_stats", "exact"), kwargs.get("bn_stats_frac", 1.0))
     return ResNet(block_counts, in_channels=in_channels)
 
@@ -139,18 +135,18 @@ def _resnet(block_counts: Sequence[int], pretrained: bool, in_channels: int,
 def resnet50(pretrained: bool = False, ckpt_url: str = "", in_channels: int = 3,
              **kwargs: Any) -> ResNet:
     """ResNet-50: stages of 3, 4, 6, 3 bottlenecks."""
-    return _resnet((3, 4, 6, 3), pretrained, in_channels, kwargs)
+    return _resnet((3, 4, 6, 3), in_channels, kwargs)
 
 
 @register("backbone")
 def resnet101(pretrained: bool = False, ckpt_url: str = "", in_channels: int = 3,
               **kwargs: Any) -> ResNet:
     """ResNet-101: stages of 3, 4, 23, 3 bottlenecks."""
-    return _resnet((3, 4, 23, 3), pretrained, in_channels, kwargs)
+    return _resnet((3, 4, 23, 3), in_channels, kwargs)
 
 
 @register("backbone")
 def resnet152(pretrained: bool = False, ckpt_url: str = "", in_channels: int = 3,
               **kwargs: Any) -> ResNet:
     """ResNet-152: stages of 3, 8, 36, 3 bottlenecks."""
-    return _resnet((3, 8, 36, 3), pretrained, in_channels, kwargs)
+    return _resnet((3, 8, 36, 3), in_channels, kwargs)

@@ -6,9 +6,10 @@ The JAX package keeps a model's weights as flax trees, ``{"params": ...,
 use the official torch names (``stage3.0.branches.1.1.conv1``,
 ``layer2.0.downsample.0``, ``deconv_layers.3``). A mapping pairs the two, in
 the order in which the JAX modules create their submodules: ``hrnet_mapping``
-for any HRNet stage config, ``resnet_mapping`` for any block counts, and one
-for each head. ``net_mapping`` picks the backbone's and the head's from the
-port's net itself, so reduced-depth nets convert as well as full ones.
+for any HRNet stage config, ``resnet_mapping`` for any block counts,
+``vit_mapping`` for any ViT depth, and one for each head. ``net_mapping``
+picks the backbone's and the head's from the port's net itself, so
+reduced-depth nets convert as well as full ones.
 
 Layout changes: conv kernel [kh, kw, I, O] -> weight [O, I, kh, kw]; a
 transposed conv's kernel [kh, kw, I, O] -> weight [I, O, kh, kw], flipped in
@@ -16,7 +17,14 @@ both spatial axes (flax's ``ConvTranspose`` with ``transpose_kernel=False``
 does not flip it, torch's ``ConvTranspose2d`` does); BN scale -> weight,
 bias -> bias, batch_stats mean/var -> running_mean/var;
 ``num_batches_tracked``, which flax has no counterpart of, is set to 0.
-The result loads with ``load_state_dict(strict=True)``.
+ViT (the layout changes of the JAX package's ``export_vit_state``): a Dense
+kernel [I, O] -> weight [O, I]; LayerNorm scale -> weight; the attention's
+query/key/value kernels [D, heads, hd] -> one fused ``qkv.weight`` [3D, D]
+and their biases [heads, hd] -> ``qkv.bias`` [3D]; its ``out`` kernel
+[heads, hd, D] -> ``proj.weight`` [D, D]; the patch kernel [p, p, 3, D] ->
+[D, 3, p, p] (a conv's); ``pos_embedding`` (1, gh, gw, D) as it is.
+The result loads with ``load_state_dict(strict=True)``. ``export_variables``
+goes the other way.
 """
 from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
@@ -26,16 +34,22 @@ from torch import nn
 
 from .backbones.hrnet import HRNet
 from .backbones.resnet import ResNet
+from .backbones.vit import Attention, ViT
 from .heads.higher_hrnet_head import HigherHRNetHead
 from .heads.hrnet_head import HRNetHead
 from .heads.simple_baseline_head import SimpleBaselineHead
 
-__all__ = ["hrnet_mapping", "resnet_mapping", "head_mapping", "net_mapping",
-           "convert_variables", "convert_net_variables"]
+__all__ = ["hrnet_mapping", "resnet_mapping", "vit_mapping", "head_mapping", "net_mapping",
+           "convert_variables", "convert_net_variables", "export_variables", "num_heads"]
 
 # (kind, torch prefix, flax path): kind is "conv" (no bias), "conv_bias",
-# "deconv" (a transposed conv, no bias) or "bn"
+# "deconv" (a transposed conv, no bias), "bn", "dense", "layernorm", "qkv"
+# (the attention's fused query/key/value; the flax path is the attention's),
+# "out" (the attention's output projection) or "param" (one bare parameter:
+# the torch name and the flax path are the leaf's own)
 Entry = Tuple[str, str, Tuple[str, ...]]
+
+_QKV = ("query", "key", "value")
 
 # flax class name and number of conv+BN pairs of each residual block
 _BLOCKS = {"BASIC": ("BasicBlock", 2, 1), "BOTTLENECK": ("Bottleneck", 3, 4)}
@@ -133,6 +147,22 @@ def resnet_mapping(block_counts: Sequence[int]) -> List[Entry]:
     return entries
 
 
+def vit_mapping(depth: int) -> List[Entry]:
+    """(kind, torch prefix, flax path) for every tensor of a ViT backbone."""
+    entries: List[Entry] = [("conv_bias", "patch_embed.proj", ("patch_embed",)),
+                            ("param", "pos_embed", ("pos_embedding",))]
+    for i in range(depth):
+        blk = (f"block_{i}",)
+        attn = blk + ("MultiHeadDotProductAttention_0",)
+        entries += [("layernorm", f"blocks.{i}.norm1", blk + ("LayerNorm_0",)),
+                    ("qkv", f"blocks.{i}.attn.qkv", attn),
+                    ("out", f"blocks.{i}.attn.proj", attn + ("out",)),
+                    ("layernorm", f"blocks.{i}.norm2", blk + ("LayerNorm_1",)),
+                    ("dense", f"blocks.{i}.mlp.fc1", blk + ("MlpBlock_0", "Dense_0")),
+                    ("dense", f"blocks.{i}.mlp.fc2", blk + ("MlpBlock_0", "Dense_1"))]
+    return entries + [("layernorm", "norm", ("norm",))]
+
+
 def head_mapping(head: nn.Module) -> List[Entry]:
     """The entries of a port head: ``hrnet_head``, ``simple_baseline_head`` or
     ``higher_hrnet_head``."""
@@ -168,6 +198,8 @@ def net_mapping(net: nn.Module) -> List[Entry]:
         entries = hrnet_mapping(backbone.stage_cfg)
     elif isinstance(backbone, ResNet):
         entries = resnet_mapping(backbone.block_counts)
+    elif isinstance(backbone, ViT):
+        entries = vit_mapping(backbone.depth)
     else:
         raise NotImplementedError(
             f"no JAX variable mapping for the backbone {type(backbone).__name__}")
@@ -224,6 +256,20 @@ def convert_variables(variables: Mapping[str, Any],
         elif kind == "deconv":
             kernel = take(params, path + ("kernel",))
             out[f"{name}.weight"] = kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        elif kind in ("dense", "out"):
+            kernel = take(params, path + ("kernel",))
+            out[f"{name}.weight"] = kernel.reshape(-1, kernel.shape[-1]).t().contiguous()
+            out[f"{name}.bias"] = take(params, path + ("bias",))
+        elif kind == "qkv":
+            kernels = [take(params, path + (p, "kernel")) for p in _QKV]
+            out[f"{name}.weight"] = torch.cat([k.reshape(k.shape[0], -1).t() for k in kernels])
+            out[f"{name}.bias"] = torch.cat([take(params, path + (p, "bias")).reshape(-1)
+                                             for p in _QKV])
+        elif kind == "layernorm":
+            out[f"{name}.weight"] = take(params, path + ("scale",))
+            out[f"{name}.bias"] = take(params, path + ("bias",))
+        elif kind == "param":
+            out[name] = take(params, path)
         else:
             out[f"{name}.weight"] = take(params, path + ("scale",))
             out[f"{name}.bias"] = take(params, path + ("bias",))
@@ -235,3 +281,71 @@ def convert_variables(variables: Mapping[str, Any],
     if unused:
         raise ValueError(f"flax variables with no counterpart in the port: {unused[:5]} ...")
     return out
+
+
+def export_variables(state: Mapping[str, torch.Tensor], entries: Sequence[Entry],
+                     num_heads: Mapping[str, int]) -> Dict[str, Any]:
+    """A state_dict -> flax ``{"params", "batch_stats"}`` (numpy), by ``entries``:
+    ``convert_variables`` undone. ``num_heads`` gives each "qkv" and "out"
+    entry's head count by its torch prefix (flax keeps the heads as an
+    axis; ``num_heads(module)`` lists a module's). An entry
+    whose tensors are not all in ``state``, or whose fused attention tensors
+    do not split into those heads, is left out."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree: Dict[str, Any], path: Tuple[str, ...], value: torch.Tensor) -> None:
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = value.detach().cpu().numpy()
+
+    get = state.get
+    for kind, name, path in entries:
+        if kind == "param":
+            if get(name) is not None:
+                put(params, path, get(name))
+            continue
+        w, b = get(f"{name}.weight"), get(f"{name}.bias")
+        if w is None or (b is None and kind not in ("conv", "deconv")):
+            continue
+        if kind in ("conv", "conv_bias"):
+            put(params, path + ("kernel",), w.permute(2, 3, 1, 0))
+            if kind == "conv_bias":
+                put(params, path + ("bias",), b)
+        elif kind == "deconv":
+            put(params, path + ("kernel",), w.permute(2, 3, 0, 1).flip(0, 1))
+        elif kind == "dense":
+            put(params, path + ("kernel",), w.t())
+            put(params, path + ("bias",), b)
+        elif kind == "out":  # [D_out, D_in] -> [heads, hd, D_out]
+            h = num_heads[name]
+            if w.shape[1] % h:
+                continue
+            put(params, path + ("kernel",), w.t().reshape(h, w.shape[1] // h, w.shape[0]))
+            put(params, path + ("bias",), b)
+        elif kind == "qkv":  # [3D, D] -> 3 x [D, heads, hd]
+            h, d = num_heads[name], w.shape[1]
+            if d % h or w.shape[0] != 3 * d or b.shape[0] != 3 * d:
+                continue
+            for p, wj, bj in zip(_QKV, w.chunk(3), b.chunk(3)):
+                put(params, path + (p, "kernel"), wj.t().reshape(d, h, d // h))
+                put(params, path + (p, "bias"), bj.reshape(h, d // h))
+        elif kind == "layernorm":
+            put(params, path + ("scale",), w)
+            put(params, path + ("bias",), b)
+        else:
+            mean, var = get(f"{name}.running_mean"), get(f"{name}.running_var")
+            if mean is None or var is None:
+                continue
+            put(params, path + ("scale",), w)
+            put(params, path + ("bias",), b)
+            put(stats, path + ("mean",), mean)
+            put(stats, path + ("var",), var)
+    return {"params": params, "batch_stats": stats}
+
+
+def num_heads(module: nn.Module) -> Dict[str, int]:
+    """Each ViT attention's head count under ``module``, by the torch prefix
+    of its "qkv" and "out" entries (``...blocks.{i}.attn.qkv`` / ``.proj``)."""
+    return {f"{name}.{part}": m.num_heads for name, m in module.named_modules()
+            if isinstance(m, Attention) for part in ("qkv", "proj")}

@@ -11,10 +11,18 @@ what its optax counterpart does:
   (which takes the eps inside the square root, torch outside it: a 2e-7
   relative difference at the accumulator's least value).
 
+``layer_decay`` (the ViTPose fine-tuning recipe) gives each parameter a
+learning-rate scale (``layer_decay_scales``); the parameters split into one
+group per (decays, scale) pair, each group's scale kept as
+``group["lr_scale"]`` and its rate ``lr * lr_scale``. optax scales the whole
+update after the optimizer, weight decay included; a torch group's rate
+multiplies the step and the decoupled decay alike, so the two agree.
+
 The learning rate is a float. A schedule (step -> lr) is given to
 ``parallel.train.build_train_step`` alone, which sets each step's rate from
-it.
+it, times the group's ``lr_scale``.
 """
+import re
 from typing import Any, Dict
 
 import torch
@@ -22,7 +30,7 @@ from torch import nn
 
 from ..register import entrypoint, register
 
-__all__ = ["create_optimizer", "decay_mask"]
+__all__ = ["create_optimizer", "decay_mask", "layer_decay_scales"]
 
 _NORMS = (nn.modules.batchnorm._NormBase, nn.LayerNorm, nn.GroupNorm)
 
@@ -41,6 +49,38 @@ def decay_mask(module: nn.Module) -> Dict[str, bool]:
             full = f"{mod_name}.{name}" if mod_name else name
             mask[full] = not (name == "bias" or isinstance(mod, _NORMS))
     return mask
+
+
+_BLOCK = re.compile(r"(?:^|\.)blocks\.(\d+)\.")
+
+
+def layer_decay_scales(module: nn.Module, decay: float) -> Dict[str, float]:
+    """Per-parameter layer-wise lr multipliers for a block-indexed (ViT) backbone,
+    by ``named_parameters`` name.
+
+    Counterpart of the JAX package's ``layer_decay_scales``: ``decay ** (depth
+    + 1 - layer_id)``, where block ``i`` (``backbone.blocks.{i}.*``) has
+    layer_id ``i + 1``, the patch embed and the position grid 0, and
+    everything else (the final norm, the head) ``depth + 1``. Raises for a
+    module with no ``blocks.{i}``, where the knob has no defined meaning.
+    """
+    params = dict(module.named_parameters())
+    blocks = {name: int(m.group(1)) for name in params if (m := _BLOCK.search(name))}
+    if not blocks:
+        raise ValueError(
+            "layer_decay requires a block-indexed (ViT) backbone; this "
+            "parameter tree has no block_{i} scopes")
+    depth = max(blocks.values()) + 1
+
+    def layer_id(name: str) -> int:
+        if name in blocks:
+            return blocks[name] + 1
+        parts = name.split(".")
+        if parts[0] == "backbone" and ("patch_embed" in parts or "pos_embed" in parts):
+            return 0
+        return depth + 1
+
+    return {name: decay ** (depth + 1 - layer_id(name)) for name in params}
 
 
 def _adam_kwargs(kw: Dict[str, Any]) -> Dict[str, Any]:
@@ -90,21 +130,27 @@ def create_optimizer(
 
     With ``weight_decay`` and ``filter_bias_and_bn`` the parameters split
     into a decayed group and an undecayed one (``decay_mask``); otherwise
-    every parameter decays.
+    every parameter decays. With ``layer_decay`` in (0, 1] each of those
+    splits again by the parameters' ``layer_decay_scales``.
     """
     if radial_projection:
         raise NotImplementedError(
             "radial_projection is not ported (ROADMAP.md, Queue 1, DDP: it serves only the "
             "frozen-statistics BatchNorm, which the port refuses)")
-    if layer_decay:
-        raise NotImplementedError("layer_decay is not ported yet (ROADMAP.md, Queue 1, ViTPose)")
     params = dict(module.named_parameters())
-    if weight_decay and filter_bias_and_bn:
-        mask = decay_mask(module)
-        groups = [
-            {"params": [p for n, p in params.items() if mask[n]], "weight_decay": weight_decay},
-            {"params": [p for n, p in params.items() if not mask[n]], "weight_decay": 0.0},
-        ]
-    else:
-        groups = [{"params": list(params.values()), "weight_decay": weight_decay}]
-    return entrypoint("optim", name)(groups, learning_rate=float(learning_rate), **kwargs)
+    scales = dict.fromkeys(params, 1.0)
+    if layer_decay:
+        if not 0.0 < layer_decay <= 1.0:
+            raise ValueError(f"layer_decay must be in (0, 1], got {layer_decay}")
+        scales = layer_decay_scales(module, layer_decay)
+    mask = (decay_mask(module) if weight_decay and filter_bias_and_bn
+            else dict.fromkeys(params, True))
+    lr = float(learning_rate)
+    groups: Dict[Any, Dict[str, Any]] = {}  # by (decays, scale), in order of first use
+    for n, p in params.items():
+        key = (mask[n], scales[n])
+        if key not in groups:
+            groups[key] = {"params": [], "weight_decay": weight_decay if mask[n] else 0.0,
+                           "lr": lr * scales[n], "lr_scale": scales[n]}
+        groups[key]["params"].append(p)
+    return entrypoint("optim", name)(list(groups.values()), learning_rate=lr, **kwargs)

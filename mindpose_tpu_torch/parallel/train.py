@@ -85,7 +85,8 @@ def build_train_step(
     raw columns that ``preprocess`` (data/device_pipeline.py) turns into
     them on the device. Each call takes one optimizer step; with a
     ``schedule`` it first sets every parameter group's learning rate to
-    ``schedule(steps taken so far)``, as optax evaluates a schedule at the
+    ``schedule(steps taken so far)`` times the group's ``lr_scale`` (layer
+    decay; 1 where the group has none), as optax evaluates a schedule at the
     count before it increments. ``step.count`` is that count; it starts at
     ``start_step``, the steps a resumed run has already taken, so that the
     schedule continues where that run left it.
@@ -106,7 +107,7 @@ def build_train_step(
         if schedule is not None:
             lr = float(schedule(step.count))
             for group in optimizer.param_groups:
-                group["lr"] = lr
+                group["lr"] = lr * group.get("lr_scale", 1.0)
         loss_vec = accum_loss_and_grads(net_with_loss, batch, accum_steps, preprocess, autocast)
         optimizer.step()
         step.count += 1

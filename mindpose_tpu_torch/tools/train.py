@@ -2,7 +2,8 @@
 
 Counterpart of ``tools/train.py:61-517`` on one device, in its order: the
 config and CLI overrides; the global numpy seed (``seed + rank``, :105);
-the train and val datasets and loaders (:113-247); the net, the loss and
+the train and val datasets and loaders (:113-247); the net, its
+pretrained backbone (``backbone_pretrained``, :270-280), the loss and
 ``NetWithLoss``; the schedule over ``len(loader_train)`` steps per epoch
 and the optimizer; the resume from ``--ckpt`` (a port checkpoint or a JAX
 package TrainState, :308); EMA; the inferencer and evaluator; the
@@ -21,9 +22,11 @@ the JAX entry, a resumed run counts its epochs from 1 while the step count,
 and with it the schedule, continues.
 
 The entry runs on the current CUDA device unless ``--device`` says
-otherwise, and raises without CUDA. It raises on a config key it does not
-read and on one whose setting is not ported (each message names its
-ROADMAP item); it ignores none.
+otherwise, and raises without CUDA. ``parallel_mode: fsdp`` with one
+visible device trains as the JAX entry does on a mesh of one: nothing is
+sharded. It raises on a config key it does not read and on one whose
+setting is not ported (each message names its ROADMAP item); it ignores
+none.
 
 Usage:
     python3 -m mindpose_tpu_torch.tools.train --config configs/hrnet/hrnet_w32_tpu.yaml \\
@@ -61,6 +64,7 @@ from ..parallel import build_ema_update, build_train_step
 from ..scheduler import create_lr_scheduler
 from ..utils.checkpoint import (
     load_ema,
+    load_pretrained_backbone,
     restore_train_state,
     save_checkpoint,
     wait_pending_checkpoints,
@@ -91,9 +95,8 @@ _LEFTOVERS = "ROADMAP.md, Queue 1, the training entry's leftovers"
 _REFUSED = {
     "distributed_init": (bool, "multi-process training comes with DDP (ROADMAP.md, Queue 1, "
                                "DDP)"),
-    "parallel_mode": (lambda v: str(v or "data").lower() != "data",
-                      "parallel_mode fsdp is not ported (ROADMAP.md, Queue 1, ViTPose: FSDP)"),
-    "model_parallel": (bool, "model_parallel serves FSDP (ROADMAP.md, Queue 1, ViTPose: FSDP)"),
+    "model_parallel": (bool, "model_parallel serves FSDP over more than one device "
+                             "(ROADMAP.md, Queue 1, DDP: FSDP)"),
     "device_pipeline": (lambda v: str(v).lower() == "full",
                         "device_pipeline: full is not ported (ROADMAP.md, Queue 1, device "
                         "input pipeline)"),
@@ -101,10 +104,10 @@ _REFUSED = {
                               "distillation)"),
     "profile": (bool, f"profile is not ported ({_LEFTOVERS}; profile_train.py profiles the "
                       "step)"),
-    "backbone_pretrained": (bool, f"load_pretrained_backbone is not ported ({_LEFTOVERS})"),
     "allow_divergent_knobs": (bool, "the port refuses the divergent BatchNorm and optimizer "
                                     "knobs themselves, so there is nothing to allow"),
 }
+PARALLEL_MODES = ("data", "fsdp")
 
 
 def check_config(args: Any) -> None:
@@ -112,9 +115,21 @@ def check_config(args: Any) -> None:
     unknown = sorted(set(vars(args)) - KNOWN_KEYS)
     if unknown:
         raise ValueError(f"config keys the train entry does not read: {unknown}")
+    parallel_mode = _parallel_mode(args)
+    if parallel_mode not in PARALLEL_MODES:
+        raise ValueError(f"unknown parallel_mode: {parallel_mode!r}")
     for key, (refused, why) in _REFUSED.items():
         if refused(getattr(args, key, None)):
             raise NotImplementedError(f"{key}={getattr(args, key)!r}: {why}")
+    url = str(getattr(args, "backbone_ckpt_url", "") or "")
+    if getattr(args, "backbone_pretrained", False) and url.startswith(("http://", "https://")):
+        raise NotImplementedError(
+            f"backbone_ckpt_url={url!r}: downloading a backbone is not ported ({_LEFTOVERS}: "
+            "URL download); pass a local path or file://")
+
+
+def _parallel_mode(args: Any) -> str:
+    return str(getattr(args, "parallel_mode", "data") or "data").lower()
 
 
 def _device(args: Any) -> torch.device:
@@ -126,10 +141,14 @@ def _device(args: Any) -> torch.device:
         device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and torch.cuda.device_count() > 1:
+        how = ("shards the parameters and optimizer state over all of them (parallel_mode "
+               "fsdp), and FSDP" if _parallel_mode(args) == "fsdp"
+               else "trains data-parallel over all of them, and DDP")
         raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices are visible: the JAX entry trains "
-            "data-parallel over all of them, and DDP is not ported (ROADMAP.md, Queue 1, DDP); "
-            "make one visible with CUDA_VISIBLE_DEVICES")
+            f"{torch.cuda.device_count()} CUDA devices are visible: the JAX entry {how} is not "
+            "ported (ROADMAP.md, Queue 1, DDP); make one visible with CUDA_VISIBLE_DEVICES")
+    # parallel_mode fsdp on one device: the JAX entry's mesh of one, where
+    # nothing is sharded and the step is the single-device one
     return device
 
 
@@ -139,7 +158,8 @@ def train(args: Any) -> Dict[str, Any]:
     The result: ``epochs``, one dict per epoch (``loss``, the epoch's mean
     summed loss; ``lr``; ``metrics``, the evaluation's, or {}; and the
     ``StepTimer`` summary), ``start_step`` and ``step``, the step counts at
-    the start and at the end.
+    the start and at the end, and ``pretrained_tensors``, the count of
+    tensors a pretrained backbone gave (0 without one).
     """
     check_config(args)
     device = _device(args)
@@ -206,6 +226,15 @@ def train(args: Any) -> Dict[str, Any]:
         in_channels=getattr(args, "in_channels", 3), num_joints=args.num_joints,
         backbone_args=getattr(args, "backbone_setting", None),
         head_args=getattr(args, "head_setting", None)).to(device)
+    # a local path or file:// (tools/train.py:270-280)
+    pretrained_path = getattr(args, "backbone_ckpt_url", "") or ""
+    pretrained_tensors = 0
+    if getattr(args, "backbone_pretrained", False):
+        if pretrained_path:
+            pretrained_tensors = load_pretrained_backbone(pretrained_path, net)
+        else:
+            logging.warning("backbone_pretrained=True but backbone_ckpt_url is empty — "
+                            "training from scratch")
     loss = create_loss(args.loss, **(getattr(args, "loss_setting", None) or {}))
     net_with_loss = create_network_with_loss(
         net, loss, has_extra_inputs=getattr(args, "loss_with_extra_input", False))
@@ -329,7 +358,8 @@ def train(args: Any) -> Dict[str, Any]:
         except Exception:
             logging.exception("failed to save crash checkpoint")
         raise
-    return {"epochs": epochs, "start_step": start_step, "step": step_fn.count}
+    return {"epochs": epochs, "start_step": start_step, "step": step_fn.count,
+            "pretrained_tensors": pretrained_tensors}
 
 
 def parse_train_args(argv=None) -> Any:

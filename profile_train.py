@@ -3,11 +3,14 @@
 
 Usage (from the root of a checkout, on the machine chip_smoke.py runs on):
 
-    python3 profile_train.py [--trace-dir DIR]
+    python3 profile_train.py [--recipe configs/vitpose/vitpose_b_tpu.yaml] [--trace-dir DIR]
 
 It builds chip_smoke.py's train step (hrnet_w32_tpu.yaml: full-width
 HRNet-W32 + hrnet_head, adamw with the warmup multi-step schedule, O2, batch
-128 of synthetic crops) and prints:
+128 of synthetic crops), or with ``--recipe`` a top-down recipe's own (its
+net at full width with random weights from a numpy seed, the ViT's as
+chip_smoke.py draws them; its optimizer, schedule, amp level, batch size,
+``grad_accum_steps`` and targets; synthetic crops), and prints:
 - over 20 steps without the profiler: the step time (host clock up to a
   device synchronisation) and the host's issue time (until the step's call
   returns, before that synchronisation), median, min and max;
@@ -32,13 +35,28 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
+from mindpose_tpu_torch.config import parse_args
+from mindpose_tpu_torch.data.device_pipeline import (
+    build_topdown_preprocess,
+    strip_host_target_transform,
+)
+from mindpose_tpu_torch.models import create_loss, create_network_from_config
+from mindpose_tpu_torch.models import create_network_with_loss
+from mindpose_tpu_torch.models.backbones.vit import ViT
+from mindpose_tpu_torch.optim import create_optimizer
+from mindpose_tpu_torch.parallel import build_train_step
+from mindpose_tpu_torch.scheduler import create_lr_scheduler
 
 STEPS = 20
 TRACED_STEPS = 3
 # kinds of device operation, by the first pattern found in the kernel's name
 KINDS = (
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
-    ("convolutions", ("conv", "xmma", "cutlass", "gemm", "sm90_", "dgrad", "wgrad", "fprop")),
+    ("softmax", ("softmax",)),
+    ("layer norm", ("layer_norm",)),
+    ("gelu", ("gelu", "GeluCUDA")),
+    ("convolutions and matmuls", ("conv", "xmma", "cutlass", "gemm", "sm90_", "dgrad", "wgrad",
+                                  "fprop", "nvjet")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel", "Reduce")),
     ("elementwise", ("elementwise", "CatArray", "index")),
@@ -121,18 +139,52 @@ def profiled(step, batch, trace_dir: str) -> None:
         prof.export_chrome_trace(os.path.join(trace_dir, "train_step.json"))
 
 
+def recipe_train_step(path: str, device: torch.device):
+    """A top-down recipe's train step on the device and its batch size."""
+    args = parse_args(["--config", path])
+    ds = args.dataset_setting
+    net = create_network_from_config(args)
+    if isinstance(net.backbone, ViT):
+        net.backbone.load_state_dict(
+            cs.random_vit_backbone(args.backbone_name, ds["image_size"]).state_dict())
+    net.to(device)
+    optimizer = create_optimizer(net, args.optimizer, learning_rate=args.lr,
+                                 weight_decay=args.weight_decay,
+                                 filter_bias_and_bn=args.filter_bias_and_bn,
+                                 **args.optimizer_setting)
+    schedule = create_lr_scheduler(args.scheduler, lr=args.lr, total_epochs=args.num_epochs,
+                                   steps_per_epoch=cs.STEPS_PER_EPOCH, warmup=args.warmup,
+                                   **args.lr_scheduler_setting)
+    _, target_kwargs = strip_host_target_transform(args.train_transforms)
+    preprocess = build_topdown_preprocess(ds["image_size"], ds["heatmap_size"],
+                                          args.normalize_mean, args.normalize_std,
+                                          **target_kwargs)
+    net_with_loss = create_network_with_loss(net, create_loss(args.loss, **args.loss_setting),
+                                             has_extra_inputs=args.loss_with_extra_input)
+    accum = int(getattr(args, "grad_accum_steps", 1) or 1)
+    print(f"{os.path.basename(path)}: {args.backbone_name} + {args.head_name}, "
+          f"{args.amp_level}, batch {args.batch_size} in {accum} microbatch(es), "
+          f"{args.optimizer} {args.optimizer_setting}")
+    return build_train_step(net_with_loss, optimizer, schedule, preprocess=preprocess,
+                            accum_steps=accum, amp_level=args.amp_level), args.batch_size
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--recipe", default="", help="a top-down recipe's step instead")
     parser.add_argument("--trace-dir", default="", help="write a Chrome trace here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     device = torch.device("cuda", 0)
     print(f"gpu: {cs.gpu_name_and_power()}; torch {torch.__version__}")
-    h = cs.HRNET_W32
-    net = cs.training_net(device)
-    step = cs.recipe_step(net, h["amp_level"], cs.recipe_schedule())
-    batch = cs.train_batch(np.random.RandomState(cs.SEED + 1), h["batch_size"], device)
+    if args.recipe:
+        step, batch_size = recipe_train_step(args.recipe, device)
+    else:
+        net = cs.training_net(device)
+        step = cs.recipe_step(net, cs.HRNET_W32["amp_level"], cs.recipe_schedule())
+        batch_size = cs.HRNET_W32["batch_size"]
+    batch = cs.train_batch(np.random.RandomState(cs.SEED + 1), batch_size, device)
     for _ in range(cs.TRAIN_WARMUP_STEPS):
         step(*batch)
     unprofiled(step, batch)

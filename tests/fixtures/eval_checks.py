@@ -131,7 +131,8 @@ def compare_callback_with_eval_entry(trained: dict, evaluated: dict, ckpt: dict)
     bit; and the eval entry saw the callback's last images, with as many
     persons in each. Returns the evaluations, the persons found, and the
     largest differences of the persons' keypoints (x, y, score, tags) and
-    of their scores, for the caller to hold."""
+    of their scores, for the caller to hold. A top-down record is one crop:
+    its person is its ``pred`` (x, y, score), and it has no ``score``."""
     modes = trained["modes"]
     if any(training == inference for training, inference in modes):
         raise AssertionError("a train forward ran in eval mode or an evaluation in train mode")
@@ -148,10 +149,11 @@ def compare_callback_with_eval_entry(trained: dict, evaluated: dict, ckpt: dict)
     if [r["image_path"] for r in got] != [r["image_path"] for r in want] or any(
             np.shape(g["pred"]) != np.shape(w["pred"]) for g, w in zip(got, want)):
         raise AssertionError("the eval entry found other images or persons than the callback")
-    persons = sum(len(r["pred"]) for r in want)
+    top_down = bool(want) and "box" in want[0]
+    persons = len(want) if top_down else sum(len(r["pred"]) for r in want)
     pred_err = max((float(np.abs(np.asarray(g["pred"]) - np.asarray(w["pred"])).max())
                     for g, w in zip(got, want) if len(w["pred"])), default=0.0)
     score_err = max((float(np.abs(np.asarray(g["score"]) - np.asarray(w["score"])).max())
-                     for g, w in zip(got, want) if len(w["score"])), default=0.0)
+                     for g, w in zip(got, want) if len(w.get("score", ()))), default=0.0)
     return {"evaluations": evaluations, "persons": persons, "pred_err": pred_err,
             "score_err": score_err}

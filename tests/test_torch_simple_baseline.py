@@ -285,10 +285,10 @@ def test_backbone_settings_and_refusals():
     with torch.device("meta"):
         assert create_backbone("resnet101", bn_grad_stats="fused").block_counts == (3, 4, 23, 3)
         assert create_backbone("resnet152").out_channels == 2048
-    with pytest.raises(NotImplementedError, match="the training entry's leftovers"):
-        create_backbone("resnet50", pretrained=True)
-    with pytest.raises(NotImplementedError, match="the training entry's leftovers"):
-        create_network("resnet50", "simple_baseline_head", backbone_pretrained=True)
+        # the train entry loads a pretrained backbone; building ignores the flag, as in JAX
+        assert create_backbone("resnet50", pretrained=True).block_counts == (3, 4, 6, 3)
+        assert isinstance(create_network("resnet50", "simple_baseline_head",
+                                         backbone_pretrained=True).backbone, ResNet)
     with pytest.raises(NotImplementedError, match="performance.md"):
         create_backbone("resnet50", bn_stats_frac=0.5)
     with pytest.raises(NotImplementedError, match="performance.md"):

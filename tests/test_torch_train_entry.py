@@ -352,18 +352,19 @@ def test_a_failing_step_leaves_a_crash_checkpoint(data, tmp_path, monkeypatch):
     assert crash["step"] == 2 and crash["optimizer"]["state"]
 
 
-@pytest.mark.parametrize("key, value, match", [
-    ("parallel_mode", "fsdp", "FSDP"),
-    ("device_pipeline", "full", "device input pipeline"),
-    ("distill_setting", {"teacher_backbone": "hrnet_w48"}, "distillation"),
-    ("profile", True, "leftovers"),
-    ("backbone_pretrained", True, "leftovers"),
-    ("distributed_init", True, "DDP"),
-    ("allow_divergent_knobs", True, "refuses"),
-    ("some_new_knob", 1, "does not read"),
-])
-def test_unsupported_keys_raise(data, tmp_path, key, value, match):
-    args = Config(**dict(vars(_args(str(tmp_path), data)), **{key: value}))
+@pytest.mark.parametrize("options, match", [
+    ({"parallel_mode": "pipeline"}, "unknown parallel_mode"),
+    ({"device_pipeline": "full"}, "device input pipeline"),
+    ({"distill_setting": {"teacher_backbone": "hrnet_w48"}}, "distillation"),
+    ({"profile": True}, "leftovers"),
+    ({"backbone_pretrained": True, "backbone_ckpt_url": "http://example.invalid/w.msgpack"},
+     "leftovers: URL download"),
+    ({"distributed_init": True}, "DDP"),
+    ({"allow_divergent_knobs": True}, "refuses"),
+    ({"some_new_knob": 1}, "does not read"),
+], ids=lambda v: "-".join(map(str, v)) if isinstance(v, dict) else None)
+def test_unsupported_keys_raise(data, tmp_path, options, match):
+    args = Config(**dict(vars(_args(str(tmp_path), data)), **options))
     with pytest.raises((NotImplementedError, ValueError), match=match):
         port_train.train(args)
 

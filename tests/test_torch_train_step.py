@@ -278,9 +278,13 @@ def test_optimizer_matches_optax_over_5_steps(variables, name, filter_bias_and_b
     assert moved > 1e-2
 
 
-@pytest.mark.parametrize("knob", [{"radial_projection": True}, {"layer_decay": 0.75}])
-def test_optimizer_refuses_unported_knobs(variables, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("knob, error, match", [
+    ({"radial_projection": True}, NotImplementedError, "ROADMAP"),
+    # layer decay is ported, and needs a block-indexed (ViT) tree, as in JAX
+    ({"layer_decay": 0.75}, ValueError, "block-indexed"),
+])
+def test_optimizer_refuses_unported_knobs(variables, knob, error, match):
+    with pytest.raises(error, match=match):
         create_optimizer(_port_net(variables), name="adamw", **knob)
 
 
