@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline and ViTPose, bottom-up HigherHRNet-W32 inference and training) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -153,12 +153,41 @@ no result, when there is no CUDA device or when any phase fails:
     synthetic frames, evaluating after the last: img/s, the step median,
     peak memory, finite losses, one decode launch per val batch; each last
     checkpoint through the eval entry (the callback's stats) and the
-    serving entry (a 40-box request, 2 decode launches).
+    serving entry (a 40-box request, 2 decode launches);
+22. configs/simcc/resnet50_simcc_tpu.yaml as parsed (ResNet-50 +
+    ``simcc_head`` at full width, 256x192, O2, batch 128, adamw, host
+    targets) through the train entry on phase 12's data, 3 epochs of 10
+    steps, evaluating after the last with hflip TTA: img/s with the loader,
+    the step median, the wait on the loader, peak memory, finite falling
+    losses, AP, no decode launch (SimCC decodes with plain PyTorch); the
+    last checkpoint through the eval entry (the callback's stats and
+    keypoints); one batch of device targets against the host transform's
+    (weights bit for bit, labels within 2e-6 of each), then 2 epochs with
+    ``device_pipeline: true``; the serving entry over HTTP at 1, 5 and 40
+    boxes, the 5-box request on the card against the CPU (head outputs
+    within phase 5's tolerance; joints whose top two logits lead by more
+    than twice it within 1e-3 px; scores within the bound the logits'
+    carries through the softmax);
+23. the same for configs/rle/resnet50_rle_tpu.yaml (``rle_head``, laplace
+    NLL; the device targets bit for bit; served joints within 1e-3 px plus
+    twice the mu bound times the crop's size, scores within sigma's bound);
+24. the decode kernel at MPII's heatmaps [32|128,16,64,64], shift on, both
+    wrappers bitwise against their plain versions (random heatmaps and exact
+    ties, the back-projection on), then timed warm and cold in L2 beside
+    the whole decoder, the plain version, ``torch.max(x.view(N*K, H*W),
+    dim=1)`` and the bound; configs/mpii/hrnet_w32_mpii_tpu.yaml as parsed
+    (HRNet-W32 at 256x256, 16 joints, O2, batch 128, ``topdown_keypoint``)
+    through the train entry on synthetic MPII frames (tests/fixtures/mpii.py,
+    converted by tools/convert_mpii.py), 3 epochs of 10 steps, evaluating
+    after the last (PCKh and EPE, one decode launch per eval batch); the last
+    checkpoint through the eval entry (the callback's PCKh and EPE, one launch
+    per batch) and a 40-box request through the serving entry (16 joints, one
+    launch per 32-crop chunk).
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 21.
+started is still there after phase 24.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -167,6 +196,7 @@ import base64
 import contextlib
 import copy
 import ctypes
+import gc
 import itertools
 import json
 import os
@@ -248,7 +278,7 @@ from mindpose_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from mindpose_tpu_torch.config import parse_args
-from tests.fixtures import tiny_coco
+from tests.fixtures import mpii, tiny_coco
 from tests.fixtures.eval_checks import (
     BOTTOMUP_CKPT,
     BOTTOMUP_RECORD,
@@ -493,6 +523,28 @@ VIT_SMALL_IMAGES = 64  # phase 21: 128 records, per epoch 1 step of ViT-S, 2 of 
 VIT_SMALL_VAL_IMAGES = 16
 VIT_SMALL_EPOCHS = 2
 VIT_SMALL_WARMUP = 2
+# Phases 22-24: the SimCC, RLE and MPII recipes, as parsed. Phases 22 and 23
+# train resnet50_simcc_tpu.yaml and resnet50_rle_tpu.yaml on phase 12's data,
+# FAMILY_EPOCHS epochs of 10 steps, evaluating after the last (hflip TTA on,
+# as the yamls set it), then FAMILY_DEVICE_EPOCHS with ``device_pipeline:
+# true`` and no evaluation; phase 24 trains hrnet_w32_mpii_tpu.yaml on
+# synthetic MPII frames (tests/fixtures/mpii.py; 1,280 records, 10 steps of
+# 128 per epoch; 192 val crops, 2 eval batches)
+SIMCC_YAML = os.path.join(CONFIGS, "simcc", "resnet50_simcc_tpu.yaml")
+RLE_YAML = os.path.join(CONFIGS, "rle", "resnet50_rle_tpu.yaml")
+MPII_YAML = os.path.join(CONFIGS, "mpii", "hrnet_w32_mpii_tpu.yaml")
+FAMILY_EPOCHS = 3
+FAMILY_DEVICE_EPOCHS = 2
+# the SimCC device labels against the host transform's on the same warped
+# keypoints: float32 exp on the card against numpy's and each row's sum in
+# another order, a few ulps of each label (the regression targets divide
+# alike on both: bit for bit)
+SIMCC_TARGET_RTOL = 2e-6
+MPII_TRAIN_IMAGES = 640
+MPII_VAL_IMAGES = 96
+MPII_PEOPLE = 2
+MPII_EPOCHS = 3
+MPII_HEATMAP = (16, 64, 64)  # K, H, W of the yaml's 64x64x16 heatmaps
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
 
@@ -986,15 +1038,23 @@ def make_requests(rng: np.random.RandomState):
     return image, [boxes(1), boxes(5), boxes(40)]
 
 
-def check_preds(preds: np.ndarray, boxes: np.ndarray) -> None:
-    """[M, 17, 3], finite, and each keypoint inside its box's padded crop
-    window, up to the back-projection's float32 rounding."""
+def check_preds(preds: np.ndarray, boxes: np.ndarray, num_joints: int = 17,
+                dataset_setting: dict = HRNET_W32["dataset_setting"],
+                in_window: bool = True) -> None:
+    """[M, K, 3], finite, and (``in_window``) each keypoint inside its box's
+    padded crop window, up to the back-projection's float32 rounding. A
+    regression head's coordinates are not bounded by the crop: for it, the
+    scores lie in [0, 1]."""
     m = len(boxes)
-    if preds.shape != (m, 17, 3):
-        raise AssertionError(f"preds shape {preds.shape}, want {(m, 17, 3)}")
+    if preds.shape != (m, num_joints, 3):
+        raise AssertionError(f"preds shape {preds.shape}, want {(m, num_joints, 3)}")
     if not np.isfinite(preds).all():
         raise AssertionError("non-finite keypoints")
-    ds = HRNET_W32["dataset_setting"]
+    if not in_window:
+        if not ((preds[..., 2] >= 0).all() and (preds[..., 2] <= 1).all()):
+            raise AssertionError("regression scores outside [0, 1]")
+        return
+    ds = dataset_setting
     cs = [box_to_center_scale(b, ds["image_size"], ds["pixel_std"], ds["scale_padding"])
           for b in boxes]
     centers = np.stack([c for c, _ in cs])
@@ -1727,7 +1787,9 @@ def entry_epochs(label: str, epochs: list) -> float:
     """Print each epoch of a run of the train entry; returns the img/s of
     epochs 2 on (the first includes cuDNN's autotuning)."""
     for e in epochs:
-        ap = f", AP {float(e['metrics']['AP']):.6f}" if e["metrics"] else ""
+        # COCO's AP, or every metric of another evaluator (MPII's PCKh and EPE)
+        shown = {k: v for k, v in e["metrics"].items() if k == "AP"} or e["metrics"]
+        ap = "".join(f", {k} {float(v):.6f}" for k, v in shown.items())
         print(f"{label} epoch {e['epoch']}: loss {e['loss']:.6g}, lr {e['lr']:.6g}; "
               f"{e['images_per_sec']:.1f} img/s with the loader feeding the step; step median "
               f"{e['step_median_s'] * 1e3:.1f} ms; wait on next(batches) median "
@@ -1737,6 +1799,88 @@ def entry_epochs(label: str, epochs: list) -> float:
     return sum(e["images"] for e in warm) / sum(e["images"] / e["images_per_sec"] for e in warm)
 
 
+def recipe_args(recipe: str, data: dict, ckpt_dir: str, device: torch.device,
+                *options: str) -> Config:
+    """A recipe as the train entry parses it, with the data paths and
+    ``ckpt_save_dir`` of this run and ``options``."""
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    return train_entry.parse_train_args(
+        ["--config", recipe, "--device", str(device), "--cfg-options",
+         f"train_root={train_root}", f"train_label={train_label}", f"val_root={val_root}",
+         f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}", *options])
+
+
+def train_recipe(args: Config, label: str) -> dict:
+    """Phases 22-24: ``args`` through the train entry on the card, recording
+    what its callback evaluated (``recording_entry``). Prints each epoch (img/s
+    with the loader feeding the step, the step median, the wait on the
+    loader), then epochs 2 on, the peak memory and the losses; holds finite
+    losses, the last epoch's below the first's. Returns the run's numbers,
+    the decode kernel's launches in it and the record. An earlier phase's net
+    and optimizer may still be allocated, held in reference cycles: they are
+    collected first, so that the peak is this run's own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    argmax_shift_decode.launches = 0
+    with recording_entry(train_entry) as seen:
+        result = train_entry.train(args)
+    launches = argmax_shift_decode.launches
+    train_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    epochs = result["epochs"]
+    rate = entry_epochs(label, epochs)
+    warm = epochs[1:]
+    wait = sum(e["wait_total_s"] for e in warm) / sum(e["steps"] for e in warm)
+    step_median_ms = statistics.median(e["step_median_s"] for e in warm) * 1e3
+    losses = [e["loss"] for e in epochs]
+    print(f"{label} ({args.backbone_name} + {args.head_name}, {args.amp_level}, batch "
+          f"{args.batch_size}, device_pipeline {bool(getattr(args, 'device_pipeline', False))}): "
+          f"epochs 2-{len(epochs)} {rate:.1f} img/s with the loader feeding the step, median of "
+          f"the epochs' step medians {step_median_ms:.1f} ms, wait on the loader "
+          f"{wait * 1e3:.1f} ms per step; {result['step']} steps in {train_s:.1f} s with the "
+          f"evaluation; peak torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); "
+          f"losses {losses}; decode kernel launches {launches}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}'s losses are not finite or did not fall: {losses}")
+    evals = [e for e in epochs if e["metrics"]]
+    return {"result": result, "seen": seen, "launches": launches, "images_per_sec": rate,
+            "wait_per_step_ms": wait * 1e3, "step_median_ms": step_median_ms,
+            "peak_bytes": peak, "losses": losses, "evaluations": len(evals),
+            "stats": {k: float(v) for k, v in evals[-1]["metrics"].items()} if evals else {}}
+
+
+def eval_recipe_checkpoint(root: str, args: Config, trained: dict, ckpt: str,
+                           device: torch.device, label: str) -> dict:
+    """Phases 22-24: the run's last checkpoint through the eval entry: the
+    callback's stats within ``ENTRY_STATS_ATOL``, its last keypoints within
+    ``BU_ENTRY_PERSON_ATOL``, the checkpoint the trained net bit for bit, each
+    evaluation in eval mode. Returns the stats and the decode kernel's
+    launches."""
+    argmax_shift_decode.launches = 0
+    with recording_entry(eval_entry) as evaluated:
+        got = evaluate(Config(**dict(vars(args), ckpt=ckpt,
+                                     result_path=os.path.join(root, f"{label}_entry.json"))),
+                       device=device)
+    launches = argmax_shift_decode.launches
+    same = compare_callback_with_eval_entry(trained["seen"], evaluated, load_checkpoint(ckpt))
+    worst = max(abs(float(got[k]) - trained["stats"][k]) for k in trained["stats"])
+    print(f"{label}'s last checkpoint through the eval entry: "
+          f"{json.dumps({k: float(v) for k, v in got.items()})}; max |diff| against the "
+          f"callback's {worst:.2e} (tolerance {ENTRY_STATS_ATOL}); the checkpoint holds the "
+          f"trained net bit for bit; {same['evaluations']} evaluation(s), each after a "
+          f"train-mode step, in eval mode; {same['persons']} crops, keypoints within "
+          f"{same['pred_err']:.3e} of the callback's (tolerance {BU_ENTRY_PERSON_ATOL}); decode "
+          f"kernel launches {launches}")
+    if worst > ENTRY_STATS_ATOL:
+        raise AssertionError(f"{label}: the last checkpoint's stats differ from the callback's")
+    if not same["persons"] or same["pred_err"] > BU_ENTRY_PERSON_ATOL:
+        raise AssertionError(f"{label}: the last checkpoint's keypoints differ from the "
+                             "callback's")
+    return {"stats": {k: float(v) for k, v in got.items()}, "launches": launches}
+
+
 def train_simple_baseline(root: str, data: dict, device: torch.device, recipe: str) -> dict:
     """Phase 13: a SimpleBaseline recipe (``UDP_YAML`` or ``SB_YAML``) through the train entry.
 
@@ -1744,54 +1888,29 @@ def train_simple_baseline(root: str, data: dict, device: torch.device, recipe: s
     host targets (UDP ones for ``UDP_YAML``), on phase 12's synthetic COCO;
     overridden as phase 12 overrides: the data paths, ``num_epochs``,
     ``warmup``, ``val_interval`` (one evaluation, after the last epoch) and
-    ``ckpt_save_dir``. It holds: finite losses, the last epoch's below the
-    first's, AP above 0, one decode launch per val batch, the last
-    checkpoint written. Returns the run's numbers and the parsed config.
+    ``ckpt_save_dir``. It holds (``train_recipe``): finite losses, the last
+    epoch's below the first's; and AP above 0, one decode launch per val
+    batch, the last checkpoint written. Returns the run's numbers and the
+    parsed config.
     """
     name = os.path.splitext(os.path.basename(recipe))[0]
-    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
     ckpt_dir = os.path.join(root, name)
-    args = train_entry.parse_train_args(
-        ["--config", recipe, "--device", str(device), "--cfg-options",
-         f"train_root={train_root}", f"train_label={train_label}", f"val_root={val_root}",
-         f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}", f"num_epochs={SB_EPOCHS}",
-         f"warmup={ENTRY_WARMUP}", f"val_interval={SB_EPOCHS}"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = time.perf_counter()
-    argmax_shift_decode.launches = 0
-    result = train_entry.train(args)
-    launches = argmax_shift_decode.launches
-    train_s = time.perf_counter() - start
-    peak = torch.cuda.max_memory_allocated()
-    epochs = result["epochs"]
-    rate = entry_epochs(name, epochs)
-    steps = sum(e["steps"] for e in epochs)
-    step_median_ms = statistics.median(e["step_median_s"] for e in epochs[1:]) * 1e3
-    print(f"{name} ({args.amp_level}, batch {args.batch_size}): "
-          f"epochs 2-{len(epochs)} {rate:.1f} img/s with the loader feeding the step, median of "
-          f"the epochs' step medians {step_median_ms:.1f} ms; {steps} steps and the evaluation "
-          f"in {train_s:.1f} s; peak torch.cuda.max_memory_allocated {peak} B "
-          f"({peak / 2**30:.2f} GiB)")
-    evals = [e for e in epochs if e["metrics"]]
+    args = recipe_args(recipe, data, ckpt_dir, device, f"num_epochs={SB_EPOCHS}",
+                       f"warmup={ENTRY_WARMUP}", f"val_interval={SB_EPOCHS}")
+    run = train_recipe(args, name)
+    del run["seen"]
     val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
-    losses = [e["loss"] for e in epochs]
-    stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
-    print(f"{name}: {len(evals)} evaluation(s) of {val_batches} batch(es), decode kernel "
-          f"launches {launches}; stats {json.dumps(stats)}")
-    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-        raise AssertionError(f"{name}'s losses are not finite or did not fall: {losses}")
-    if not stats["AP"] > 0:
+    print(f"{name}: {run['evaluations']} evaluation(s) of {val_batches} batch(es), decode "
+          f"kernel launches {run['launches']}; stats {json.dumps(run['stats'])}")
+    if not run["evaluations"] or not run["stats"]["AP"] > 0:
         raise AssertionError(f"{name}'s evaluation gave AP 0")
-    if launches != len(evals) * val_batches:
-        raise AssertionError(f"{len(evals)} evaluations of {val_batches} batches made "
-                             f"{launches} decode launches")
+    if run["launches"] != run["evaluations"] * val_batches:
+        raise AssertionError(f"{run['evaluations']} evaluations of {val_batches} batches made "
+                             f"{run['launches']} decode launches")
     last_path = os.path.join(ckpt_dir, f"{name}_last.ckpt")
     if not os.path.isfile(last_path):
         raise AssertionError(f"the callback did not write {last_path}")
-    return {"launches": launches, "name": name, "args": args, "ckpt": last_path, "stats": stats,
-            "images_per_sec": rate, "step_median_ms": step_median_ms, "peak_bytes": peak,
-            "steps": steps}
+    return dict(run, name=name, args=args, ckpt=last_path)
 
 
 def eval_checkpoint(root: str, trained: dict, device: torch.device, dark: bool) -> dict:
@@ -2863,17 +2982,6 @@ def random_vit_backbone(arch: str, image_size) -> nn.Module:
     return backbone
 
 
-def vitpose_args(recipe: str, data: dict, ckpt_dir: str, device: torch.device,
-                 *options: str) -> Config:
-    """A ViTPose recipe as the train entry parses it, with the data paths and
-    ``ckpt_save_dir`` of this run and ``options``."""
-    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
-    return train_entry.parse_train_args(
-        ["--config", recipe, "--device", str(device), "--cfg-options",
-         f"train_root={train_root}", f"train_label={train_label}", f"val_root={val_root}",
-         f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}", *options])
-
-
 def vitpose_training(root: str, data: dict, device: torch.device) -> dict:
     """Phase 20: vitpose_b_tpu.yaml through the train, eval and serving entries.
 
@@ -2899,67 +3007,30 @@ def vitpose_training(root: str, data: dict, device: torch.device) -> dict:
     want_tensors = 5 + VIT_LEAVES_PER_BLOCK * backbone.depth  # patch 2, grid 1, norm 2
     del backbone
     ckpt_dir = os.path.join(root, "vitpose_b")
-    args = vitpose_args(VITPOSE_YAML["b"], data, ckpt_dir, device, f"num_epochs={VIT_EPOCHS}",
-                        f"warmup={ENTRY_WARMUP}", f"val_interval={VIT_EPOCHS}",
-                        "backbone_pretrained=True", f"backbone_ckpt_url={backbone_path}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = time.perf_counter()
-    argmax_shift_decode.launches = 0
-    with recording_entry(train_entry) as seen:
-        result = train_entry.train(args)
-    launches = argmax_shift_decode.launches
-    train_s = time.perf_counter() - start
-    peak = torch.cuda.max_memory_allocated()
-    epochs = result["epochs"]
+    args = recipe_args(VITPOSE_YAML["b"], data, ckpt_dir, device, f"num_epochs={VIT_EPOCHS}",
+                       f"warmup={ENTRY_WARMUP}", f"val_interval={VIT_EPOCHS}",
+                       "backbone_pretrained=True", f"backbone_ckpt_url={backbone_path}")
+    run = train_recipe(args, "vitpose_b_tpu")
+    result, seen = run["result"], run["seen"]
     print(f"vitpose_b_tpu: {result['pretrained_tensors']} backbone tensors loaded from a "
           f"ViT-B saved at {VIT_PRETRAINED_SIZE[1]}x{VIT_PRETRAINED_SIZE[0]} (its 14x14 position "
           f"grid resized onto {seen['net'].backbone.grid[0]}x{seen['net'].backbone.grid[1]}), "
           f"of {want_tensors}")
     if result["pretrained_tensors"] != want_tensors:
         raise AssertionError("the pretrained backbone did not load every tensor")
-    rate = entry_epochs("vitpose_b_tpu", epochs)
-    steps = sum(e["steps"] for e in epochs)
-    step_median_ms = statistics.median(e["step_median_s"] for e in epochs[1:]) * 1e3
-    evals = [e for e in epochs if e["metrics"]]
     val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
-    losses = [e["loss"] for e in epochs]
-    stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
-    print(f"vitpose_b_tpu ({args.amp_level}, batch {args.batch_size}): epochs 2-{len(epochs)} "
-          f"{rate:.1f} img/s with the loader feeding the step, median of the epochs' step "
-          f"medians {step_median_ms:.1f} ms; {steps} steps and the evaluation in {train_s:.1f} "
-          f"s; peak torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); losses "
-          f"{losses}; {len(evals)} evaluation(s) of {val_batches} batch(es), decode kernel "
-          f"launches {launches}; stats {json.dumps(stats)}")
-    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-        raise AssertionError(f"vitpose_b_tpu's losses are not finite or did not fall: {losses}")
-    if launches != len(evals) * val_batches:
-        raise AssertionError(f"{len(evals)} evaluations of {val_batches} batches made "
-                             f"{launches} decode launches")
+    print(f"vitpose_b_tpu: {run['evaluations']} evaluation(s) of {val_batches} batch(es), "
+          f"decode kernel launches {run['launches']}; stats {json.dumps(run['stats'])}")
+    if run["launches"] != run["evaluations"] * val_batches or not run["evaluations"]:
+        raise AssertionError(f"{run['evaluations']} evaluations of {val_batches} batches made "
+                             f"{run['launches']} decode launches")
 
     last_path = os.path.join(ckpt_dir, "vitpose_b_tpu_last.ckpt")
-    argmax_shift_decode.launches = 0
-    with recording_entry(eval_entry) as evaluated:
-        got = evaluate(Config(**dict(vars(args), ckpt=last_path,
-                                     result_path=os.path.join(root, "vitpose_b_entry.json"))),
-                       device=device)
-    eval_launches = argmax_shift_decode.launches
-    same = compare_callback_with_eval_entry(seen, evaluated, load_checkpoint(last_path))
-    worst = max(abs(float(got[k]) - stats[k]) for k in stats)
-    print(f"vitpose_b_tpu's last checkpoint through the eval entry: "
-          f"{json.dumps({k: float(v) for k, v in got.items()})}; max |diff| against the "
-          f"callback's {worst:.2e} (tolerance {ENTRY_STATS_ATOL}); the checkpoint holds the "
-          f"trained net bit for bit; {same['evaluations']} evaluation(s), each after a "
-          f"train-mode step, in eval mode; {same['persons']} crops, keypoints within "
-          f"{same['pred_err']:.3e} of the callback's (tolerance {BU_ENTRY_PERSON_ATOL}); decode "
-          f"kernel launches {eval_launches}")
-    if worst > ENTRY_STATS_ATOL:
-        raise AssertionError("the last checkpoint's stats differ from the callback's")
-    if not same["persons"] or same["pred_err"] > BU_ENTRY_PERSON_ATOL:
-        raise AssertionError("the last checkpoint's keypoints differ from the callback's")
-    if eval_launches != val_batches:
-        raise AssertionError(f"{val_batches} eval batches made {eval_launches} decode launches")
-    del seen, evaluated
+    evaluated = eval_recipe_checkpoint(root, args, run, last_path, device, "vitpose_b_tpu")
+    if evaluated["launches"] != val_batches:
+        raise AssertionError(f"{val_batches} eval batches made {evaluated['launches']} decode "
+                             "launches")
+    del run["seen"], seen
     torch.cuda.empty_cache()
 
     threads_before = set(threading.enumerate())
@@ -2971,10 +3042,10 @@ def vitpose_training(root: str, data: dict, device: torch.device) -> dict:
     left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
     if left:
         raise AssertionError(f"the ViTPose serving phase left threads running: {left}")
-    return {"launches": launches, "eval_launches": eval_launches,
+    return {"launches": run["launches"], "eval_launches": evaluated["launches"],
             "serve_launches": served["launches"], "latency_ms": served["latency_ms"],
-            "images_per_sec": rate, "step_median_ms": step_median_ms, "peak_bytes": peak,
-            "stats": stats}
+            "images_per_sec": run["images_per_sec"], "step_median_ms": run["step_median_ms"],
+            "peak_bytes": run["peak_bytes"], "stats": run["stats"]}
 
 
 def vitpose_recipes(root: str, device: torch.device) -> dict:
@@ -2997,9 +3068,9 @@ def vitpose_recipes(root: str, device: torch.device) -> dict:
     for arch in ("s", "l", "h"):
         name = f"vitpose_{arch}_tpu"
         ckpt_dir = os.path.join(root, name)
-        args = vitpose_args(VITPOSE_YAML[arch], data, ckpt_dir, device,
-                            f"num_epochs={VIT_SMALL_EPOCHS}", f"warmup={VIT_SMALL_WARMUP}",
-                            f"val_interval={VIT_SMALL_EPOCHS}")
+        args = recipe_args(VITPOSE_YAML[arch], data, ckpt_dir, device,
+                           f"num_epochs={VIT_SMALL_EPOCHS}", f"warmup={VIT_SMALL_WARMUP}",
+                           f"val_interval={VIT_SMALL_EPOCHS}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
@@ -3067,6 +3138,319 @@ def vitpose_recipes(root: str, device: torch.device) -> dict:
         del service
         torch.cuda.empty_cache()
     return out
+
+
+def check_topdown_device_targets(args: Config, device: torch.device) -> dict:
+    """Phases 22-23: one batch of the ``device_pipeline: true`` loader (the
+    host stops at the affine crop), its targets rendered on the card by
+    ``build_topdown_preprocess`` against the recipe's host target transform
+    on the same warped keypoints: the weights bit for bit; SimCC's labels
+    within ``SIMCC_TARGET_RTOL`` of each label, the regression targets bit for
+    bit. Also times both per batch."""
+    transforms, target_kwargs = strip_host_target_transform(args.train_transforms)
+    np.random.seed(SEED)
+    dataset = create_dataset(args.train_root, args.train_label,
+                             dataset_format=args.dataset_format, is_train=True,
+                             config=args.dataset_setting)
+    loader = create_pipeline(dataset, transforms, method="topdown", batch_size=args.batch_size,
+                             is_train=True, normalize=False, config=args.dataset_setting,
+                             num_workers=args.num_parallel_workers, seed=SEED,
+                             final_columns=["image", "keypoints"])
+    batch = next(iter(loader))
+    preprocess = build_topdown_preprocess(
+        args.dataset_setting["image_size"], args.dataset_setting["heatmap_size"],
+        args.normalize_mean, args.normalize_std, **target_kwargs)
+    inputs = [torch.from_numpy(batch[c]).to(device) for c in ("image", "keypoints")]
+    _, target, weight = (t.cpu() for t in preprocess(*inputs))
+    device_ms = time_ms(lambda: preprocess(*inputs), queued=False, iters=5, repeats=3)
+    name = kwargs = None
+    for t in args.train_transforms:  # the host target transform the loader left out
+        if (t if isinstance(t, str) else next(iter(t))).endswith("_target"):
+            name, kwargs = (t, {}) if isinstance(t, str) else next(iter(t.items()))
+    host = entrypoint("transform", name)(is_train=True, config=args.dataset_setting,
+                                         **(kwargs or {}))
+    start = time.perf_counter()
+    want = [host.transform({"keypoints": k}) for k in batch["keypoints"]]
+    host_ms = (time.perf_counter() - start) * 1e3
+    want_t = np.stack([w["target"] for w in want])
+    want_w = np.stack([w["target_weight"] for w in want])
+    err = float(np.abs(target.numpy() - want_t).max())
+    rel = float((np.abs(target.numpy() - want_t) / np.maximum(np.abs(want_t), 1e-30)).max())
+    weights_equal = np.array_equal(weight.numpy(), want_w)
+    exact = np.array_equal(target.numpy(), want_t)
+    print(f"{name} on the card [{', '.join(map(str, target.shape))}] against the host "
+          f"transform on the same warped keypoints: max |diff| {err:.3e}, max relative "
+          f"{rel:.3e}, bit for bit {exact}; weights equal {weights_equal} ({int(want_w.sum())} of "
+          f"{want_w.size} joints weighted); the device preprocess {device_ms:.3f} ms per batch of "
+          f"{len(want)} (CUDA events, calls back to back), the host targets {host_ms:.1f} ms on "
+          f"one thread")
+    simcc = target_kwargs.get("target_type") == "simcc"
+    if not weights_equal or not want_w.sum() or (rel > SIMCC_TARGET_RTOL if simcc else not exact):
+        raise AssertionError(f"{name}: the device targets differ from the host transform's")
+    return {"max_abs_err": err, "device_ms": device_ms, "host_ms": host_ms}
+
+
+def compare_family_with_cpu(predictor: TopDownPredictor, cpu_predictor: TopDownPredictor, image,
+                            boxes, answers, regression: bool) -> dict:
+    """Phases 22-23: the 5-box request on the card against the CPU, at the
+    precision the predictor serves in (TF32 off). The head's outputs within
+    ``HEATMAP_RTOL`` of their largest value. SimCC: every joint whose top two
+    logits on both axes lead by more than twice that decodes to the same
+    bins, so within ``EVAL_XY_ATOL`` px; each score (the softmax peak) within
+    4 times the logits' bound of the largest. Regression: each joint within
+    ``EVAL_XY_ATOL`` px plus twice ``mu``'s bound times its crop's size in
+    pixels (``mu`` is in crop units); each score (1 - mean sigma) within
+    sigma's bound."""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if any(tf32):
+        raise AssertionError("the predictor did not serve in full float32")
+    with torch.inference_mode():
+        x_gpu, _, _ = predictor.preprocess(image, boxes)
+        x_cpu, _, _ = cpu_predictor.preprocess(image, boxes)
+        out_gpu = [t.cpu() for t in predictor.net(x_gpu)]
+        out_cpu = list(cpu_predictor.net(x_cpu))
+    tols = [HEATMAP_RTOL * float(c.abs().max()) for c in out_cpu]
+    errs = [float((g - c).abs().max()) for g, c in zip(out_gpu, out_cpu)]
+    names = ("mu", "sigma") if regression else ("x logits", "y logits")
+    print("card-vs-CPU head outputs: " + "; ".join(
+        f"{n} max |diff| {e:.3e}, tolerance {t:.3e}" for n, e, t in zip(names, errs, tols)))
+    if any(e > t for e, t in zip(errs, tols)):
+        raise AssertionError("GPU and CPU head outputs disagree beyond the tolerance")
+    preds_gpu, preds_cpu = answers
+    xy_err = np.abs(preds_gpu[..., :2] - preds_cpu[..., :2]).max(-1)
+    score_err = float(np.abs(preds_gpu[..., 2] - preds_cpu[..., 2]).max())
+    if regression:
+        sides = np.array([cpu_predictor.pixel_std * max(
+            box_to_center_scale(b, cpu_predictor.image_size, cpu_predictor.pixel_std,
+                                cpu_predictor.scale_padding)[1]) for b in boxes])
+        bound = EVAL_XY_ATOL + 2 * tols[0] * sides[:, None]
+        qualified = np.ones_like(xy_err, bool)
+        score_tol = tols[1]
+    else:
+        gap = None
+        for c in out_cpu:
+            top2 = torch.topk(c, 2, dim=-1).values
+            g = ((top2[..., 0] - top2[..., 1]) > 2 * max(tols)).numpy()
+            gap = g if gap is None else gap & g
+        qualified = gap
+        bound = np.full_like(xy_err, EVAL_XY_ATOL)
+        score_tol = 4 * max(tols) * float(np.abs(preds_cpu[..., 2]).max())
+    same = xy_err <= bound
+    print(f"card-vs-CPU keypoints: {int(qualified.sum())} of {qualified.size} joints qualified; "
+          f"{int(same[qualified].sum())} of them within their bound (max |diff| "
+          f"{float(xy_err[qualified].max()):.3e} px, smallest bound {float(bound.min()):.3e}); "
+          f"scores max |diff| {score_err:.3e} (tolerance {score_tol:.3e})")
+    if not qualified.any() or not same[qualified].all():
+        raise AssertionError("keypoints differ beyond their bound")
+    if score_err > score_tol:
+        raise AssertionError(f"scores differ by {score_err}")
+    return {"xy_err": float(xy_err[qualified].max()), "score_err": score_err}
+
+
+def serve_family(recipe: str, ckpt: str, device: torch.device, regression: bool) -> dict:
+    """Phases 22-23: ``recipe`` with ``ckpt`` through the serving entry over
+    HTTP on 127.0.0.1: ``GET /healthz``, then 1, 5 and 40 boxes (no decode
+    launch: the family decodes with plain PyTorch), each timed over
+    ``REPEATS`` runs; the 5-box answer against the same service on the CPU
+    (``compare_family_with_cpu``). No thread of the phase is left."""
+    threads_before = set(threading.enumerate())
+    image, requests, payloads, _ = request_payloads(SEED + 22)
+    name = os.path.basename(recipe)
+    args = serve_entry.parse_serve_args(["--config", recipe, "--ckpt", ckpt,
+                                         "--batch-size", str(BATCH_SIZE)])
+    service = serve_entry.build_service(args, batch_size=args.batch_size, device=device)
+    http = HttpService(service)
+    try:
+        with urllib.request.urlopen(http.url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        if health != {"status": "ok", "mode": "topdown", "num_joints": 17}:
+            raise AssertionError(f"unexpected /healthz answer {health}")
+        post(http.url + "/predict", payloads[-1])  # warm-up
+        torch.cuda.synchronize()
+        argmax_shift_decode.launches = 0
+        answers = []
+        for payload, boxes in zip(payloads, requests):
+            preds = np.asarray(post(http.url + "/predict", payload)["predictions"], np.float32)
+            check_preds(preds, boxes, in_window=not regression)
+            answers.append(preds)
+        launches = argmax_shift_decode.launches
+        print(f"serving entry, {name}: GET /healthz {health}; decode kernel launches {launches} "
+              f"for requests of {[len(b) for b in requests]} boxes")
+        if launches:
+            raise AssertionError(f"{name} served through the heatmap decode kernel")
+        medians = time_requests(http.url, payloads, requests)
+    finally:
+        http.close()
+    cpu_service = serve_entry.build_service(args, batch_size=args.batch_size,
+                                            device=torch.device("cpu"))
+    cpu_answer = np.asarray(cpu_service.predict(payloads[1])["predictions"], np.float32)
+    cpu_service.close()
+    compared = compare_family_with_cpu(service.predictor, cpu_service.predictor, image,
+                                       requests[1], (answers[1], cpu_answer), regression)
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"the serving phase left threads running: {left}")
+    return {"latency_ms": medians, **compared}
+
+
+def family_training(root: str, data: dict, device: torch.device, recipe: str) -> dict:
+    """Phase 22 (``SIMCC_YAML``) or 23 (``RLE_YAML``): the recipe as parsed
+    (ResNet-50 at 256x192, O2, batch 128, adamw, host targets) through the
+    train entry on phase 12's data, evaluating after the last epoch (hflip
+    TTA on); the last checkpoint through the eval entry; one batch of device
+    targets against the host's, then a run with ``device_pipeline: true``;
+    the serving entry. No decode launch anywhere: SimCC and RLE decode with
+    plain PyTorch, as the JAX package decodes them with plain XLA."""
+    name = os.path.splitext(os.path.basename(recipe))[0]
+    regression = recipe == RLE_YAML
+    ckpt_dir = os.path.join(root, name)
+    args = recipe_args(recipe, data, ckpt_dir, device, f"num_epochs={FAMILY_EPOCHS}",
+                       f"warmup={ENTRY_WARMUP}", f"val_interval={FAMILY_EPOCHS}")
+    host = train_recipe(args, name)
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    print(f"{name}: {host['evaluations']} evaluation(s) of {val_batches} batch(es), hflip TTA "
+          f"{args.eval_setting['hflip_tta']}; stats {json.dumps(host['stats'])}")
+    if host["launches"] or host["evaluations"] != 1 or not host["stats"]["AP"] >= 0:
+        raise AssertionError(f"{name}: {host['evaluations']} evaluations, "
+                             f"{host['launches']} decode launches")
+    last = os.path.join(ckpt_dir, f"{name}_last.ckpt")
+    evaluated = eval_recipe_checkpoint(root, args, host, last, device, name)
+    del host["seen"]
+    torch.cuda.empty_cache()
+
+    device_args = recipe_args(recipe, data, os.path.join(root, f"{name}_device"), device,
+                              f"num_epochs={FAMILY_DEVICE_EPOCHS}", f"warmup={ENTRY_WARMUP}",
+                              "val_while_train=False", "device_pipeline=True")
+    targets = check_topdown_device_targets(device_args, device)
+    on_device = train_recipe(device_args, f"{name}, device_pipeline: true")
+    del on_device["seen"]
+    torch.cuda.empty_cache()
+    served = serve_family(recipe, last, device, regression)
+    torch.cuda.empty_cache()
+    return {"host": host, "device": on_device, "targets": targets, "eval": evaluated,
+            "served": served}
+
+
+def mpii_decode_bound_ms(n: int) -> float:
+    """argmax_shift_decode's least time at MPII's [n, 16, 64, 64]: one read of
+    the float32 heatmaps and one write of the coordinates and maxima."""
+    k, h, w = MPII_HEATMAP
+    return 4 * (n * k * h * w + n * k * 3) / HBM_BYTES_PER_MS
+
+
+def mpii_decode(device: torch.device) -> dict:
+    """Phase 24, the decode kernel at MPII's heatmaps [N, 16, 64, 64] (a
+    4096-float row: two passes of the vector loads), shift on as the yaml
+    sets it: both wrappers bitwise against their plain versions at N = 32
+    and 128, on random heatmaps and on exact ties, the whole decoder with its
+    back-projection on; then the kernel's device time warm and cold in L2,
+    the whole decoder's, the plain version's, and ``torch.max(x.view(N*K,
+    H*W), dim=1)`` as the library call, beside the bound."""
+    rng = np.random.RandomState(SEED + 24)
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    pixel_std = 200.0
+    kw = dict(shift=True, to_original=True, use_udp=False, pixel_std=pixel_std)
+    out = {"max_abs_err": 0.0}
+    for n in (BATCH_SIZE, 128):
+        shape = (n,) + MPII_HEATMAP
+        for label, hm in (("random", rng.randn(*shape)), ("exact ties", rng.randint(0, 3, shape))):
+            x = on_device(hm, device)
+            crops = crop_inputs(rng, n, device)
+            runs = [("argmax_shift_decode", argmax_shift_decode(x, True),
+                     argmax_shift_decode_plain(x, True)),
+                    ("decode_heatmap", decode_heatmap(x, *crops, **kw),
+                     decode_heatmap_plain(x, *crops, **kw))]
+            torch.cuda.synchronize()
+            for what, got, want in runs:
+                equal = all(bitwise_equal(g, w) for g, w in zip(got, want))
+                for g, w in zip(got, want):
+                    out["max_abs_err"] = max(out["max_abs_err"], float((g - w).abs().max()))
+                print(f"decode [{', '.join(map(str, shape))}] {label}, shift on, {what}"
+                      f"{', back-projection on' if what == 'decode_heatmap' else ''}: bitwise "
+                      f"equal {equal}")
+                if not equal:
+                    raise AssertionError(f"decode kernel ({what}) differs from the plain version "
+                                         f"at {shape}, {label}")
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)
+        crops = crop_inputs(rng, n, device)
+        cold = [torch.randn(shape, generator=gen, device=device) for _ in range(COLD_HEATMAPS)]
+        warm = time_ms(lambda: argmax_shift_decode(x, True), True)
+        cold_ms = time_ms(cycling(lambda h: argmax_shift_decode(h, True), cold), True)
+        plain = time_ms(lambda: argmax_shift_decode_plain(x, True), True, iters=PLAIN_ITERS)
+        decoder = time_ms(lambda: decode_heatmap(x, *crops, **kw), True)
+        library = time_ms(lambda: torch.max(x.view(n * MPII_HEATMAP[0], -1), dim=1), True)
+        bound = mpii_decode_bound_ms(n)
+        print(f"decode [{', '.join(map(str, shape))}] shift on, device time: kernel {warm:.5f} ms "
+              f"warm in L2, {cold_ms:.5f} ms cold ({COLD_HEATMAPS} heatmaps, "
+              f"{COLD_HEATMAPS * x.numel() * 4 / 1e6:.1f} MB in turn); the whole decoder "
+              f"(back-projection on) {decoder:.5f} ms; plain argmax + shift {plain:.5f} ms; "
+              f"library call torch.max(x.view(N*K, H*W), dim=1) {library:.5f} ms; bound "
+              f"{bound:.5f} ms (HBM bytes): kernel at {bound / warm:.3f} of it warm, "
+              f"{bound / cold_ms:.3f} cold")
+        out[n] = {"ms": warm, "cold_ms": cold_ms, "decoder_ms": decoder, "plain_ms": plain,
+                  "library_ms": library, "bound_ms": bound}
+        del cold
+    return out
+
+
+def mpii_training(root: str, device: torch.device) -> dict:
+    """Phase 24: hrnet_w32_mpii_tpu.yaml as parsed (HRNet-W32 at 256x256, 16
+    joints, O2, batch 128, adamw, host targets; the decode's shift on;
+    ``topdown_keypoint`` with PCKh and EPE) through the train entry on
+    synthetic MPII frames, evaluating after the last epoch: one decode launch
+    per eval batch; its last checkpoint through the eval entry (the
+    callback's PCKh and EPE, one launch per batch) and a 40-box request
+    through the serving entry (one launch per 32-crop chunk)."""
+    data = {"train": mpii.write_split(os.path.join(root, "mpii", "train"), MPII_TRAIN_IMAGES,
+                                      mpii.TRAIN_SEED, MPII_PEOPLE),
+            "val": mpii.write_split(os.path.join(root, "mpii", "val"), MPII_VAL_IMAGES,
+                                    mpii.VAL_SEED, MPII_PEOPLE)}
+    name = "hrnet_w32_mpii_tpu"
+    ckpt_dir = os.path.join(root, name)
+    args = recipe_args(MPII_YAML, data, ckpt_dir, device, f"num_epochs={MPII_EPOCHS}",
+                       f"warmup={ENTRY_WARMUP}", f"val_interval={MPII_EPOCHS}")
+    trained = train_recipe(args, name)
+    val_batches = -(-MPII_VAL_IMAGES * MPII_PEOPLE // args.batch_size)
+    print(f"{name}: {trained['evaluations']} evaluation(s) of {val_batches} batches, decode "
+          f"kernel launches {trained['launches']}; PCKh@{args.eval_setting['pck_thr']} "
+          f"{trained['stats']['PCK']:.6f}, EPE {trained['stats']['EPE']:.4f} px")
+    if trained["launches"] != trained["evaluations"] * val_batches or not trained["evaluations"]:
+        raise AssertionError(f"{trained['evaluations']} evaluations of {val_batches} batches "
+                             f"made {trained['launches']} decode launches")
+    if not (0.0 <= trained["stats"]["PCK"] <= 1.0 and np.isfinite(trained["stats"]["EPE"])):
+        raise AssertionError(f"{name}'s stats are out of range: {trained['stats']}")
+    last = os.path.join(ckpt_dir, f"{name}_last.ckpt")
+    evaluated = eval_recipe_checkpoint(root, args, trained, last, device, name)
+    if evaluated["launches"] != val_batches:
+        raise AssertionError(f"{val_batches} eval batches made {evaluated['launches']} decode "
+                             "launches")
+    del trained["seen"]
+    torch.cuda.empty_cache()
+
+    _, requests, payloads, _ = request_payloads(SEED + 24)
+    serve_args = serve_entry.parse_serve_args(["--config", MPII_YAML, "--ckpt", last,
+                                               "--batch-size", str(BATCH_SIZE)])
+    service = serve_entry.build_service(serve_args, batch_size=BATCH_SIZE, device=device)
+    try:
+        service.predict(payloads[-1])  # warm-up
+        torch.cuda.synchronize()
+        argmax_shift_decode.launches = 0
+        start = time.perf_counter()
+        answer = service.predict(payloads[-1])
+        serve_ms = (time.perf_counter() - start) * 1e3
+        serve_launches = argmax_shift_decode.launches
+    finally:
+        service.close()
+    check_preds(np.asarray(answer["predictions"], np.float32), requests[-1],
+                num_joints=args.num_joints, dataset_setting=args.dataset_setting)
+    print(f"{name} through the serving entry: a 40-box request in {serve_ms:.3f} ms (warm, one "
+          f"run; the service's latency_ms {answer['latency_ms']:.3f}), {args.num_joints} joints "
+          f"per box, decode kernel launches {serve_launches}")
+    if serve_launches != -(-40 // BATCH_SIZE):
+        raise AssertionError(f"40 boxes made {serve_launches} decode launches")
+    return {"trained": trained, "eval": evaluated, "serve_ms": serve_ms,
+            "launches": trained["launches"], "eval_launches": evaluated["launches"],
+            "serve_launches": serve_launches}
 
 
 def main() -> int:
@@ -3140,12 +3524,23 @@ def main() -> int:
         vit = vitpose_training(root, entry["data"], device)
         torch.cuda.empty_cache()
         vit_recipes = vitpose_recipes(root, device)
+        torch.cuda.empty_cache()
+        simcc = family_training(root, entry["data"], device, SIMCC_YAML)
+        rle = family_training(root, entry["data"], device, RLE_YAML)
+        mpii_kernel = mpii_decode(device)
+        mpii_run = mpii_training(root, device)
     check_no_processes_left()
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
                                       ("launches", "eval_launches", "serve_launches")},
                     **{name: {key: r[key] for key in
                               ("launches", "eval_launches", "serve_launches")}
                        for name, r in vit_recipes.items()}}
+
+    mpii_launches = {key: mpii_run[key] for key in ("launches", "eval_launches",
+                                                    "serve_launches")}
+    print(f"SimCC and RLE (phases 22-23): decode kernel launches "
+          f"{simcc['host']['launches'] + rle['host']['launches']} (they decode without it); "
+          f"MPII (phase 24): {mpii_launches}")
 
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
     chain = next(r for r in probed["rows"] if r["b"] == HRNET_W32["batch_size"])
@@ -3162,14 +3557,18 @@ def main() -> int:
         "launches": (served["launches"] + evaluated["launches"] + entry["launches"]
                      + trained["launches"] + plain["launches"] + plain_eval["launches"]
                      + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]
-                     + sum(sum(r.values()) for r in vit_launches.values())),
+                     + sum(sum(r.values()) for r in vit_launches.values())
+                     + sum(mpii_launches.values())),
         "vitpose_launches": vit_launches,
+        # phase 24: the MPII callback's (1 per eval batch), the eval entry's
+        # (1 per batch) and the serving entry's (1 per 32-crop chunk)
+        "mpii_launches": mpii_launches,
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],
         "serve_entry_launches": sb_served["launches"],
         "eval_batches": evaluated["batches"],
-        "max_abs_err": decode_err,
+        "max_abs_err": max(decode_err, mpii_kernel["max_abs_err"]),
         # [32,17,64,48] as served, shift off (hrnet_w32_tpu.yaml), warm in L2
         "ms": warm_ms,
         "plain_ms": plain_ms,
@@ -3194,6 +3593,10 @@ def main() -> int:
         # device operations per call
         "dark_decoder_ms": sb_eval["dark_ms"],
         "dark_decoder_device_ops": sb_eval["dark_ops"],
+        # phase 24, MPII's [N,16,64,64] with the shift on, N = 32 and 128:
+        # the kernel warm and cold in L2, the whole decoder (back-projection
+        # on), the plain version, torch.max and the bound
+        "mpii_shift_on": {str(n): mpii_kernel[n] for n in (BATCH_SIZE, 128)},
     }, {
         "name": "fused_conv_chain",
         "route": "cuda",

@@ -3,8 +3,9 @@
 Counterpart of mindpose_tpu/data/device_pipeline.py for ``device_pipeline:
 true``. Top-down: host workers stop at the affine crop, and raw
 uint8-range crops with post-affine keypoints go to the device, where the
-train step normalizes them and renders the Gaussian targets
-(``ops/target.py``). Bottom-up (:180-219): the host stops after the warp
+train step normalizes them and renders the targets (``ops/target.py``):
+Gaussian heatmaps, or the SimCC head's bin labels, or the RLE head's
+coordinates. Bottom-up (:180-219): the host stops after the warp
 and the AE tag indices (``bottomup_generate_tag_ind``), and the
 multi-level targets render on the device from the per-level keypoints
 (~12 KB per record in place of ~9 MB of targets at 512x512). The model
@@ -16,7 +17,12 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from ..ops.image import normalize_image
-from ..ops.target import generate_bottomup_targets, generate_topdown_targets
+from ..ops.target import (
+    generate_bottomup_targets,
+    generate_regression_targets,
+    generate_simcc_targets,
+    generate_topdown_targets,
+)
 
 __all__ = ["strip_host_target_transform", "build_topdown_preprocess",
            "BOTTOMUP_DEVICE_FINAL_COLUMNS", "swap_bottomup_target_transform",
@@ -62,25 +68,33 @@ def build_topdown_preprocess(
     sigma: float = 2.0,
     use_udp: bool = False,
     target_type: str = "heatmap",
+    split_ratio: float = 2.0,
 ) -> Callable:
     """Preprocess for build_train_step: (image [N, H, W, 3] uint8-range,
     keypoints [N, K, 3]) -> (normalized image [N, 3, H, W] float32,
-    target [N, K, h, w], target_weight [N, K]).
+    target, target_weight [N, K]).
 
-    Only ``target_type="heatmap"`` is ported; SimCC and regression targets
-    come with their heads (ROADMAP.md, Queue 1, SimCC and RLE).
+    ``target_type`` picks the target, as the JAX package's
+    ``_make_target_encoder`` does: "heatmap" renders Gaussian heatmaps [N, K,
+    h, w]; "simcc" per-axis bin labels [N, K, Bx+By]; "regression"
+    normalized coordinates [N, K, 2].
     """
-    if target_type != "heatmap":
-        raise NotImplementedError(
-            f"target_type={target_type!r} is not ported yet (ROADMAP.md, Queue 1, SimCC and RLE)")
     mean, std = tuple(normalize_mean), tuple(normalize_std)
     hm = (int(heatmap_size[0]), int(heatmap_size[1]))
     im = (int(image_size[0]), int(image_size[1]))
 
+    def encode(keypoints: torch.Tensor):
+        if target_type == "simcc":
+            return generate_simcc_targets(keypoints, input_size=im, split_ratio=split_ratio,
+                                          sigma=sigma)
+        if target_type == "regression":
+            return generate_regression_targets(keypoints, input_size=im)
+        return generate_topdown_targets(keypoints, heatmap_size=hm, image_size=im, sigma=sigma,
+                                        use_udp=use_udp)
+
     def preprocess(image: torch.Tensor, keypoints: torch.Tensor):
         image = normalize_image(image, mean, std).permute(0, 3, 1, 2).contiguous()
-        target, weight = generate_topdown_targets(
-            keypoints, heatmap_size=hm, image_size=im, sigma=sigma, use_udp=use_udp)
+        target, weight = encode(keypoints)
         return image, target, weight
 
     return preprocess

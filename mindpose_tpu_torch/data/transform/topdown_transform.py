@@ -12,7 +12,11 @@ Copies of ``mindpose_tpu/data/transform/topdown_transform.py``:
   mapped into it, :103-148), ``topdown_generate_target`` (the Gaussian
   heatmaps in HWK layout and the target weights, :237-328),
   ``topdown_horizontal_random_flip`` (:332), ``topdown_halfbody_transform``
-  (:371) and ``topdown_randomscale_rotation`` (:436).
+  (:371), ``topdown_randomscale_rotation`` (:436), and the targets of the
+  SimCC and RLE heads, ``topdown_generate_simcc_target`` (:462: per-axis
+  discrete Gaussians over the x and y bins) and
+  ``topdown_generate_regression_target`` (:515: coordinates over the input
+  size).
 
 Every random draw is made on the global ``np.random`` stream, in the JAX
 package's order, so that with one loader worker and one seed the port's
@@ -21,7 +25,9 @@ crops and targets equal the JAX package's bit for bit. The flip's
 device input pipeline) and raises. cv2 is imported, with ``cv2.setNumThreads(2)`` as the JAX module
 sets at import, when a transform first needs it, so serving never imports
 it. tests/test_torch_host_copies.py, tests/test_torch_eval_copies.py and
-tests/test_torch_train_loader.py hold each copy equal to its original.
+tests/test_torch_train_loader.py hold each copy equal to its original
+(the SimCC and regression targets: tests/test_torch_simcc.py and
+tests/test_torch_rle.py).
 """
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -41,7 +47,8 @@ from .utils import (
 __all__ = ["box_to_center_scale", "crop_matrix", "TopDownTransform",
            "TopDownBoxToCenterScale", "TopDownAffine", "TopDownGenerateTarget",
            "TopDownHorizontalRandomFlip", "TopDownHalfBodyTransform",
-           "TopDownRandomScaleRotation"]
+           "TopDownRandomScaleRotation", "TopDownGenerateSimCCTarget",
+           "TopDownGenerateRegressionTarget"]
 
 _CV2 = []
 
@@ -411,3 +418,93 @@ class TopDownRandomScaleRotation(TopDownTransform):
         r_factor = np.clip(np.random.randn() * rf, -rf * 2, rf * 2)
         r = np.float32(r_factor) if np.random.rand() <= self.rot_prob else np.float32(0.0)
         return dict(scale=s, rotation=r)
+
+
+@register("transform", extra_name="topdown_generate_simcc_target")
+class TopDownGenerateSimCCTarget(TopDownTransform):
+    """Per-axis discrete Gaussian label distributions over SimCC bins.
+
+    Copy of the JAX package's (:462); pairs with models/heads/simcc_head.py
+    (arXiv:2107.03332). For each visible joint at input-image coords (x, y),
+    the labels are Gaussians centered at x*split_ratio / y*split_ratio over
+    the bin axes, each normalized to sum 1 (proper distributions for the
+    KL loss). Emits ``target`` [K, Bx+By] (x labels then y labels) and
+    ``target_weight`` [K]; joints whose peak falls outside the bin range
+    get weight 0, mirroring the heatmap encoder's out-of-window rule.
+    """
+
+    def __init__(
+        self,
+        is_train: bool = True,
+        config: Optional[Dict[str, Any]] = None,
+        sigma: float = 6.0,
+        split_ratio: float = 2.0,
+    ) -> None:
+        super().__init__(is_train=is_train, config=config)
+        self.sigma = sigma
+        self.split_ratio = split_ratio
+
+    def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        image_size = self._transform_cfg["image_size"]
+        bx = int(round(float(image_size[0]) * self.split_ratio))
+        by = int(round(float(image_size[1]) * self.split_ratio))
+        keypoints = state["keypoints"]
+        num_joints = keypoints.shape[0]
+
+        mu = keypoints[:, :2].astype(np.float32) * self.split_ratio  # [K, 2]
+        vis = keypoints[:, 2] > 0
+        inside = (
+            (mu[:, 0] >= 0) & (mu[:, 0] < bx)
+            & (mu[:, 1] >= 0) & (mu[:, 1] < by)
+        )
+        target_weight = (vis & inside).astype(np.float32)
+
+        def labels(centers, n_bins):
+            grid = np.arange(n_bins, dtype=np.float32)[None, :]
+            g = np.exp(
+                -((grid - centers[:, None]) ** 2) / (2.0 * self.sigma**2)
+            )
+            s = g.sum(axis=1, keepdims=True)
+            return g / np.maximum(s, 1e-12)
+
+        target = np.zeros((num_joints, bx + by), dtype=np.float32)
+        target[:, :bx] = labels(mu[:, 0], bx)
+        target[:, bx:] = labels(mu[:, 1], by)
+        target *= target_weight[:, None]
+        return dict(target=target, target_weight=target_weight)
+
+
+@register("transform", extra_name="topdown_generate_regression_target")
+class TopDownGenerateRegressionTarget(TopDownTransform):
+    """Normalized-coordinate targets for direct regression heads.
+
+    Copy of the JAX package's (:515); pairs with models/heads/rle_head.py
+    (arXiv:2107.11291). For each joint at input-image coords (x, y), the
+    target is ``(x / W, y / H)`` — the shared convention of the rle loss
+    and the regression decoder. Emits ``target`` [K, 2] and
+    ``target_weight`` [K]; joints outside the crop (or invisible) get
+    weight 0, mirroring the heatmap encoder's out-of-window rule.
+    """
+
+    def __init__(
+        self,
+        is_train: bool = True,
+        config: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        super().__init__(is_train=is_train, config=config)
+
+    def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        image_size = self._transform_cfg["image_size"]
+        w, h = float(image_size[0]), float(image_size[1])
+        keypoints = state["keypoints"]
+
+        xy = keypoints[:, :2].astype(np.float32)
+        vis = keypoints[:, 2] > 0
+        inside = (
+            (xy[:, 0] >= 0) & (xy[:, 0] < w)
+            & (xy[:, 1] >= 0) & (xy[:, 1] < h)
+        )
+        target_weight = (vis & inside).astype(np.float32)
+        target = xy / np.array([w, h], dtype=np.float32)
+        target *= target_weight[:, None]
+        return dict(target=target, target_weight=target_weight)

@@ -58,15 +58,21 @@ class TopDownHeatMapInferencer(Inferencer):
             flipped = torch.cat([flipped[..., :1], flipped[..., :-1]], dim=3)
         return (heatmap + flipped) * 0.5
 
+    def head_outputs(self, image: torch.Tensor) -> Any:
+        """What the decoder takes for these crops: here the heatmaps; the
+        SimCC and regression inferencers merge their heads' outputs instead."""
+        return self.heatmaps(image)
+
     @torch.inference_mode()
-    def infer_batch(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """One loader batch -> (preds [N, K, 3], boxes [N, 6], heatmaps), on the device."""
+    def infer_batch(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+        """One loader batch -> (preds [N, K, 3], boxes [N, 6], the head's
+        outputs as ``head_outputs`` gives them), on the device."""
         image = self._upload(batch["image"]).permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
-        heatmap = self.heatmaps(image)
-        preds, boxes = self.decoder(heatmap, self._upload(batch["center"]),
+        outputs = self.head_outputs(image)
+        preds, boxes = self.decoder(outputs, self._upload(batch["center"]),
                                     self._upload(batch["scale"]),
                                     self._upload(batch["bbox_scores"]))
-        return preds, boxes, heatmap
+        return preds, boxes, outputs
 
     def infer(self, dataset) -> List[Dict[str, Any]]:
         outputs: List[Dict[str, Any]] = []

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...register import register
+from ..common import dense, lecun_normal_
 from .backbone import Backbone
 
 __all__ = ["Attention", "EncoderBlock", "MlpBlock", "PatchEmbed", "ViT",
@@ -41,27 +42,13 @@ LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
 DEFAULT_IMAGE_SIZE = (192, 256)  # [W, H] of every configs/vitpose recipe
 
 
-def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
-    """flax ``lecun_normal``: truncated (+-2 sd) normal with variance 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # sd of a unit normal cut at +-2
-    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
-
-
-def _linear(in_features: int, out_features: int) -> nn.Linear:
-    """A Linear with flax ``Dense``'s initial weights (lecun normal, zero bias)."""
-    layer = nn.Linear(in_features, out_features)
-    lecun_normal_(layer.weight, in_features)
-    nn.init.zeros_(layer.bias)
-    return layer
-
-
 class MlpBlock(nn.Module):
     """Linear -> tanh GELU -> Linear."""
 
     def __init__(self, dim: int, mlp_dim: int) -> None:
         super().__init__()
-        self.fc1 = _linear(dim, mlp_dim)
-        self.fc2 = _linear(mlp_dim, dim)
+        self.fc1 = dense(dim, mlp_dim)
+        self.fc2 = dense(mlp_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -75,8 +62,8 @@ class Attention(nn.Module):
         if dim % num_heads:
             raise ValueError(f"hidden_dim {dim} is not divisible by num_heads {num_heads}")
         self.num_heads = num_heads
-        self.qkv = _linear(dim, 3 * dim)
-        self.proj = _linear(dim, dim)
+        self.qkv = dense(dim, 3 * dim)
+        self.proj = dense(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, d = x.shape

@@ -17,7 +17,9 @@ __all__ = [
     "check_bn_settings",
     "conv1x1",
     "conv3x3",
+    "dense",
     "he_normal_",
+    "lecun_normal_",
     "resize_bilinear",
     "resize_nearest",
 ]
@@ -36,6 +38,20 @@ def he_normal_(weight: torch.Tensor, fan_in: Optional[int] = None) -> torch.Tens
     # restores the target variance, as flax's variance_scaling does
     std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated (+-2 sd) normal with variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # sd of a unit normal cut at +-2
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def dense(in_features: int, out_features: int) -> nn.Linear:
+    """A Linear with flax ``Dense``'s initial weights (lecun normal, zero bias)."""
+    layer = nn.Linear(in_features, out_features)
+    lecun_normal_(layer.weight, in_features)
+    nn.init.zeros_(layer.bias)
+    return layer
 
 
 def conv3x3(in_channels: int, out_channels: int, stride: int = 1) -> nn.Conv2d:

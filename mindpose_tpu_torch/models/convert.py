@@ -7,7 +7,9 @@ use the official torch names (``stage3.0.branches.1.1.conv1``,
 ``layer2.0.downsample.0``, ``deconv_layers.3``). A mapping pairs the two, in
 the order in which the JAX modules create their submodules: ``hrnet_mapping``
 for any HRNet stage config, ``resnet_mapping`` for any block counts,
-``vit_mapping`` for any ViT depth, and one for each head. ``net_mapping``
+``vit_mapping`` for any ViT depth, and one for each head (the SimCC and
+RLE heads' Linear layers are "dense" entries, flax ``Dense`` [in, out] ->
+torch ``Linear`` [out, in]). ``net_mapping``
 picks the backbone's and the head's from the port's net itself, so
 reduced-depth nets convert as well as full ones.
 
@@ -37,6 +39,8 @@ from .backbones.resnet import ResNet
 from .backbones.vit import Attention, ViT
 from .heads.higher_hrnet_head import HigherHRNetHead
 from .heads.hrnet_head import HRNetHead
+from .heads.rle_head import RLERegressionHead
+from .heads.simcc_head import SimCCHead
 from .heads.simple_baseline_head import SimpleBaselineHead
 
 __all__ = ["hrnet_mapping", "resnet_mapping", "vit_mapping", "head_mapping", "net_mapping",
@@ -164,10 +168,15 @@ def vit_mapping(depth: int) -> List[Entry]:
 
 
 def head_mapping(head: nn.Module) -> List[Entry]:
-    """The entries of a port head: ``hrnet_head``, ``simple_baseline_head`` or
-    ``higher_hrnet_head``."""
+    """The entries of a port head: ``hrnet_head``, ``simple_baseline_head``,
+    ``higher_hrnet_head``, ``simcc_head`` or ``rle_head``."""
     if isinstance(head, HRNetHead):
         return [("conv_bias", "head", ("head",))]
+    if isinstance(head, SimCCHead):
+        return [("conv_bias", "final_conv", ("final_conv",)),
+                ("dense", "mlp_x", ("mlp_x",)), ("dense", "mlp_y", ("mlp_y",))]
+    if isinstance(head, RLERegressionHead):
+        return [("dense", "fc_coord", ("fc_coord",)), ("dense", "fc_sigma", ("fc_sigma",))]
     if isinstance(head, SimpleBaselineHead):
         convs = [i for i, m in enumerate(head.deconv_layers) if isinstance(m, nn.ConvTranspose2d)]
         entries: List[Entry] = []

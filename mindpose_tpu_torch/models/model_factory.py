@@ -2,9 +2,15 @@
 
 Counterpart of mindpose_tpu/models/model_factory.py for what the top-down
 path uses. The factory wires ``backbone.out_channels`` into the
-head's input width. Necks are not ported yet.
+head's input width, and, for a head whose Linear layers take the flattened
+map (``needs_feature_size``: ``simcc_head``), the backbone's output size at
+the head's ``input_size``, traced on the meta device. Necks are not ported yet.
 """
-from typing import Any, Dict, Optional
+import inspect
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
 
 from ..register import entrypoint
 from .networks import EvalNet, Net, NetWithLoss
@@ -18,6 +24,7 @@ __all__ = [
     "create_network_from_config",
     "create_eval_network",
     "create_network_with_loss",
+    "feature_size",
 ]
 
 
@@ -41,6 +48,20 @@ def create_loss(name: str, **kwargs: Any):
     return entrypoint("loss", name)(**kwargs)
 
 
+def feature_size(backbone: nn.Module, in_channels: int,
+                 input_size: Sequence[int]) -> Tuple[int, int]:
+    """(h, w) of ``backbone``'s output for an input of ``input_size`` (W, H),
+    from a forward on the meta device: no arithmetic runs and the backbone's
+    own tensors are neither read nor changed."""
+    w, h = int(input_size[0]), int(input_size[1])
+    tensors = {name: torch.empty_like(t, device="meta") for name, t in
+               [*backbone.named_parameters(), *backbone.named_buffers()]}
+    x = torch.empty(1, in_channels, h, w, device="meta")
+    with torch.no_grad():
+        out = torch.func.functional_call(backbone, tensors, (x,))
+    return int(out.shape[2]), int(out.shape[3])
+
+
 def create_network(
     backbone_name: str,
     head_name: str,
@@ -62,8 +83,14 @@ def create_network(
         in_channels=in_channels,
         **dict(backbone_args or {}),
     )
+    head_args = dict(head_args or {})
+    head_fn = entrypoint("head", head_name)
+    if getattr(head_fn, "needs_feature_size", False):
+        input_size = head_args.get(
+            "input_size", inspect.signature(head_fn).parameters["input_size"].default)
+        head_args.setdefault("feature_size", feature_size(backbone, in_channels, input_size))
     head = create_head(head_name, in_channels=backbone.out_channels,
-                       num_joints=num_joints, **dict(head_args or {}))
+                       num_joints=num_joints, **head_args)
     return Net(backbone=backbone, head=head)
 
 

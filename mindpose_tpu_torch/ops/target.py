@@ -1,7 +1,9 @@
-"""Gaussian heatmap targets for training, on the device.
+"""Training targets, on the device.
 
-Counterparts of ``mindpose_tpu/ops/target.py:generate_topdown_targets`` and
-``generate_bottomup_targets`` (:25-97). A top-down target renders as one
+Counterparts of ``mindpose_tpu/ops/target.py``: the Gaussian heatmaps of
+``generate_topdown_targets`` and ``generate_bottomup_targets`` (:25-97), the
+SimCC bin labels of ``generate_simcc_targets`` (:184) and the regression
+coordinates of ``generate_regression_targets`` (:227). A top-down target renders as one
 elementwise expression; a bottom-up level as one such expression per
 instance slot, combined by a running max. Both keep the reference's
 semantics (round-to-pixel centres, the 3-sigma window, the UDP sub-pixel
@@ -12,13 +14,19 @@ that decide where a Gaussian lands are the JAX package's:
 - the window is ``[ul, br)``;
 - the effective centre is ``ul + size // 2``, not ``mu``.
 Strides divide as float32 tensors, not Python scalars: PyTorch on CUDA would
-multiply by a scalar's reciprocal, which rounds differently.
+multiply by a scalar's reciprocal, which rounds differently. So do the
+SimCC Gaussian's ``2 sigma^2`` and the regression's input size, so that
+the targets follow the host transforms' arithmetic
+(``data/transform/topdown_transform.py``): the regression targets equal
+them bit for bit, the SimCC labels up to ``exp``'s rounding and the order
+of each row's sum.
 """
 from typing import Tuple
 
 import torch
 
-__all__ = ["generate_topdown_targets", "generate_bottomup_targets"]
+__all__ = ["generate_topdown_targets", "generate_bottomup_targets",
+           "generate_simcc_targets", "generate_regression_targets"]
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -143,3 +151,65 @@ def generate_bottomup_targets(
                & sel[..., None, None])
         torch.maximum(canvas, g.masked_fill_(~win, 0.0), out=canvas)
     return canvas
+
+
+def generate_simcc_targets(
+    keypoints: torch.Tensor,
+    input_size: Tuple[int, int],
+    split_ratio: float = 2.0,
+    sigma: float = 6.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-axis discrete Gaussian SimCC labels.
+
+    Gaussians over the x and y bin axes centred at ``keypoints *
+    split_ratio``, each normalized to sum 1, zeroed (with weight 0) where the
+    centre falls outside the bin range or the joint is invisible.
+
+    Args:
+        keypoints: [N, K, 3] (x, y in input-image pixels, visibility).
+        input_size: (W, H).
+
+    Returns:
+        target [N, K, Bx+By] float32 (x labels, then y labels),
+        target_weight [N, K] float32.
+    """
+    bx = int(round(float(input_size[0]) * split_ratio))
+    by = int(round(float(input_size[1]) * split_ratio))
+    keypoints = keypoints.float()
+    mu = keypoints[..., :2] * split_ratio  # [N, K, 2]
+    vis = keypoints[..., 2] > 0
+    inside = (mu[..., 0] >= 0) & (mu[..., 0] < bx) & (mu[..., 1] >= 0) & (mu[..., 1] < by)
+    weight = (vis & inside).float()
+    two_sigma2 = _f32(2.0 * sigma**2, keypoints)
+
+    def labels(centers: torch.Tensor, n_bins: int) -> torch.Tensor:
+        grid = torch.arange(n_bins, dtype=torch.float32, device=keypoints.device)
+        g = torch.exp(-((grid - centers[..., None]) ** 2) / two_sigma2)
+        return g / torch.clamp_min(g.sum(dim=-1, keepdim=True), 1e-12)
+
+    target = torch.cat([labels(mu[..., 0], bx), labels(mu[..., 1], by)], dim=-1)
+    return target * weight[..., None], weight
+
+
+def generate_regression_targets(
+    keypoints: torch.Tensor,
+    input_size: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalized-coordinate regression targets: the keypoints over the input
+    size, zeroed (with weight 0) outside the crop or where invisible.
+
+    Args:
+        keypoints: [N, K, 3] (x, y in input-image pixels, visibility).
+        input_size: (W, H).
+
+    Returns:
+        target [N, K, 2] float32, target_weight [N, K] float32.
+    """
+    w, h = float(input_size[0]), float(input_size[1])
+    keypoints = keypoints.float()
+    xy = keypoints[..., :2]
+    vis = keypoints[..., 2] > 0
+    inside = (xy[..., 0] >= 0) & (xy[..., 0] < w) & (xy[..., 1] >= 0) & (xy[..., 1] < h)
+    weight = (vis & inside).float()
+    target = xy / torch.tensor([w, h], dtype=torch.float32, device=keypoints.device)
+    return target * weight[..., None], weight

@@ -11,8 +11,9 @@ package TrainState, :308); EMA; the inferencer and evaluator; the
 checkpoint writes; and a crash checkpoint on any exception (:504-517).
 
 The loader's batches are NHWC images and HWK targets (bottom-up:
-[S, Hmax, Wmax, K] per record, with its mask and tag indices), as the JAX
-loader gives them; they are uploaded (``device_prefetch: N``: from pinned
+[S, Hmax, Wmax, K] per record, with its mask and tag indices; SimCC's bin
+labels [K, Bx+By] and regression's coordinates [K, 2], which pass as they
+are), as the JAX loader gives them; they are uploaded (``device_prefetch: N``: from pinned
 memory, N batches ahead) and turned to NCHW on the device (the joint axis
 before the spatial ones), where the net and the loss take them.
 ``device_pipeline: true`` ships the crops and their keypoints instead
@@ -318,11 +319,13 @@ def train(args: Any) -> Dict[str, Any]:
         if preprocess is not None:  # the preprocess takes NHWC crops itself
             return arrays
         image, target, *extra = arrays
+        image = image.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
+        if target.dim() == 3:  # SimCC [N, K, Bx+By] or regression [N, K, 2]: as they are
+            return [image, target, *extra]
         # the joint axis before the spatial ones: NHWK -> NKHW (top-down),
         # N S H W K -> N S K H W (bottom-up, whose mask and tag_ind pass as they are)
         order = (0, 3, 1, 2) if target.dim() == 4 else (0, 1, 4, 2, 3)
-        return [image.permute(0, 3, 1, 2).contiguous(),  # NHWC -> NCHW
-                target.permute(*order).contiguous(), *extra]
+        return [image, target.permute(*order).contiguous(), *extra]
 
     epochs = []
     try:

@@ -4,10 +4,11 @@ The port cannot import ``mindpose_tpu`` (its ``__init__`` imports JAX), so
 the crop geometry, the joints' flip permutation and the DARK refinement's
 Gaussian kernel, and the bottom-up host path (the host Hungarian matcher
 ``utils/match.py``, ``transform_keypoints``, ``bottomup_rescale``,
-``bottomup_pad`` and the levels' ``pad_to_same``) live in the port as
-copies (the bottom-up train transforms' own test is
-tests/test_torch_bottomup_train_data.py); these tests pin each copy to
-its original, bit for bit. They also pin chip_smoke.py's config literal to
+``bottomup_pad`` and the levels' ``pad_to_same``), the SimCC and
+regression target transforms and MPII's distance metrics
+(``utils/keypoint_metrics.py``) live in the port as copies (the bottom-up
+train transforms' own test is tests/test_torch_bottomup_train_data.py);
+these tests pin each copy to its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
 """
 import os
@@ -21,13 +22,29 @@ from mindpose_tpu.data.transform.bottomup_transform import BottomUpPad as JaxBot
 from mindpose_tpu.data.transform.bottomup_transform import (
     BottomUpRescale as JaxBottomUpRescale,
 )
-from mindpose_tpu.data.transform.topdown_transform import TopDownAffine, TopDownBoxToCenterScale
+from mindpose_tpu.data.transform.topdown_transform import (
+    TopDownAffine,
+    TopDownBoxToCenterScale,
+)
+from mindpose_tpu.data.transform.topdown_transform import (
+    TopDownGenerateRegressionTarget as JaxRegressionTarget,
+)
+from mindpose_tpu.data.transform.topdown_transform import (
+    TopDownGenerateSimCCTarget as JaxSimCCTarget,
+)
 from mindpose_tpu.ops.heatmap import gaussian_kernel_2d as jax_gaussian_kernel_2d
+from mindpose_tpu.utils import keypoint_metrics as jax_metrics
 from mindpose_tpu.utils.match import match_by_tag as jax_match_by_tag
 from mindpose_tpu_torch.data.transform import utils
 from mindpose_tpu_torch.data.transform.bottomup_transform import BottomUpPad, BottomUpRescale
-from mindpose_tpu_torch.data.transform.topdown_transform import box_to_center_scale, crop_matrix
+from mindpose_tpu_torch.data.transform.topdown_transform import (
+    TopDownGenerateRegressionTarget,
+    TopDownGenerateSimCCTarget,
+    box_to_center_scale,
+    crop_matrix,
+)
 from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
+from mindpose_tpu_torch.utils import keypoint_metrics
 from mindpose_tpu_torch.utils.match import match_by_tag
 from tests.fixtures.grouping_sets import ORDER, candidate_sets
 
@@ -239,3 +256,61 @@ def test_bottomup_rescale_and_pad(max_size):
             got, want = np.asarray(state[key]), np.asarray(jax_state[key])
             assert got.dtype == want.dtype and got.shape == want.shape, key
             np.testing.assert_array_equal(got, want, err_msg=key)
+
+
+TARGETS = {"image_size": [48, 64], "heatmap_size": [12, 16], "pixel_std": 200.0,
+           "scale_padding": 1.25, "flip_pairs": [[1, 2]], "upper_body_ids": [0, 1]}
+
+
+def _crop_keypoints(rng, n=6, k=17, w=48.0, h=64.0):
+    """[n, k, 3] crop keypoints: inside, on and just past the edges, outside, some invisible."""
+    xy = rng.uniform([-20, -20], [w + 20, h + 20], (n, k, 2))
+    xy[0, :6] = [[0.0, 0.0], [w - 1e-3, h - 1e-3], [w, 5.0], [5.0, h], [-1e-3, 3.0], [17.5, 30.25]]
+    vis = rng.randint(0, 3, (n, k, 1))
+    vis[0, :6] = 2
+    return np.concatenate([xy, vis], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("sigma, split_ratio", [(6.0, 2.0), (2.0, 2.0), (4.0, 2.5)])
+def test_simcc_and_regression_target_transforms(sigma, split_ratio):
+    pairs = [(TopDownGenerateSimCCTarget(config=TARGETS, sigma=sigma, split_ratio=split_ratio),
+              JaxSimCCTarget(config=TARGETS, sigma=sigma, split_ratio=split_ratio)),
+             (TopDownGenerateRegressionTarget(config=TARGETS),
+              JaxRegressionTarget(config=TARGETS))]
+    for kpts in _crop_keypoints(np.random.RandomState(13)):
+        for port, jax_t in pairs:
+            got, want = port.transform({"keypoints": kpts}), jax_t.transform({"keypoints": kpts})
+            assert sorted(got) == sorted(want) == ["target", "target_weight"]
+            for key in want:
+                assert got[key].dtype == want[key].dtype
+                np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_keypoint_metrics():
+    """PCK, AUC, EPE and NME, with an instance and a joint never labeled and
+    non-positive normalizers (the instance drops out)."""
+    rng = np.random.RandomState(14)
+    preds = rng.uniform(0, 400, (12, 16, 2))
+    gts = preds + rng.normal(0, 15, (12, 16, 2))
+    mask = rng.uniform(0, 1, (12, 16)) > 0.2
+    mask[0], mask[:, 3] = False, False
+    norm = rng.uniform(20, 200, (12, 2))
+    norm[1, 0], norm[2] = 0.0, -5.0
+    with np.errstate(divide="ignore"):
+        for fn, args in (("normalized_distances", (preds, gts, mask, norm)),
+                         ("normalized_distances", (preds, gts, mask, None)),
+                         ("keypoint_epe", (preds, gts, mask)),
+                         ("keypoint_nme", (preds, gts, mask, norm)),
+                         ("keypoint_auc", (preds, gts, mask, 30.0)),
+                         ("keypoint_auc", (preds, gts, mask, 12.5, 7))):
+            got, want = getattr(keypoint_metrics, fn)(*args), getattr(jax_metrics, fn)(*args)
+            np.testing.assert_array_equal(got, want, err_msg=fn)
+        for thr in (0.05, 0.2, 0.5):
+            got = keypoint_metrics.keypoint_pck_accuracy(preds, gts, mask, thr, norm)
+            want = jax_metrics.keypoint_pck_accuracy(preds, gts, mask, thr, norm)
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1:] == want[1:]
+    empty = np.zeros((3, 16), bool)
+    assert keypoint_metrics.keypoint_epe(preds[:3], gts[:3], empty) == 0.0
+    pck = keypoint_metrics.keypoint_pck_accuracy(preds[:3], gts[:3], empty, 0.5, norm[:3])
+    assert pck[1:] == (0.0, 0)

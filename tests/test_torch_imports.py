@@ -19,7 +19,8 @@ def _port_files():
              ("chip_smoke.py", "profile_serving.py", "profile_train.py", "grad_precision.py",
               os.path.join("tests", "fixtures", "tiny_coco.py"),
               os.path.join("tests", "fixtures", "eval_checks.py"),
-              os.path.join("tests", "fixtures", "grouping_sets.py"))]
+              os.path.join("tests", "fixtures", "grouping_sets.py"),
+              os.path.join("tests", "fixtures", "mpii.py"))]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "mindpose_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)

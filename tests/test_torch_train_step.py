@@ -99,12 +99,6 @@ def test_preprocess_matches_jax():
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
 
 
-@pytest.mark.parametrize("target_type", ["simcc", "regression"])
-def test_preprocess_refuses_unported_targets(target_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_topdown_preprocess(IMAGE_SIZE, HEATMAP_SIZE, MEAN, STD, target_type=target_type)
-
-
 def test_strip_host_target_transform_is_the_original():
     cases = [
         ["topdown_box_to_center_scale", {"topdown_affine": {}},
