@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -182,12 +182,33 @@ no result, when there is no CUDA device or when any phase fails:
     after the last (PCKh and EPE, one decode launch per eval batch); the last
     checkpoint through the eval entry (the callback's PCKh and EPE, one launch
     per batch) and a 40-box request through the serving entry (16 joints, one
-    launch per 32-crop chunk).
+    launch per 32-crop chunk);
+25. the training input modes of hrnet_w32_tpu.yaml: first the first batch
+    of phase 12's train split (128 records, the recipe's augmentations from
+    one seed at one worker) in ``device_pipeline: full`` (uint8 source
+    patches bucketed to 64, warp matrices, keypoints; the flip deferred into
+    the matrix), its crops and targets warped and rendered on the card
+    against the host pipeline's (the cv2 crop within 8.47 on the 0-255
+    scale: cv2 4.x rounds each sample coordinate to 1/32 px and the result
+    to uint8; targets within 1e-5) and against the same preprocess on the CPU (crops
+    within 0.05, targets within 1e-5); then the yaml as parsed (full width,
+    O2, batch 128, adamw) through the train entry on phase 12's data, 3
+    epochs of 10 steps each, evaluating after the last, with host targets,
+    with ``device_pipeline: true`` and with ``device_pipeline: full``
+    (``image_bucket`` 64, the decode cache, frame-grouped shuffling,
+    patch-grouped batching, ``profile: true``): per run img/s with the
+    loader, the step median, the wait per step, the bytes handed to the step
+    per batch, the decode cache's hit rate and peak memory; each holds
+    finite, falling losses, AP above 0 and one decode launch per val batch;
+    the full run's epoch-2 trace (torch.profiler) holds CUDA kernel events
+    and epoch 2's steps only; and its last checkpoint's backbone, written as
+    a published ``.pth``, goes through ``tools/convert_ckpt.py --check`` and
+    ``load_pretrained_backbone`` into a net on the card bit for bit.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 24.
+started is still there after phase 25.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -201,6 +222,7 @@ import itertools
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
+import re
 import statistics
 import subprocess
 import sys
@@ -220,10 +242,13 @@ from mindpose_tpu_torch.data import create_dataset, create_pipeline
 from mindpose_tpu_torch.data.loader import DataLoader, stop_worker_servers
 from mindpose_tpu_torch.data.device_pipeline import (
     BOTTOMUP_DEVICE_FINAL_COLUMNS,
+    DEVICE_FULL_FINAL_COLUMNS,
     build_bottomup_preprocess,
+    build_topdown_full_preprocess,
     build_topdown_preprocess,
     strip_host_target_transform,
     swap_bottomup_target_transform,
+    to_matrix_transforms,
 )
 from mindpose_tpu_torch.data.transform import box_to_center_scale
 from mindpose_tpu_torch.data.transform.utils import transform_keypoints
@@ -244,6 +269,7 @@ from mindpose_tpu_torch.models import (
     create_network_with_loss,
 )
 from mindpose_tpu_torch.ops.cuda.build import load_library
+from mindpose_tpu_torch.ops.image import affine_warp
 from mindpose_tpu_torch.ops.cuda.conv_chain import (
     _launch as conv_chain_launch,
     conv_chain_plain,
@@ -266,6 +292,7 @@ from mindpose_tpu_torch.register import entrypoint
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+from mindpose_tpu_torch.tools import convert_ckpt
 from mindpose_tpu_torch.tools import serve as serve_entry
 from mindpose_tpu_torch.tools import eval as eval_entry
 from mindpose_tpu_torch.tools import train as train_entry
@@ -274,6 +301,7 @@ from mindpose_tpu_torch.utils.match import match_by_tag
 from mindpose_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_net_state_dict,
+    load_pretrained_backbone,
     restore_train_state,
     save_checkpoint,
 )
@@ -545,6 +573,22 @@ MPII_VAL_IMAGES = 96
 MPII_PEOPLE = 2
 MPII_EPOCHS = 3
 MPII_HEATMAP = (16, 64, 64)  # K, H, W of the yaml's 64x64x16 heatmaps
+# phase 25: hrnet_w32_tpu.yaml through the train entry on phase 12's data in
+# three input modes (host targets, device_pipeline true and full), 3 epochs
+# of 10 steps each, evaluating after the last; full mode with its loader
+# options and epoch 2 traced by torch.profiler
+INPUT_EPOCHS = 3
+INPUT_WARMUP = 5
+FULL_BUCKET = 64
+FULL_CACHE_MB = 4096  # phase 12's 640 frames of 360x480 RGB: 332 MB
+FULL_CROP_ATOL = 0.05  # the warp on the card against the CPU's, 0-255 scale
+# the warp against cv2's crop, 0-255 scale: cv2 4.x rounds each sample
+# coordinate to 1/32 px (INTER_BITS 5), up to 1/64 px off on each axis, which a
+# step of 255 between neighbouring pixels turns into 255/64 per axis; then it
+# rounds to uint8 (0.5). cv2 5.0 samples at the float coordinate: 0.505 on
+# a batch of the same kind
+FULL_HOST_ATOL = 2 * 255 / 64 + 0.5
+FULL_TARGET_ATOL = 1e-5
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
 
@@ -1836,7 +1880,7 @@ def train_recipe(args: Config, label: str) -> dict:
     step_median_ms = statistics.median(e["step_median_s"] for e in warm) * 1e3
     losses = [e["loss"] for e in epochs]
     print(f"{label} ({args.backbone_name} + {args.head_name}, {args.amp_level}, batch "
-          f"{args.batch_size}, device_pipeline {bool(getattr(args, 'device_pipeline', False))}): "
+          f"{args.batch_size}, device_pipeline {getattr(args, 'device_pipeline', False)}): "
           f"epochs 2-{len(epochs)} {rate:.1f} img/s with the loader feeding the step, median of "
           f"the epochs' step medians {step_median_ms:.1f} ms, wait on the loader "
           f"{wait * 1e3:.1f} ms per step; {result['step']} steps in {train_s:.1f} s with the "
@@ -3452,6 +3496,224 @@ def mpii_training(root: str, device: torch.device) -> dict:
             "launches": trained["launches"], "eval_launches": evaluated["launches"],
             "serve_launches": serve_launches}
 
+class _FirstRecords:
+    """The first ``n`` records of a dataset: a loader over it gives one batch
+    of ``n`` and ends, so its random draws end with that batch."""
+
+    def __init__(self, dataset, n: int) -> None:
+        self.dataset, self.n = dataset, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        return self.dataset[i]
+
+
+def check_full_mode_batch(args: Config, device: torch.device) -> dict:
+    """Phase 25: the first batch of 128 records of phase 12's train split,
+    with the recipe's augmentations from one seed at one worker, through the
+    host pipeline (cv2 crop, host Gaussian) and through full mode (source
+    patches bucketed to 64, warp matrices, keypoints); full mode's
+    preprocess on the card against the host's crops (within
+    ``FULL_HOST_ATOL``: cv2 4.x rounds each sample coordinate to 1/32 px and
+    the result to uint8) and targets (within 1e-5), and against the same
+    preprocess on the CPU (crops within ``FULL_CROP_ATOL``, targets within
+    1e-5). Returns the errors and the batch's bytes in both modes."""
+    dataset = create_dataset(args.train_root, args.train_label,
+                             dataset_format=args.dataset_format, is_train=True,
+                             config=args.dataset_setting)["dataset"]
+    first = _FirstRecords(dataset, args.batch_size)
+    kwargs = dict(method=args.pipeline_method, batch_size=args.batch_size, is_train=True,
+                  normalize=False, config=args.dataset_setting, seed=SEED, num_workers=1)
+    np.random.seed(SEED)
+    (host,) = list(create_pipeline(first, args.train_transforms, **kwargs,
+                                   final_columns=["image", "target", "target_weight"]))
+    transforms, target_kwargs = strip_host_target_transform(args.train_transforms)
+    np.random.seed(SEED)
+    (full,) = list(create_pipeline(first, to_matrix_transforms(transforms), **kwargs,
+                                   final_columns=DEVICE_FULL_FINAL_COLUMNS,
+                                   image_bucket=FULL_BUCKET))
+    preprocess = build_topdown_full_preprocess(
+        image_size=args.dataset_setting["image_size"],
+        heatmap_size=args.dataset_setting["heatmap_size"],
+        normalize_mean=args.normalize_mean, normalize_std=args.normalize_std, **target_kwargs)
+    inputs = [torch.from_numpy(full[c]) for c in DEVICE_FULL_FINAL_COLUMNS]
+    on_card = [t.to(device) for t in inputs]
+    gpu = [t.cpu() for t in preprocess(*on_card)]
+    cpu = preprocess(*inputs)
+    # the device's share of full mode: its preprocess against device_pipeline
+    # true's (normalize and targets of the host's uint8 crops), and the warp alone
+    w, h = args.dataset_setting["image_size"]
+    crops = torch.from_numpy(host["image"]).to(device)
+    encode = build_topdown_preprocess(
+        image_size=args.dataset_setting["image_size"],
+        heatmap_size=args.dataset_setting["heatmap_size"],
+        normalize_mean=args.normalize_mean, normalize_std=args.normalize_std, **target_kwargs)
+    calls = {"full": lambda: preprocess(*on_card),
+             "warp": lambda: affine_warp(on_card[0], on_card[1], (h, w)),
+             "true": lambda: encode(crops, on_card[2])}
+    timing = {k: {"ms": time_ms(fn, queued=True, iters=10, repeats=5),
+                  "ops": len(device_ops(fn))} for k, fn in calls.items()}
+    print(f"full mode's preprocess of a batch of {args.batch_size} on the card: "
+          f"{timing['full']['ms']:.3f} ms device time, {timing['full']['ops']} device operations "
+          f"(the warp alone {timing['warp']['ms']:.3f} ms, {timing['warp']['ops']} operations); "
+          f"device_pipeline true's {timing['true']['ms']:.3f} ms, {timing['true']['ops']} "
+          f"operations")
+    std = torch.tensor(args.normalize_std) * 255.0
+    mean = torch.tensor(args.normalize_mean) * 255.0
+
+    def pixels(crops):  # normalized NCHW -> NHWC on the 0-255 scale
+        return crops.permute(0, 2, 3, 1) * std + mean
+
+    host_target = torch.from_numpy(host["target"]).permute(0, 3, 1, 2)
+    crop_err = (pixels(gpu[0]) - torch.from_numpy(host["image"]).float()).abs()
+    errs = {
+        "crop_vs_host": float(crop_err.max()),
+        "crop_vs_host_mean": float(crop_err.mean()),
+        "crop_vs_host_over_1": float((crop_err > 1.0).float().mean()),
+        "target_vs_host": float((gpu[1] - host_target).abs().max()),
+        "weight_vs_host": float((gpu[2] - torch.from_numpy(host["target_weight"])).abs().max()),
+        "crop_vs_cpu": float((pixels(gpu[0]) - pixels(cpu[0])).abs().max()),
+        "target_vs_cpu": float((gpu[1] - cpu[1]).abs().max()),
+    }
+    # host targets' batch: float32 crops (normalized on the host), targets, weights
+    host_bytes = 4 * host["image"].size + host["target"].nbytes + host["target_weight"].nbytes
+    full_bytes = sum(full[c].nbytes for c in full)
+    print(f"full mode, first batch ({args.batch_size} records, frames bucketed to "
+          f"{FULL_BUCKET}: {tuple(full['image'].shape)} uint8, {full_bytes} B against "
+          f"{host_bytes} B of float32 crops and targets): the card's crops against the host "
+          f"cv2 {cv2.__version__} crop {errs['crop_vs_host']:.4f} (tolerance "
+          f"{FULL_HOST_ATOL:.4f}), mean {errs['crop_vs_host_mean']:.4f}, share over 1.0 "
+          f"{errs['crop_vs_host_over_1']:.3e}; targets "
+          f"{errs['target_vs_host']:.3e}, weights {errs['weight_vs_host']:.3e} (tolerance "
+          f"{FULL_TARGET_ATOL}); against the CPU: crops {errs['crop_vs_cpu']:.3e} (tolerance "
+          f"{FULL_CROP_ATOL}), targets {errs['target_vs_cpu']:.3e}")
+    if not (errs["crop_vs_host"] <= FULL_HOST_ATOL and errs["crop_vs_cpu"] <= FULL_CROP_ATOL
+            and max(errs["target_vs_host"], errs["weight_vs_host"],
+                    errs["target_vs_cpu"]) <= FULL_TARGET_ATOL):
+        raise AssertionError(f"full mode's first batch disagrees: {errs}")
+    return dict(errs, full_batch_bytes=full_bytes, host_batch_bytes=host_bytes,
+                preprocess=timing)
+
+
+def check_trace(trace_dir: str, steps: range) -> dict:
+    """Phase 25: the profiled run's trace: one Chrome trace file under
+    ``trace_dir`` holding CUDA kernel events and the steps of ``steps`` only."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"{trace_dir} holds {files}, not one trace")
+    path = os.path.join(trace_dir, files[0])
+    # a scan of the text: the file holds ~1.7 million events (457 MB), which
+    # json.load takes many seconds and gigabytes to build
+    with open(path) as f:
+        text = f.read()
+    events = len(re.findall(r'"ph":\s*"', text))
+    kernels = len(re.findall(r'"cat":\s*"kernel"', text))
+    traced = sorted({int(n) for n in re.findall(r'"name":\s*"train step (\d+)"', text)})
+    del text
+    print(f"full mode's epoch-2 trace: {os.path.getsize(path)} B, {events} events, "
+          f"{kernels} CUDA kernel events, train steps {traced[0] if traced else None}-"
+          f"{traced[-1] if traced else None}")
+    if not kernels or traced != list(steps):
+        raise AssertionError(f"the trace holds {kernels} kernel events and steps {traced}, "
+                             f"not epoch 2's {list(steps)}")
+    return {"trace_bytes": os.path.getsize(path), "events": events, "kernels": kernels}
+
+
+def convert_round_trip(root: str, args: Config, ckpt: str, device: torch.device) -> dict:
+    """Phase 25: the backbone of a run's last checkpoint written as a published
+    torch ``.pth`` (its torch names under ``state_dict``, with a classifier),
+    through ``python3 -m mindpose_tpu_torch.tools.convert_ckpt --check`` and
+    ``load_pretrained_backbone`` into a fresh net of ``args`` on the card:
+    every backbone tensor equal to the checkpoint's, bit for bit."""
+    state = load_checkpoint(ckpt)["net"]
+    backbone = {k[len("backbone."):]: v for k, v in state.items() if k.startswith("backbone.")}
+    src = os.path.join(root, "backbone_published.pth")
+    torch.save({"state_dict": dict(backbone, **{"fc.weight": torch.zeros(1000, 2048),
+                                                "fc.bias": torch.zeros(1000)})}, src)
+    out = os.path.join(root, "backbone_converted.pth")
+    convert_ckpt.main(["--src", src, "--arch", args.backbone_name, "--out", out, "--check"])
+    net = create_network(args.backbone_name, args.head_name, num_joints=args.num_joints,
+                         backbone_args=args.backbone_setting,
+                         head_args=args.head_setting).to(device)
+    count = load_pretrained_backbone(out, net)
+    loaded = net.backbone.state_dict()
+    same = all(torch.equal(loaded[k].cpu(), v) for k, v in backbone.items()
+               if not k.endswith("num_batches_tracked"))
+    w, h = args.dataset_setting["image_size"]
+    with torch.no_grad():
+        heat = net.eval()(torch.zeros(1, 3, h, w, device=device))
+    print(f"convert_ckpt round trip: {len(backbone)} backbone tensors of the full-mode run's "
+          f"last checkpoint as a .pth, converted with --check, {count} loaded on "
+          f"{next(net.parameters()).device}; equal to the checkpoint's: {same}; a forward "
+          f"{tuple(heat.shape)}, finite {bool(torch.isfinite(heat).all())}")
+    if not (same and count and torch.isfinite(heat).all()):
+        raise AssertionError("the converted backbone did not load as it was written")
+    return {"tensors": count}
+
+
+def input_modes_training(root: str, data: dict, device: torch.device) -> dict:
+    """Phase 25: hrnet_w32_tpu.yaml (full width, O2, batch 128, adamw) through
+    the train entry on phase 12's data, 3 epochs of 10 steps each, evaluating
+    after the last, in three input modes: host targets; ``device_pipeline:
+    true``; ``device_pipeline: full`` with ``image_bucket`` 64, the decode
+    cache, frame-grouped shuffling, patch-grouped batching and ``profile:
+    true``. First full mode's first batch (``check_full_mode_batch``). Each
+    run holds finite, falling losses, AP above 0 and one decode launch per
+    val batch; the full run's epoch-2 trace holds CUDA kernels. Then a
+    ``convert_ckpt`` round trip of the full run's backbone. Returns each run's
+    numbers, the decode launches and the checks'."""
+    base = recipe_args(RECIPE_YAML, data, os.path.join(root, "input_check"), device)
+    first = check_full_mode_batch(base, device)
+    modes = {
+        "host": (),
+        "device": ("device_pipeline=True",),
+        "full": ("device_pipeline=full", f"image_bucket={FULL_BUCKET}",
+                 f"decode_cache_mb={FULL_CACHE_MB}", "frame_grouped_shuffle=True",
+                 "patch_grouped_batching=True", "profile=True"),
+    }
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // base.batch_size)
+    runs, launches = {}, 0
+    for mode, options in modes.items():
+        ckpt_dir = os.path.join(root, f"input_{mode}")
+        args = recipe_args(RECIPE_YAML, data, ckpt_dir, device, f"num_epochs={INPUT_EPOCHS}",
+                           f"warmup={INPUT_WARMUP}", f"val_interval={INPUT_EPOCHS}", *options)
+        run = train_recipe(args, f"input mode {mode}")
+        epochs = run["result"]["epochs"]
+        last = epochs[-1]  # epoch 3: no profiler in any mode
+        cache = run["result"]["decode_cache"]
+        run.update(
+            batch_bytes=sum(e["batch_bytes"] for e in epochs[1:]) / sum(e["steps"]
+                                                                        for e in epochs[1:]),
+            epoch3_images_per_sec=last["images_per_sec"],
+            epoch3_step_median_ms=last["step_median_s"] * 1e3,
+            epoch3_wait_per_step_ms=last["wait_total_s"] / last["steps"] * 1e3,
+            cache_hit_rate=cache["hits"] / (cache["hits"] + cache["misses"]) if cache else None,
+            decode_cache=cache)
+        print(f"input mode {mode}: {run['batch_bytes']:.0f} B handed to the step per batch; "
+              f"epoch 3 {run['epoch3_images_per_sec']:.1f} img/s, step median "
+              f"{run['epoch3_step_median_ms']:.1f} ms, wait {run['epoch3_wait_per_step_ms']:.1f} "
+              f"ms per step; decode cache {cache} (hit rate {run['cache_hit_rate']}); AP "
+              f"{run['stats'].get('AP')}; decode launches {run['launches']}")
+        if not (run["evaluations"] == 1 and run["stats"]["AP"] > 0
+                and run["launches"] == val_batches):
+            raise AssertionError(f"input mode {mode}: {run['evaluations']} evaluations, AP "
+                                 f"{run['stats'].get('AP')}, {run['launches']} decode launches "
+                                 f"for {val_batches} val batch(es)")
+        if mode == "full":
+            steps = epochs[0]["steps"]
+            run["trace"] = check_trace(os.path.join(ckpt_dir, "trace"),
+                                       range(steps, 2 * steps))
+            run["converted"] = convert_round_trip(
+                root, args, os.path.join(ckpt_dir, "hrnet_w32_tpu_last.ckpt"), device)
+        launches += run["launches"]
+        del run["seen"], run["result"]
+        runs[mode] = run
+        torch.cuda.empty_cache()
+    return {"first_batch": first, "runs": runs, "launches": launches}
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3529,6 +3791,8 @@ def main() -> int:
         rle = family_training(root, entry["data"], device, RLE_YAML)
         mpii_kernel = mpii_decode(device)
         mpii_run = mpii_training(root, device)
+        torch.cuda.empty_cache()
+        input_modes = input_modes_training(root, entry["data"], device)
     check_no_processes_left()
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
                                       ("launches", "eval_launches", "serve_launches")},
@@ -3558,11 +3822,13 @@ def main() -> int:
                      + trained["launches"] + plain["launches"] + plain_eval["launches"]
                      + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]
                      + sum(sum(r.values()) for r in vit_launches.values())
-                     + sum(mpii_launches.values())),
+                     + sum(mpii_launches.values()) + input_modes["launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
         "mpii_launches": mpii_launches,
+        # phase 25: the callback's evaluation of each input mode's run (1 batch each)
+        "input_modes_launches": input_modes["launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],

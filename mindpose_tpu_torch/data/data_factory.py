@@ -3,9 +3,13 @@
 Counterpart of ``mindpose_tpu/data/data_factory.py:21-138``, with the same
 arguments: the top-down and bottom-up train and val pipelines (train:
 shuffled per epoch from ``seed``, the last partial batch dropped), with the
-JAX package's batch rule for bottom-up evaluation (:93-118). An argument
-the port does not support (sharding, bucketing, frame-grouped shuffling, the
-decoded-frame cache, other methods) raises rather than being ignored.
+JAX package's batch rule for bottom-up evaluation (:93-118), and the
+loader options of ``device_pipeline: full`` (``image_bucket``,
+``decode_cache_mb``, ``frame_grouped_shuffle``, ``patch_grouped_batching``)
+passed through. ``hwc_to_chw`` is accepted and not read, as the JAX
+package's ``create_pipeline`` does not read it (batches stay NHWC). An
+argument the port does not support (sharding, other methods) raises rather
+than being ignored.
 """
 import logging
 from typing import Any, Dict, List, Optional, Union
@@ -74,22 +78,14 @@ def create_pipeline(
     """Build the transform pipeline and return a batched DataLoader.
 
     Batches are NHWC numpy arrays (train targets HWK; bottom-up
-    ``[S, Hmax, Wmax, K]`` per record), as the JAX loader gives them; the
-    inferencer and the train entry turn them to NCHW on the device. ``seed`` seeds the training shuffle; evaluation does not read it.
-    ``final_columns`` overrides the method's projection (the device
+    ``[S, Hmax, Wmax, K]`` per record), as the JAX loader gives them, whatever
+    ``hwc_to_chw`` says; the inferencer and the train entry turn them to NCHW
+    on the device. ``seed`` seeds the training shuffle; evaluation does not
+    read it. ``final_columns`` overrides the method's projection (the device
     pipeline ships keypoints in place of targets).
     """
     if method not in FINAL_COLUMN_MAP:
         _refuse(f"method={method!r}", "Queue 1")
-    leftover = "Queue 1, the training entry's leftovers"
-    for name, value, item in (
-            ("hwc_to_chw", hwc_to_chw, leftover),
-            ("decode_cache_mb", decode_cache_mb, leftover),
-            ("frame_grouped_shuffle", frame_grouped_shuffle, leftover),
-            ("image_bucket", image_bucket, "Queue 1, device input pipeline"),
-            ("patch_grouped_batching", patch_grouped_batching, "Queue 1, device input pipeline")):
-        if value:
-            _refuse(f"{name}={value!r}", item)
     bundle = dataset if isinstance(dataset, dict) else {"dataset": dataset, "num_workers": 1}
     if method == "bottomup" and not is_train and batch_size != 1:
         batch_size = _bottomup_val_batch(transforms, config, batch_size)
@@ -105,6 +101,10 @@ def create_pipeline(
         normalize_std=normalize_std,
         num_workers=max(num_workers, bundle.get("num_workers", 1) or 1),
         seed=seed,
+        image_bucket=image_bucket,
+        decode_cache_mb=decode_cache_mb,
+        frame_grouped_shuffle=frame_grouped_shuffle,
+        patch_grouped_batching=patch_grouped_batching,
     )
 
 

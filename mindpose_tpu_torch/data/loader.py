@@ -22,9 +22,17 @@ workers; ``stop_worker_servers`` ends the forkserver and the resource
 tracker that multiprocessing starts beside them, which would otherwise
 outlive the program for a while after it exits.
 
-Sharding (``device_num``/``rank_id`` other than 1/0) waits for DDP, and
-shuffling by frame, bucketing and the decoded-frame cache for a slice that
-uses them; ``data_factory`` refuses them.
+The options of ``device_pipeline: full`` are the JAX loader's, copied:
+``image_bucket`` zero-pads a batch's images to the next multiple of the
+bucket (:294); ``decode_cache_mb`` keeps decoded frames in a byte-budgeted
+LRU shared by the threads, one per process of the pool
+(``DecodedFrameCache``, :43-133), read-only, with concurrent decodes of one
+frame coalesced; ``frame_grouped_shuffle`` shuffles frames and keeps each
+frame's records together (:326); ``patch_grouped_batching`` batches
+records of one bucket shape together (:400-505). With one worker the
+indices, the batches and their bytes are the JAX loader's.
+
+Sharding (``device_num``/``rank_id`` other than 1/0) waits for DDP.
 
 ``DevicePrefetcher`` (:507) serves the train entry's ``device_prefetch: N``:
 on a CUDA device a thread copies each batch from pinned host memory on a
@@ -34,13 +42,14 @@ batches over as tensors.
 import os
 import queue
 import threading
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["DataLoader", "DevicePrefetcher", "stop_worker_servers"]
+__all__ = ["DataLoader", "DecodedFrameCache", "DevicePrefetcher", "stop_worker_servers"]
 
 PREFETCH_BATCHES = 2
 WORKER_MODES = ("thread", "process")
@@ -76,20 +85,98 @@ def _consume(out_q: "queue.Queue", stop: threading.Event):
         stop.set()
 
 
-def _decode_image(state: Dict[str, Any]) -> Dict[str, Any]:
-    """Read + decode the record's image file into an RGB uint8 HWC array."""
-    import cv2
+class DecodedFrameCache:
+    """Byte-budgeted LRU of decoded RGB frames, shared by the loader's threads.
 
+    Top-down training decodes a frame once per person on it, every epoch.
+    The cache keeps each frame once, read-only, so a transform that writes
+    into its input fails instead of changing another record's frame; a
+    frame larger than the whole budget is returned and not kept.
+    ``get_or_decode`` coalesces concurrent decodes of one frame: one thread
+    decodes, the others wait for it (and decode themselves if it failed).
+    """
+
+    def __init__(self, budget_mb: float) -> None:
+        self._budget = int(budget_mb * 1024 * 1024)
+        self._lock = threading.Lock()
+        self._frames: "OrderedDict[str, np.ndarray]" = OrderedDict()
+        self._inflight: Dict[str, threading.Event] = {}
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, path: str) -> Optional[np.ndarray]:
+        with self._lock:
+            arr = self._frames.get(path)
+            if arr is None:
+                self.misses += 1
+            else:
+                self._frames.move_to_end(path)
+                self.hits += 1
+            return arr
+
+    def put(self, path: str, arr: np.ndarray) -> np.ndarray:
+        arr.setflags(write=False)
+        if arr.nbytes > self._budget:
+            return arr
+        with self._lock:
+            if path not in self._frames:
+                while self._bytes + arr.nbytes > self._budget and self._frames:
+                    _, old = self._frames.popitem(last=False)
+                    self._bytes -= old.nbytes
+                self._frames[path] = arr
+                self._bytes += arr.nbytes
+        return arr
+
+    def get_or_decode(self, path: str, decode_fn: Callable[[], np.ndarray]) -> np.ndarray:
+        """The cached frame, or ``decode_fn()``'s, decoded by one thread at a time."""
+        arr = self.get(path)
+        if arr is not None:
+            return arr
+        with self._lock:
+            arr = self._frames.get(path)
+            if arr is not None:
+                self.hits += 1
+                return arr
+            ev = self._inflight.get(path)
+            owner = ev is None
+            if owner:
+                ev = threading.Event()
+                self._inflight[path] = ev
+        if owner:
+            try:
+                arr = decode_fn()
+                arr = self.put(path, arr)
+            finally:
+                with self._lock:
+                    self._inflight.pop(path, None)
+                ev.set()
+            return arr
+        ev.wait()
+        arr = self.get(path)
+        return arr if arr is not None else decode_fn()
+
+
+def _decode_image(state: Dict[str, Any],
+                  cache: Optional[DecodedFrameCache] = None) -> Dict[str, Any]:
+    """Read + decode the record's image file into an RGB uint8 HWC array."""
     path = state["image_file"]
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise FileNotFoundError(f"cannot read image: {path}")
-    state["image"] = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+    def read() -> np.ndarray:
+        import cv2
+
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise FileNotFoundError(f"cannot read image: {path}")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+    state["image"] = read() if cache is None else cache.get_or_decode(path, read)
     return state
 
 
-def _make_record(state: Dict[str, Any], transforms, normalize: bool, mean, std):
-    state = _decode_image(state)
+def _make_record(state: Dict[str, Any], transforms, normalize: bool, mean, std,
+                 cache: Optional[DecodedFrameCache] = None):
+    state = _decode_image(state, cache)
     for t in transforms:
         state = t(state)
     if normalize:
@@ -102,11 +189,12 @@ def _make_record(state: Dict[str, Any], transforms, normalize: bool, mean, std):
 _WORKER_STATE: Dict[str, Any] = {}
 
 
-def _process_worker_init(dataset, transforms, normalize, mean, std, seed):
+def _process_worker_init(dataset, transforms, normalize, mean, std, seed, decode_cache_mb=0):
     from .transform.topdown_transform import _cv2
 
     _WORKER_STATE.update(dataset=dataset, transforms=transforms, normalize=normalize,
-                         mean=mean, std=std)
+                         mean=mean, std=std,
+                         cache=DecodedFrameCache(decode_cache_mb) if decode_cache_mb else None)
     np.random.seed((seed + os.getpid()) % (2**31))
     # the JAX worker inherits the transforms module's 2 threads, then sets 1
     _cv2().setNumThreads(1)
@@ -115,7 +203,7 @@ def _process_worker_init(dataset, transforms, normalize, mean, std, seed):
 def _process_worker_run(idx: int) -> Dict[str, Any]:
     w = _WORKER_STATE
     return _make_record(w["dataset"][int(idx)], w["transforms"], w["normalize"], w["mean"],
-                        w["std"])
+                        w["std"], w["cache"])
 
 
 def stop_worker_servers() -> None:
@@ -153,6 +241,10 @@ class DataLoader:
         drop_remainder: Optional[bool] = None,
         seed: int = 0,
         worker_mode: str = "thread",
+        image_bucket: Optional[int] = None,
+        decode_cache_mb: float = 0,
+        frame_grouped_shuffle: bool = False,
+        patch_grouped_batching: bool = False,
     ) -> None:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -174,8 +266,21 @@ class DataLoader:
         self.drop_remainder = is_train if drop_remainder is None else drop_remainder
         self.seed = seed
         self.worker_mode = worker_mode
+        self.image_bucket = image_bucket
+        self.patch_grouped_batching = patch_grouped_batching
+        self.decode_cache_mb = decode_cache_mb
+        self.decode_cache = DecodedFrameCache(decode_cache_mb) if decode_cache_mb else None
         self.epoch = 0
         self._pool = None  # the process pool, made at the first process-mode pass
+        # frame-grouped shuffling: each frame's records, in dataset order
+        self._frame_groups: Optional[List[np.ndarray]] = None
+        if frame_grouped_shuffle:
+            records = getattr(dataset, "_dataset", None)
+            groups: Dict[Any, List[int]] = {}
+            for i in range(len(dataset)):
+                key = records[i].get("image_file", i) if records is not None else i
+                groups.setdefault(key, []).append(i)
+            self._frame_groups = [np.asarray(v) for v in groups.values()]
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -185,7 +290,7 @@ class DataLoader:
 
     def _process_one(self, idx: int) -> Dict[str, Any]:
         return _make_record(self.dataset[int(idx)], self.transforms, self.normalize, self.mean,
-                            self.std)
+                            self.std, self.decode_cache)
 
     def _collate(self, states: List[Dict[str, Any]]) -> Dict[str, Any]:
         batch: Dict[str, Any] = {}
@@ -193,9 +298,21 @@ class DataLoader:
             vals = [s[col] for s in states]
             if isinstance(vals[0], str):
                 batch[col] = np.array(vals, dtype=object)
+            elif col == "image" and self.image_bucket:
+                batch[col] = self._pad_to_bucket([np.asarray(v) for v in vals])
             else:
                 batch[col] = np.stack([np.asarray(v) for v in vals])
         return batch
+
+    def _pad_to_bucket(self, images: List[np.ndarray]) -> np.ndarray:
+        """The images zero-padded to the batch's largest, rounded up to the bucket."""
+        b = self.image_bucket
+        bh = -(-max(im.shape[0] for im in images) // b) * b
+        bw = -(-max(im.shape[1] for im in images) // b) * b
+        out = np.zeros((len(images), bh, bw) + images[0].shape[2:], images[0].dtype)
+        for i, im in enumerate(images):
+            out[i, :im.shape[0], :im.shape[1]] = im
+        return out
 
     def _process_map(self):
         """The pool's ``map`` in process mode with more than one worker, else None."""
@@ -210,7 +327,7 @@ class DataLoader:
                 processes=self.num_workers,
                 initializer=_process_worker_init,
                 initargs=(self.dataset, self.transforms, self.normalize, self.mean, self.std,
-                          self.seed),
+                          self.seed, self.decode_cache_mb),
             )
         return self._pool.map
 
@@ -230,14 +347,77 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.is_train:
             rng = np.random.RandomState(self.seed + self.epoch)
+            if self._frame_groups is not None:
+                parts = []
+                for g in rng.permutation(len(self._frame_groups)):
+                    grp = self._frame_groups[g].copy()
+                    rng.shuffle(grp)
+                    parts.append(grp)
+                return np.concatenate(parts)
             rng.shuffle(idx)
         return idx
+
+    def _batch_states(self, indices: np.ndarray,
+                      run: Callable[[np.ndarray], List[Dict[str, Any]]]
+                      ) -> Iterator[List[Dict[str, Any]]]:
+        """The epoch's batches as lists of records, ``run`` making the records
+        of a list of indices."""
+        if self.patch_grouped_batching and self.image_bucket:
+            yield from self._patch_grouped(indices, run)
+            return
+        for i in range(len(self)):
+            yield run(indices[i * self.batch_size:(i + 1) * self.batch_size])
+
+    def _patch_grouped(self, indices: np.ndarray,
+                       run: Callable[[np.ndarray], List[Dict[str, Any]]]
+                       ) -> Iterator[List[Dict[str, Any]]]:
+        """Batches of records whose images round up to one bucket shape.
+
+        The records are made in windows of 4 batches, in the epoch's order,
+        and held by their bucket shape; a bucket gives a batch as soon as it
+        holds one. Past 8 batches held, the holder is drained as batches of
+        size-sorted records and the rest held again; the epoch's end drains
+        it the same way, and a last partial batch follows ``drop_remainder``.
+        Every record comes once per epoch.
+        """
+        b, bs = self.image_bucket, self.batch_size
+        buckets: Dict[tuple, list] = {}
+
+        def bucket_key(state) -> tuple:
+            h, w = np.asarray(state["image"]).shape[:2]
+            return (-(-h // b) * b, -(-w // b) * b)
+
+        def drain_sorted(final: bool) -> Iterator[List[Dict[str, Any]]]:
+            rest = sorted((s for v in buckets.values() for s in v),
+                          key=lambda s: (s["image"].shape[0], s["image"].shape[1]))
+            buckets.clear()
+            while len(rest) >= bs:
+                yield rest[:bs]
+                rest = rest[bs:]
+            if final:
+                if rest and not self.drop_remainder:
+                    yield rest
+                return
+            for s in rest:
+                buckets.setdefault(bucket_key(s), []).append(s)
+
+        window = bs * 4
+        for start in range(0, len(indices), window):
+            for s in run(indices[start:start + window]):
+                buckets.setdefault(bucket_key(s), []).append(s)
+            for k in list(buckets):
+                while len(buckets[k]) >= bs:
+                    batch = buckets[k][:bs]
+                    del buckets[k][:bs]
+                    yield batch
+            if sum(len(v) for v in buckets.values()) > bs * 8:
+                yield from drain_sorted(final=False)
+        if any(buckets.values()):
+            yield from drain_sorted(final=True)
 
     def __iter__(self):
         indices = self._epoch_indices()
         self.epoch += 1
-        batch_indices = [indices[i * self.batch_size:(i + 1) * self.batch_size]
-                         for i in range(len(self))]
         out_q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_BATCHES)
         stop = threading.Event()
         process_map = self._process_map()
@@ -245,13 +425,14 @@ class DataLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
-                    for bidx in batch_indices:
+                    def run(idx: np.ndarray) -> List[Dict[str, Any]]:
+                        if process_map is not None:
+                            return process_map(_process_worker_run, [int(i) for i in idx])
+                        return list(ex.map(self._process_one, idx))
+
+                    for states in self._batch_states(indices, run):
                         if stop.is_set():
                             return
-                        if process_map is not None:
-                            states = process_map(_process_worker_run, [int(i) for i in bidx])
-                        else:
-                            states = list(ex.map(self._process_one, bidx))
                         if not _put_until_stopped(out_q, stop, self._collate(states)):
                             return
                 _put_until_stopped(out_q, stop, None)

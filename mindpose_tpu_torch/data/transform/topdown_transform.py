@@ -9,7 +9,11 @@ Copies of ``mindpose_tpu/data/transform/topdown_transform.py``:
 - the transforms, registered under the JAX package's names, for evaluation
   and training: ``topdown_box_to_center_scale`` (with the train-mode center
   jitter, :76-77), ``topdown_affine`` (the host cv2 crop and the keypoints
-  mapped into it, :103-148), ``topdown_generate_target`` (the Gaussian
+  mapped into it, :103-148), ``topdown_affine_matrix`` (the same matrix
+  and keypoints, the pixels left to the device warp of ``device_pipeline:
+  full``: a deferred flip folded into the matrix, and with
+  ``crop_source_patch`` the frame cut to the warp's source rectangle and the
+  matrix rebased onto it, :152-235), ``topdown_generate_target`` (the Gaussian
   heatmaps in HWK layout and the target weights, :237-328),
   ``topdown_horizontal_random_flip`` (:332), ``topdown_halfbody_transform``
   (:371), ``topdown_randomscale_rotation`` (:436), and the targets of the
@@ -21,8 +25,9 @@ Copies of ``mindpose_tpu/data/transform/topdown_transform.py``:
 Every random draw is made on the global ``np.random`` stream, in the JAX
 package's order, so that with one loader worker and one seed the port's
 crops and targets equal the JAX package's bit for bit. The flip's
-``defer_to_warp`` serves ``device_pipeline: full`` (ROADMAP.md, Queue 1,
-device input pipeline) and raises. cv2 is imported, with ``cv2.setNumThreads(2)`` as the JAX module
+``defer_to_warp`` (``device_pipeline: full``) draws as the host flip does,
+leaves the pixels alone and flags the record (``hflip``) for
+``topdown_affine_matrix``. cv2 is imported, with ``cv2.setNumThreads(2)`` as the JAX module
 sets at import, when a transform first needs it, so serving never imports
 it. tests/test_torch_host_copies.py, tests/test_torch_eval_copies.py and
 tests/test_torch_train_loader.py hold each copy equal to its original
@@ -37,15 +42,18 @@ from ...register import register
 from .transform import Transform
 from .utils import (
     affine_transform,
+    compose_affine,
     fliplr_joints,
     flip_index_from_pairs,
     get_affine_transform,
     get_warp_matrix,
+    hflip_matrix,
     warp_affine_joints,
 )
 
 __all__ = ["box_to_center_scale", "crop_matrix", "TopDownTransform",
-           "TopDownBoxToCenterScale", "TopDownAffine", "TopDownGenerateTarget",
+           "TopDownBoxToCenterScale", "TopDownAffine", "TopDownAffineMatrix",
+           "TopDownGenerateTarget",
            "TopDownHorizontalRandomFlip", "TopDownHalfBodyTransform",
            "TopDownRandomScaleRotation", "TopDownGenerateSimCCTarget",
            "TopDownGenerateRegressionTarget"]
@@ -168,10 +176,10 @@ class TopDownAffine(TopDownTransform):
         super().__init__(is_train=is_train, config=config)
         self.use_udp = use_udp
 
-    def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
+    def _matrix_and_keypoints(self, state: Dict[str, Any]) -> Tuple[np.ndarray, Dict[str, Any]]:
+        """The crop's matrix, and the record's keypoints mapped through it."""
         cfg = self._transform_cfg
-        image_size = cfg["image_size"]
-        trans = crop_matrix(state["center"], state["scale"], image_size, cfg["pixel_std"],
+        trans = crop_matrix(state["center"], state["scale"], cfg["image_size"], cfg["pixel_std"],
                             self.use_udp, state.get("rotation", 0.0))
         out: Dict[str, Any] = {}
         if "keypoints" in state:
@@ -183,6 +191,11 @@ class TopDownAffine(TopDownTransform):
                     if keypoints[i, 2] > 0.0:
                         keypoints[i, 0:2] = affine_transform(keypoints[i, 0:2], trans)
             out["keypoints"] = keypoints
+        return trans, out
+
+    def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        image_size = self._transform_cfg["image_size"]
+        trans, out = self._matrix_and_keypoints(state)
         out["image"] = _cv2().warpAffine(
             state["image"],
             np.asarray(trans, dtype=np.float64),
@@ -190,6 +203,69 @@ class TopDownAffine(TopDownTransform):
             flags=_cv2().INTER_LINEAR,
         )
         return out
+
+
+@register("transform", extra_name="topdown_affine_matrix")
+class TopDownAffineMatrix(TopDownAffine):
+    """``topdown_affine`` for ``device_pipeline: full``: the matrix and the
+    keypoints, with the pixels left to the device warp
+    (``ops/image.affine_warp``). A deferred flip (``state["hflip"]``) is
+    folded into the matrix: the keypoints and center are already mirrored,
+    so the warp mirrors the original frame first.
+
+    ``crop_source_patch`` (on by default) ships only the axis-aligned source
+    rectangle that the crop samples (the preimage of the crop's corners,
+    with ``patch_margin`` pixels for the bilinear support, clamped to the
+    frame) and rebases the matrix onto it. Every pixel the warp reads lies
+    in the patch and outside the frame reads 0 in both, so the warp is the
+    frame's up to float32 rounding: the rebased translation reorders the sum
+    of each sample coordinate.
+    """
+
+    def __init__(self, is_train: bool = True, config: Optional[Dict[str, Any]] = None,
+                 use_udp: bool = False, crop_source_patch: bool = True,
+                 patch_margin: int = 2) -> None:
+        super().__init__(is_train=is_train, config=config, use_udp=use_udp)
+        self.crop_source_patch = crop_source_patch
+        self.patch_margin = int(patch_margin)
+
+    def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        trans, out = self._matrix_and_keypoints(state)
+        if state.get("hflip", False):
+            trans = compose_affine(trans, hflip_matrix(state["image"].shape[1]))
+        if self.crop_source_patch:
+            out["image"], trans = self._crop_to_patch(state["image"], trans)
+        out["warp_mat"] = np.asarray(trans, np.float32)
+        return out
+
+    def _crop_to_patch(self, frame: np.ndarray,
+                       trans: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """The frame cut to the warp's source rectangle, and the matrix rebased onto it."""
+        h, w = frame.shape[:2]
+        ow, oh = (int(x) for x in self._transform_cfg["image_size"])
+        m = np.vstack([np.asarray(trans, np.float64), [0.0, 0.0, 1.0]])
+        corners = np.array(
+            [[0, 0, 1], [ow - 1, 0, 1], [0, oh - 1, 1], [ow - 1, oh - 1, 1]],
+            np.float64,
+        ).T
+        src = np.linalg.inv(m) @ corners  # [3, 4] source coords
+        mg = self.patch_margin
+        x0 = max(0, int(np.floor(src[0].min())) - mg)
+        y0 = max(0, int(np.floor(src[1].min())) - mg)
+        x1 = min(w, int(np.ceil(src[0].max())) + mg + 1)
+        y1 = min(h, int(np.ceil(src[1].max())) + mg + 1)
+        # a box wholly off the frame keeps a 1-pixel patch: its samples are
+        # off the frame and read 0 either way, as cv2's border does
+        x0 = min(x0, w - 1)
+        y0 = min(y0, h - 1)
+        x1 = max(x1, x0 + 1)
+        y1 = max(y1, y0 + 1)
+        patch = np.ascontiguousarray(frame[y0:y1, x0:x1])
+        # patch coordinates q are source s = q + (x0, y0): trans'(q) = A q + (A @ offset + b)
+        a = np.asarray(trans, np.float64)[:, :2]
+        b = np.asarray(trans, np.float64)[:, 2]
+        b2 = a @ np.array([x0, y0], np.float64) + b
+        return patch, np.concatenate([a, b2[:, None]], axis=1)
 
 
 @register("transform", extra_name="topdown_generate_target")
@@ -297,12 +373,11 @@ class TopDownHorizontalRandomFlip(TopDownTransform):
         flip_prob: float = 0.5,
         defer_to_warp: bool = False,
     ) -> None:
-        if defer_to_warp:
-            raise NotImplementedError(
-                "defer_to_warp serves device_pipeline: full, which is not ported yet "
-                "(ROADMAP.md, Queue 1, device input pipeline)")
         super().__init__(is_train=is_train, config=config)
         self.flip_prob = flip_prob
+        # device_pipeline: full leaves the pixels alone and flags the flip,
+        # which topdown_affine_matrix folds into the warp matrix
+        self.defer_to_warp = defer_to_warp
 
     def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
         image = state["image"]
@@ -310,7 +385,8 @@ class TopDownHorizontalRandomFlip(TopDownTransform):
         center = state["center"]
 
         if np.random.rand() <= self.flip_prob:
-            image = _cv2().flip(image, 1)
+            if not self.defer_to_warp:
+                image = _cv2().flip(image, 1)
             flip_index = self._transform_cfg["flip_index"]
             if len(flip_index) != keypoints.shape[-2]:
                 # trailing unpaired joints (cfg index inferred K = max+1)
@@ -322,6 +398,8 @@ class TopDownHorizontalRandomFlip(TopDownTransform):
             )
             center = center.copy()
             center[0] = image.shape[1] - center[0]
+            if self.defer_to_warp:
+                return dict(keypoints=keypoints, center=center, hflip=True)
         return dict(image=image, keypoints=keypoints, center=center)
 
 

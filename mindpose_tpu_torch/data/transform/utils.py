@@ -3,7 +3,9 @@
 Copies of ``mindpose_tpu/data/transform/utils.py``: the joints' horizontal
 flip and its permutation (:15-66), the center/scale -> affine-matrix
 construction (pixel_std=200 convention), a 2x3 matrix applied to a point
-(:125), the UDP closed-form warp matrix (:142-167), a matrix applied to
+(:125), the composition of two 2x3 matrices and the horizontal mirror's
+matrix (:130-139; the full device pipeline folds a deferred flip into the
+warp with them), the UDP closed-form warp matrix (:142-167), a matrix applied to
 joint arrays (:170), the zero-padding of arrays to their common shape
 (``pad_to_same``, :176) and the bottom-up back-projection of grouped
 keypoints to the original frame (``transform_keypoints``, :186).
@@ -21,6 +23,8 @@ __all__ = [
     "rotate_point",
     "get_affine_transform",
     "affine_transform",
+    "compose_affine",
+    "hflip_matrix",
     "get_warp_matrix",
     "warp_affine_joints",
     "pad_to_same",
@@ -138,6 +142,18 @@ def get_affine_transform(
 def affine_transform(pt: Sequence[float], trans_mat: np.ndarray) -> np.ndarray:
     """Apply a 2x3 affine matrix to a single 2D point."""
     return np.asarray(trans_mat) @ np.array([pt[0], pt[1], 1.0])
+
+
+def compose_affine(outer: np.ndarray, inner: np.ndarray) -> np.ndarray:
+    """2x3 composition: (outer o inner)(p) = outer(inner(p))."""
+    o = np.vstack([np.asarray(outer, np.float64), [0.0, 0.0, 1.0]])
+    i = np.vstack([np.asarray(inner, np.float64), [0.0, 0.0, 1.0]])
+    return (o @ i)[:2]
+
+
+def hflip_matrix(width: float) -> np.ndarray:
+    """2x3 matrix for horizontal mirroring: x -> width - 1 - x."""
+    return np.array([[-1.0, 0.0, width - 1.0], [0.0, 1.0, 0.0]], np.float64)
 
 
 def get_warp_matrix(

@@ -18,7 +18,20 @@ memory, N batches ahead) and turned to NCHW on the device (the joint axis
 before the spatial ones), where the net and the loss take them.
 ``device_pipeline: true`` ships the crops and their keypoints instead
 (bottom-up: the warped image, its per-level keypoints, mask and tag
-indices), and the step renders the targets on the device. As in
+indices), and the step renders the targets on the device.
+``device_pipeline: full`` (top-down, :164-221) stops the host at the
+decode: it ships uint8 source patches bucketed to ``image_bucket``
+(default 64) with their warp matrices, and the step warps, normalizes and
+renders; ``decode_cache_mb``, ``frame_grouped_shuffle`` and
+``patch_grouped_batching`` pass to the loader. Bottom-up takes any truthy
+``device_pipeline`` as ``true``, as the JAX entry does (:135).
+``profile: true`` traces epoch 2 with ``torch.profiler`` into
+``profile_dir`` (default ``<ckpt_save_dir>/trace``), stopping before the
+epoch's evaluation and checkpoint (:476-483). An ``http(s)://``
+``backbone_ckpt_url`` is downloaded, then loaded. Each epoch's record
+also holds ``batch_bytes``, the bytes of the batches handed to the step
+(uploaded, on the card), and the result the decoded-frame cache's hits
+and misses. As in
 the JAX entry, a resumed run counts its epochs from 1 while the step count,
 and with it the schedule, continues.
 
@@ -26,8 +39,8 @@ The entry runs on the current CUDA device unless ``--device`` says
 otherwise, and raises without CUDA. ``parallel_mode: fsdp`` with one
 visible device trains as the JAX entry does on a mesh of one: nothing is
 sharded. It raises on a config key it does not read and on one whose
-setting is not ported (each message names its ROADMAP item); it ignores
-none.
+setting is not ported (DDP, FSDP over more than one card, distillation;
+each message names its ROADMAP item); it ignores none.
 
 Usage:
     python3 -m mindpose_tpu_torch.tools.train --config configs/hrnet/hrnet_w32_tpu.yaml \\
@@ -46,10 +59,14 @@ from ..data import create_dataset, create_pipeline
 from ..data.column_names import FINAL_COLUMN_MAP
 from ..data.device_pipeline import (
     BOTTOMUP_DEVICE_FINAL_COLUMNS,
+    DEVICE_FINAL_COLUMNS,
+    DEVICE_FULL_FINAL_COLUMNS,
     build_bottomup_preprocess,
+    build_topdown_full_preprocess,
     build_topdown_preprocess,
     strip_host_target_transform,
     swap_bottomup_target_transform,
+    to_matrix_transforms,
 )
 from ..data.loader import DevicePrefetcher
 from ..engine import create_evaluator, create_inferencer
@@ -71,6 +88,7 @@ from ..utils.checkpoint import (
     wait_pending_checkpoints,
 )
 from ..utils.misc import StepTimer
+from ..utils.profiler import StepTraceContext, trace
 
 __all__ = ["train", "check_config", "parse_train_args"]
 
@@ -92,19 +110,13 @@ KNOWN_KEYS = frozenset("""
 """.split())
 
 # key -> (refused when, why); each names the ROADMAP item that ports it
-_LEFTOVERS = "ROADMAP.md, Queue 1, the training entry's leftovers"
 _REFUSED = {
     "distributed_init": (bool, "multi-process training comes with DDP (ROADMAP.md, Queue 1, "
                                "DDP)"),
     "model_parallel": (bool, "model_parallel serves FSDP over more than one device "
                              "(ROADMAP.md, Queue 1, DDP: FSDP)"),
-    "device_pipeline": (lambda v: str(v).lower() == "full",
-                        "device_pipeline: full is not ported (ROADMAP.md, Queue 1, device "
-                        "input pipeline)"),
     "distill_setting": (bool, "distillation is not ported (ROADMAP.md, Queue 1, the rest: "
                               "distillation)"),
-    "profile": (bool, f"profile is not ported ({_LEFTOVERS}; profile_train.py profiles the "
-                      "step)"),
     "allow_divergent_knobs": (bool, "the port refuses the divergent BatchNorm and optimizer "
                                     "knobs themselves, so there is nothing to allow"),
 }
@@ -122,11 +134,6 @@ def check_config(args: Any) -> None:
     for key, (refused, why) in _REFUSED.items():
         if refused(getattr(args, key, None)):
             raise NotImplementedError(f"{key}={getattr(args, key)!r}: {why}")
-    url = str(getattr(args, "backbone_ckpt_url", "") or "")
-    if getattr(args, "backbone_pretrained", False) and url.startswith(("http://", "https://")):
-        raise NotImplementedError(
-            f"backbone_ckpt_url={url!r}: downloading a backbone is not ported ({_LEFTOVERS}: "
-            "URL download); pass a local path or file://")
 
 
 def _parallel_mode(args: Any) -> str:
@@ -158,9 +165,11 @@ def train(args: Any) -> Dict[str, Any]:
 
     The result: ``epochs``, one dict per epoch (``loss``, the epoch's mean
     summed loss; ``lr``; ``metrics``, the evaluation's, or {}; and the
-    ``StepTimer`` summary), ``start_step`` and ``step``, the step counts at
-    the start and at the end, and ``pretrained_tensors``, the count of
-    tensors a pretrained backbone gave (0 without one).
+    ``StepTimer`` summary, and ``batch_bytes``, the bytes of the epoch's
+    batches), ``start_step`` and ``step``, the step counts at the start and
+    at the end, ``pretrained_tensors``, the count of tensors a pretrained
+    backbone gave (0 without one), and ``decode_cache``, the decoded-frame
+    cache's ``hits`` and ``misses`` (None without one).
     """
     check_config(args)
     device = _device(args)
@@ -173,10 +182,11 @@ def train(args: Any) -> Dict[str, Any]:
     dataset_train = create_dataset(
         args.train_root, args.train_label, dataset_format=args.dataset_format, is_train=True,
         num_workers=workers, config=args.dataset_setting)
-    device_pipeline = bool(getattr(args, "device_pipeline", False))
+    device_pipeline = getattr(args, "device_pipeline", False)
     train_transforms = args.train_transforms
     preprocess = None
     final_columns = FINAL_COLUMN_MAP[args.pipeline_method]["train"]
+    image_bucket = None
     if device_pipeline and args.pipeline_method == "bottomup":
         # the host stops at the warp and the tag indices; normalize and the
         # multi-level targets run in the step
@@ -186,20 +196,27 @@ def train(args: Any) -> Dict[str, Any]:
             normalize_mean=args.normalize_mean, normalize_std=args.normalize_std, sigma=sigma)
         final_columns = BOTTOMUP_DEVICE_FINAL_COLUMNS
     elif device_pipeline:
-        # the host stops at the affine crop; normalize and targets run in the step
         train_transforms, target_kwargs = strip_host_target_transform(train_transforms)
-        preprocess = build_topdown_preprocess(
-            image_size=args.dataset_setting["image_size"],
-            heatmap_size=args.dataset_setting["heatmap_size"],
-            normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
-            **target_kwargs)
-        final_columns = ["image", "keypoints"]
+        pp_kwargs = dict(image_size=args.dataset_setting["image_size"],
+                         heatmap_size=args.dataset_setting["heatmap_size"],
+                         normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
+                         **target_kwargs)
+        if str(device_pipeline).lower() == "full":
+            # the host stops at the decode; warp, normalize and targets run in the step
+            train_transforms = to_matrix_transforms(train_transforms)
+            preprocess = build_topdown_full_preprocess(**pp_kwargs)
+            final_columns = DEVICE_FULL_FINAL_COLUMNS
+            image_bucket = int(getattr(args, "image_bucket", 64) or 64)
+        else:
+            # the host stops at the affine crop; normalize and targets run in the step
+            preprocess = build_topdown_preprocess(**pp_kwargs)
+            final_columns = DEVICE_FINAL_COLUMNS
     loader_train = create_pipeline(
         dataset_train, transforms=train_transforms, method=args.pipeline_method,
         batch_size=args.batch_size, is_train=True, normalize=not device_pipeline,
         normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
         num_workers=workers, config=args.dataset_setting, seed=seed,
-        final_columns=final_columns, image_bucket=getattr(args, "image_bucket", None),
+        final_columns=final_columns, image_bucket=image_bucket,
         decode_cache_mb=getattr(args, "decode_cache_mb", 0) or 0,
         frame_grouped_shuffle=bool(getattr(args, "frame_grouped_shuffle", False)),
         patch_grouped_batching=bool(getattr(args, "patch_grouped_batching", False)))
@@ -227,7 +244,7 @@ def train(args: Any) -> Dict[str, Any]:
         in_channels=getattr(args, "in_channels", 3), num_joints=args.num_joints,
         backbone_args=getattr(args, "backbone_setting", None),
         head_args=getattr(args, "head_setting", None)).to(device)
-    # a local path or file:// (tools/train.py:270-280)
+    # a local path, file:// or http(s):// (tools/train.py:270-280)
     pretrained_path = getattr(args, "backbone_ckpt_url", "") or ""
     pretrained_tensors = 0
     if getattr(args, "backbone_pretrained", False):
@@ -327,29 +344,37 @@ def train(args: Any) -> Dict[str, Any]:
         order = (0, 3, 1, 2) if target.dim() == 4 else (0, 1, 4, 2, 3)
         return [image, target.permute(*order).contiguous(), *extra]
 
+    profile = bool(getattr(args, "profile", False))
+    profile_dir = getattr(args, "profile_dir", None) or os.path.join(ckpt_dir, "trace")
     epochs = []
     try:
         for epoch in range(1, args.num_epochs + 1):
             timer = StepTimer()  # per epoch: the first includes cuDNN's autotuning
+            batch_bytes = 0
             callback.on_epoch_begin(epoch)
-            batches = iter(device_batches())
-            while True:
-                timer.start()
-                try:
-                    arrays = next(batches)
-                except StopIteration:
-                    break
-                timer.loaded()
-                loss_vec = step_fn(*step_inputs(arrays))
-                if ema_step is not None:
-                    ema_step(ema_params, dict(net.named_parameters()))
-                callback.on_step_end(loss_vec)
-                timer.stop(arrays[0].shape[0])
+            # profile epoch 2 (the first holds cuDNN's autotuning); the trace
+            # stops before the evaluation and the checkpoint
+            with trace(profile_dir, enabled=profile and epoch == 2, device=device):
+                batches = iter(device_batches())
+                while True:
+                    timer.start()
+                    try:
+                        arrays = next(batches)
+                    except StopIteration:
+                        break
+                    timer.loaded()
+                    batch_bytes += sum(a.numel() * a.element_size() for a in arrays)
+                    with StepTraceContext("train", step_fn.count):
+                        loss_vec = step_fn(*step_inputs(arrays))
+                    if ema_step is not None:
+                        ema_step(ema_params, dict(net.named_parameters()))
+                    callback.on_step_end(loss_vec)
+                    timer.stop(arrays[0].shape[0])
             lr_now = lr_scheduler(step_fn.count)
             metrics = callback.on_epoch_end(epoch, net, optimizer, step_fn.count, lr_now,
                                             ema_params=ema_params)
             epochs.append(dict(timer.summary(), epoch=epoch, loss=callback.loss_meter.avg,
-                               lr=lr_now, metrics=metrics))
+                               lr=lr_now, metrics=metrics, batch_bytes=batch_bytes))
             logging.info("throughput: %.1f images/sec", timer.images_per_sec)
         wait_pending_checkpoints()
     except BaseException:
@@ -361,8 +386,10 @@ def train(args: Any) -> Dict[str, Any]:
         except Exception:
             logging.exception("failed to save crash checkpoint")
         raise
+    cache = loader_train.decode_cache
     return {"epochs": epochs, "start_step": start_step, "step": step_fn.count,
-            "pretrained_tensors": pretrained_tensors}
+            "pretrained_tensors": pretrained_tensors,
+            "decode_cache": {"hits": cache.hits, "misses": cache.misses} if cache else None}
 
 
 def parse_train_args(argv=None) -> Any:

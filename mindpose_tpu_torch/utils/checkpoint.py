@@ -284,24 +284,28 @@ def _backbone_entries(net: torch.nn.Module):
             if path[0] == "backbone"]
 
 
-def load_pretrained_backbone(path: str, net: torch.nn.Module) -> int:
+def load_pretrained_backbone(path: str, net: torch.nn.Module,
+                             download_root: Optional[str] = None) -> int:
     """Non-strict load of ``net.backbone``'s parameters and BatchNorm
     statistics from a checkpoint; returns the count of (flax) tensors taken.
 
     Counterpart of the JAX package's ``load_pretrained_backbone``: a local
-    path or ``file://``; a flax msgpack file (``tools/convert_ckpt.py``'s,
-    or a TrainState) or a port file. Its ``params`` and ``batch_stats``
-    (the root when there is no ``params``), their ``backbone`` subtree when
-    there is one, merge into the net's where shapes match; a
-    ``pos_embedding`` of another grid is resized as ``jax.image.resize``
-    does. An ``http(s)://`` URL raises: downloading is not ported.
+    path, ``file://``, or an ``http(s)://`` URL, downloaded first
+    (``utils/download.py``, kept and reused under ``download_root``, by
+    default ``get_default_download_root()``); a flax msgpack file (the JAX
+    package's ``tools/convert_ckpt.py``'s, or a TrainState) or a port file
+    (the port's ``tools/convert_ckpt.py``'s, or a ``torch.save`` of a net).
+    Its ``params`` and ``batch_stats`` (the root when there is no
+    ``params``), their ``backbone`` subtree when there is one, merge into the
+    net's where shapes match; a ``pos_embedding`` of another grid is resized
+    as ``jax.image.resize`` does.
     """
     if path.startswith("file://"):
         path = path[len("file://"):]
     elif path.startswith(("http://", "https://")):
-        raise NotImplementedError(
-            f"downloading {path!r} is not ported (ROADMAP.md, Queue 1, the training entry's "
-            "leftovers: URL download); pass a local path or file://")
+        from .download import DownLoad
+
+        path = DownLoad().download_url(path, path=download_root)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"pretrained backbone checkpoint not found: {path!r}")
     raw = _source_variables(path, net)

@@ -294,12 +294,21 @@ def test_pipeline_refuses_what_it_does_not_support(tiny):
                            config=DATASET_SETTING, use_gt_bbox_for_val=True)
     ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
                         use_gt_bbox_for_val=True)
-    for kwargs in ({"method": "imagefolder_bottomup"}, {"decode_cache_mb": 64},
-                   {"image_bucket": 32}, {"hwc_to_chw": True}, {"frame_grouped_shuffle": True},
-                   {"patch_grouped_batching": True}):
-        with pytest.raises(NotImplementedError):
-            create_pipeline(ds, VAL_TRANSFORMS, **dict({"is_train": False}, **kwargs),
-                            config=DATASET_SETTING)
+    with pytest.raises(NotImplementedError):
+        create_pipeline(ds, VAL_TRANSFORMS, is_train=False, method="imagefolder_bottomup",
+                        config=DATASET_SETTING)
+    # accepted: device_pipeline: full's loader options, and hwc_to_chw, which
+    # the JAX package's create_pipeline does not read either (batches stay NHWC)
+    plain = next(iter(create_pipeline(ds, VAL_TRANSFORMS, is_train=False,
+                                      config=DATASET_SETTING)))
+    for kwargs in ({"decode_cache_mb": 64}, {"image_bucket": 32}, {"hwc_to_chw": True},
+                   {"frame_grouped_shuffle": True}, {"patch_grouped_batching": True}):
+        batch = next(iter(create_pipeline(ds, VAL_TRANSFORMS, **dict({"is_train": False},
+                                                                     **kwargs),
+                                          config=DATASET_SETTING)))
+        assert batch["image"].shape[-1] == 3
+        if "image_bucket" not in kwargs:
+            np.testing.assert_array_equal(batch["image"], plain["image"])
     # bottom-up training is ported: the same call builds a train loader
     loader = create_pipeline(ds, VAL_TRANSFORMS, **dict({"is_train": False}, method="bottomup",
                                                         is_train=True), config=DATASET_SETTING)

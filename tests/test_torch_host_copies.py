@@ -6,7 +6,11 @@ Gaussian kernel, and the bottom-up host path (the host Hungarian matcher
 ``utils/match.py``, ``transform_keypoints``, ``bottomup_rescale``,
 ``bottomup_pad`` and the levels' ``pad_to_same``), the SimCC and
 regression target transforms and MPII's distance metrics
-(``utils/keypoint_metrics.py``) live in the port as copies (the bottom-up
+(``utils/keypoint_metrics.py``), ``device_pipeline: full``'s host side
+(``topdown_affine_matrix`` with its source patch, the deferred flip, the
+matrices' composition and mirror, ``DecodedFrameCache``), the backbone
+converter's host side (``utils/ms_ckpt.py``, ``normalize_source_keys``) and
+``utils/download.py`` live in the port as copies (the bottom-up
 train transforms' own test is tests/test_torch_bottomup_train_data.py);
 these tests pin each copy to its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
@@ -22,9 +26,16 @@ from mindpose_tpu.data.transform.bottomup_transform import BottomUpPad as JaxBot
 from mindpose_tpu.data.transform.bottomup_transform import (
     BottomUpRescale as JaxBottomUpRescale,
 )
+from mindpose_tpu.data.loader import DecodedFrameCache as JaxDecodedFrameCache
 from mindpose_tpu.data.transform.topdown_transform import (
     TopDownAffine,
     TopDownBoxToCenterScale,
+)
+from mindpose_tpu.data.transform.topdown_transform import (
+    TopDownAffineMatrix as JaxTopDownAffineMatrix,
+)
+from mindpose_tpu.data.transform.topdown_transform import (
+    TopDownHorizontalRandomFlip as JaxTopDownHorizontalRandomFlip,
 )
 from mindpose_tpu.data.transform.topdown_transform import (
     TopDownGenerateRegressionTarget as JaxRegressionTarget,
@@ -32,19 +43,28 @@ from mindpose_tpu.data.transform.topdown_transform import (
 from mindpose_tpu.data.transform.topdown_transform import (
     TopDownGenerateSimCCTarget as JaxSimCCTarget,
 )
+from mindpose_tpu.models.backbones.convert import (
+    normalize_source_keys as jax_normalize_source_keys,
+)
 from mindpose_tpu.ops.heatmap import gaussian_kernel_2d as jax_gaussian_kernel_2d
+from mindpose_tpu.utils import download as jax_download
 from mindpose_tpu.utils import keypoint_metrics as jax_metrics
+from mindpose_tpu.utils import ms_ckpt as jax_ms_ckpt
 from mindpose_tpu.utils.match import match_by_tag as jax_match_by_tag
+from mindpose_tpu_torch.data.loader import DecodedFrameCache
 from mindpose_tpu_torch.data.transform import utils
 from mindpose_tpu_torch.data.transform.bottomup_transform import BottomUpPad, BottomUpRescale
 from mindpose_tpu_torch.data.transform.topdown_transform import (
+    TopDownAffineMatrix,
     TopDownGenerateRegressionTarget,
+    TopDownHorizontalRandomFlip,
     TopDownGenerateSimCCTarget,
     box_to_center_scale,
     crop_matrix,
 )
+from mindpose_tpu_torch.models.convert_source import normalize_source_keys
 from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
-from mindpose_tpu_torch.utils import keypoint_metrics
+from mindpose_tpu_torch.utils import download, keypoint_metrics, ms_ckpt
 from mindpose_tpu_torch.utils.match import match_by_tag
 from tests.fixtures.grouping_sets import ORDER, candidate_sets
 
@@ -314,3 +334,148 @@ def test_keypoint_metrics():
     assert keypoint_metrics.keypoint_epe(preds[:3], gts[:3], empty) == 0.0
     pck = keypoint_metrics.keypoint_pck_accuracy(preds[:3], gts[:3], empty, 0.5, norm[:3])
     assert pck[1:] == (0.0, 0)
+
+
+def test_affine_composition_and_mirror():
+    rng = np.random.RandomState(21)
+    for _ in range(20):
+        outer, inner = rng.randn(2, 3) * 50, rng.randn(2, 3) * 50
+        np.testing.assert_array_equal(utils.compose_affine(outer, inner),
+                                      jax_utils.compose_affine(outer, inner))
+        width = float(rng.uniform(10, 900))
+        np.testing.assert_array_equal(utils.hflip_matrix(width), jax_utils.hflip_matrix(width))
+
+
+FULL_SETTING = dict(SETTING, flip_pairs=[[1, 2], [3, 4]])
+
+
+def _matrix_states(rng, n=40):
+    """Records as they reach topdown_affine_matrix: frames of many sizes,
+    boxes on and off them, rotations, flips deferred or not."""
+    for i in range(n):
+        h, w = int(rng.randint(60, 500)), int(rng.randint(60, 500))
+        yield {
+            "image": rng.randint(0, 256, (h, w, 3), dtype=np.uint8),
+            "center": np.array([rng.uniform(-40, w + 40), rng.uniform(-40, h + 40)], np.float32),
+            "scale": rng.uniform(0.2, 3.0, 2).astype(np.float32),
+            "rotation": np.float32(rng.uniform(-60, 60) if i % 3 else 0.0),
+            "keypoints": np.concatenate([rng.uniform(-20, 520, (5, 2)),
+                                         rng.randint(0, 3, (5, 1))], 1).astype(np.float32),
+            "hflip": bool(i % 2),
+        }
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"use_udp": True}, {"crop_source_patch": False},
+                                    {"patch_margin": 0}, {"patch_margin": 5, "use_udp": True}],
+                         ids=str)
+def test_topdown_affine_matrix(kwargs):
+    """Patch, warp matrix and keypoints bit for bit, from the JAX transform's inputs."""
+    port = TopDownAffineMatrix(is_train=True, config=FULL_SETTING, **kwargs)
+    jax = JaxTopDownAffineMatrix(is_train=True, config=FULL_SETTING, **kwargs)
+    for i, state in enumerate(_matrix_states(np.random.RandomState(22))):
+        got, want = port.transform(dict(state)), jax.transform(dict(state))
+        assert sorted(got) == sorted(want), i
+        for key in want:
+            assert got[key].dtype == want[key].dtype, (i, key)
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"record {i}: {key}")
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_horizontal_flip_deferred_or_not(defer):
+    """The same draws, keypoints and center; the deferred flip flags the
+    record and leaves its pixels alone, the host flip mirrors them."""
+    port = TopDownHorizontalRandomFlip(is_train=True, config=FULL_SETTING, flip_prob=0.5,
+                                       defer_to_warp=defer)
+    jax = JaxTopDownHorizontalRandomFlip(is_train=True, config=FULL_SETTING, flip_prob=0.5,
+                                         defer_to_warp=defer)
+    flips = 0
+    for i, state in enumerate(_matrix_states(np.random.RandomState(23))):
+        state.pop("hflip")
+        np.random.seed(200 + i)
+        want = jax.transform(dict(state))
+        after = np.random.rand()
+        np.random.seed(200 + i)
+        got = port.transform(dict(state))
+        assert np.random.rand() == after
+        assert sorted(got) == sorted(want), i
+        for key in want:
+            if isinstance(want[key], np.ndarray):
+                np.testing.assert_array_equal(got[key], want[key], err_msg=f"{i}: {key}")
+            else:
+                assert got[key] == want[key]
+        flips += "hflip" in got or not np.array_equal(got["image"], state["image"])
+    assert 0 < flips < 40
+
+
+def test_decoded_frame_cache():
+    """The same hits, misses, evictions and read-only frames over one sequence of calls."""
+    rng = np.random.RandomState(24)
+    port, jax = DecodedFrameCache(1), JaxDecodedFrameCache(1)
+    for step in range(200):
+        path = str(rng.randint(12))
+        side = int(rng.randint(100, 400))
+        frame = np.zeros((side, side, 3), np.uint8)
+        got = port.get_or_decode(path, lambda: frame.copy())
+        want = jax.get_or_decode(path, lambda: frame.copy())
+        assert got.shape == want.shape and not got.flags.writeable, step
+        assert (port.hits, port.misses, port._bytes) == (jax.hits, jax.misses, jax._bytes)
+        assert list(port._frames) == list(jax._frames)
+
+
+def test_ms_checkpoint_reader_and_writer(tmp_path):
+    rng = np.random.RandomState(25)
+    tensors = {"conv.weight": rng.randn(4, 3, 3, 3).astype(np.float32),
+               "bn.moving_mean": rng.randn(4).astype(np.float64),
+               "steps": np.array(7, np.int32), "mask": rng.rand(5) > 0.5,
+               "half": rng.randn(2, 2).astype(np.float16), "empty": np.zeros((0, 3), np.int8)}
+    ms_ckpt.write_ms_checkpoint(str(tmp_path / "port.ckpt"), tensors)
+    jax_ms_ckpt.write_ms_checkpoint(str(tmp_path / "jax.ckpt"), tensors)
+    assert (tmp_path / "port.ckpt").read_bytes() == (tmp_path / "jax.ckpt").read_bytes()
+    got = ms_ckpt.read_ms_checkpoint(str(tmp_path / "jax.ckpt"))
+    want = jax_ms_ckpt.read_ms_checkpoint(str(tmp_path / "jax.ckpt"))
+    assert list(got) == list(want) == list(tensors)
+    for key in want:
+        assert got[key].dtype == want[key].dtype == tensors[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+    (tmp_path / "bad.ckpt").write_bytes(b"")
+    for reader in (ms_ckpt.read_ms_checkpoint, jax_ms_ckpt.read_ms_checkpoint):
+        with pytest.raises(ValueError, match="no tensors"):
+            reader(str(tmp_path / "bad.ckpt"))
+
+
+def test_normalize_source_keys():
+    names = ["backbone.layer1.0.bn1.gamma", "module.layer1.0.down_sample.1.moving_variance",
+             "net.conv1.weight", "model.blocks.0.norm1.beta", "last_norm.gamma",
+             "layer2.0.bn2.moving_mean", "backbone.module.fc.bias", "pos_embed"]
+    state = {k: np.full(2, i, np.float32) for i, k in enumerate(names)}
+    got, want = normalize_source_keys(state), jax_normalize_source_keys(state)
+    assert list(got) == list(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_download_helpers(tmp_path):
+    import gzip
+    import tarfile
+    import zipfile
+
+    (tmp_path / "a.txt").write_bytes(b"pose" * 1000)
+    assert download.DownLoad.calculate_md5(str(tmp_path / "a.txt")) == (
+        jax_download.DownLoad.calculate_md5(str(tmp_path / "a.txt")))
+    assert download.get_default_download_root() == jax_download.get_default_download_root()
+    with tarfile.open(tmp_path / "a.tar.gz", "w:gz") as tar:
+        tar.add(tmp_path / "a.txt", arcname="a.txt")
+    with zipfile.ZipFile(tmp_path / "a.zip", "w") as z:
+        z.write(tmp_path / "a.txt", arcname="a.txt")
+    with gzip.open(tmp_path / "b.txt.gz", "wb") as f:
+        f.write(b"gz" * 100)
+    for name in ("a.tar.gz", "a.zip", "b.txt.gz"):
+        for mod in (download, jax_download):
+            out = tmp_path / f"{mod.__name__.split('.')[0]}_{name}"
+            out.mkdir()
+            mod.DownLoad().extract_archive(str(tmp_path / name), str(out))
+        port_files = sorted(p.name for p in (tmp_path / f"mindpose_tpu_torch_{name}").iterdir())
+        jax_files = sorted(p.name for p in (tmp_path / f"mindpose_tpu_{name}").iterdir())
+        assert port_files == jax_files and port_files
+    with pytest.raises(ValueError, match="Unsupported archive"):
+        download.DownLoad().extract_archive(str(tmp_path / "a.txt"))

@@ -14,7 +14,7 @@ its position grid at 14x14 (MAE's 224x224: both axes shrink onto 8x6), 6x4
 another shape, which stays as it was; the reduced HRNet and ResNet
 backbones (parameters and BatchNorm statistics); a port checkpoint of the
 same ViT (``torch.save``), bare and inside a net's. Then ``file://``, a
-missing file and a URL.
+missing file and a URL served on 127.0.0.1, downloaded and loaded.
 """
 import logging
 import os
@@ -44,6 +44,7 @@ from mindpose_tpu_torch.utils.checkpoint import (
     resize_bilinear_antialiased,
     save_checkpoint,
 )
+from tests.fixtures.loopback import serve_directory
 from tests.test_torch_hrnet import CFG as HRNET_CFG
 from tests.test_torch_vit import TINY, fill_variables
 
@@ -230,8 +231,16 @@ def test_paths_urls_and_missing_files(vit_target, tmp_path, caplog):
     _check(net, vit_target, "file://" + path, caplog)
     with pytest.raises(FileNotFoundError):
         load_pretrained_backbone(str(tmp_path / "absent.msgpack"), net)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*URL download"):
-        load_pretrained_backbone("https://example.invalid/vit_b.msgpack", net)
+    # a URL is downloaded (here from 127.0.0.1) under the download root, then
+    # loaded as the local file is
+    served = _port_net(_port_vit(), TINY["hidden_dim"], vit_target)
+    with serve_directory(str(tmp_path)) as url:
+        count = load_pretrained_backbone(f"{url}/vit.msgpack", served,
+                                         download_root=str(tmp_path / "downloads"))
+    assert count == load_pretrained_backbone(path, net) > 0
+    assert os.path.isfile(tmp_path / "downloads" / "vit.msgpack")
+    got, want = served.state_dict(), net.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
     empty = _write(tmp_path / "empty.msgpack", {"params": {"other": np.zeros(3, np.float32)}})
     caplog.clear()
     with caplog.at_level(logging.WARNING):

@@ -17,7 +17,8 @@
 - Once the process pool's loader is closed, ``stop_worker_servers`` leaves
   none of its processes running: workers, forkserver, resource tracker.
 - ``DevicePrefetcher`` on the CPU hands over the batches as tensors; what
-  the port does not support raises.
+  the port does not support raises, and ``device_pipeline: full``'s
+  deferred flip and loader options are accepted.
 """
 import copy
 import os
@@ -231,17 +232,22 @@ def test_refusals(train_split):
         create_dataset(img_root, ann, is_train=True, device_num=4, rank_id=0, config=SETTING)
     with pytest.raises(ValueError, match="worker_mode"):
         DataLoader(ds, [], ["image"], worker_mode="fiber")
-    with pytest.raises(NotImplementedError, match="device_pipeline: full"):
-        entrypoint("transform", "topdown_horizontal_random_flip")(
-            is_train=True, config=SETTING, defer_to_warp=True)
     with pytest.raises(ValueError, match="joint_weights"):
         entrypoint("transform", "topdown_generate_target")(
             is_train=True, config=RECIPE["dataset_setting"], use_different_joint_weights=True)
+    # device_pipeline: full's flip and loader options are ported: accepted and
+    # passed to the loader (tests/test_torch_frame_loader.py holds them to JAX's)
+    flip = entrypoint("transform", "topdown_horizontal_random_flip")(
+        is_train=True, config=SETTING, defer_to_warp=True)
+    assert flip.defer_to_warp
     for kwargs in ({"image_bucket": 64}, {"decode_cache_mb": 64}, {"frame_grouped_shuffle": True},
                    {"patch_grouped_batching": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_pipeline({"dataset": ds}, TRAIN_TRANSFORMS, **dict(
-                {"is_train": True, "config": SETTING}, **kwargs))
+        loader = create_pipeline({"dataset": ds}, TRAIN_TRANSFORMS, **dict(
+            {"is_train": True, "config": SETTING}, **kwargs))
+        assert loader.image_bucket == kwargs.get("image_bucket")
+        assert (loader.decode_cache is not None) == ("decode_cache_mb" in kwargs)
+        assert (loader._frame_groups is not None) == ("frame_grouped_shuffle" in kwargs)
+        assert loader.patch_grouped_batching == kwargs.get("patch_grouped_batching", False)
     # bottom-up training is ported: the same call builds a train loader, whose
     # batch size the bottom-up evaluation's batch rule leaves alone
     loader = create_pipeline({"dataset": ds}, TRAIN_TRANSFORMS, **dict(
