@@ -94,10 +94,15 @@ no result, when there is no CUDA device or when any phase fails:
     server shut down and no thread of the phase left;
 16. the tag-grouping kernel (``csrc/grouping.cu``, the fixed-capacity
     matcher) against its plain version (``ops/grouping.py``, numpy on the
-    host), groups and valid bitwise equal, on 512 seeded candidate sets
+    host), groups and valid bitwise equal, on 768 seeded candidate sets
     (K=17, M=30; L = 1 and 2; the rounded norm and ``ignore_too_much`` on
-    and off; sets that overflow the capacity); then its device time per
-    batch of 1 and of 32, the plain version's and the host Hungarian's
+    and off; sets that overflow the capacity; tie-heavy sets with tags on a
+    grid) and 6 wider ones (the 128- and 256-column bounds); then the step
+    floor of its bound (one warp's least dependent chain per LSAP
+    iteration), and per kind of set the LSAP iterations per image, the
+    kernel's device time per batch of 1 and of 32, its bound (the larger of
+    the bytes' time and the largest image's iterations times the floor) and
+    its share of it; the plain version's and the host Hungarian's
     (``utils/match.py``) host time per image;
 17. bottom-up evaluation through the eval entry: the JAX-trained bottom-up
     fixture (tests/fixtures/) at O0, its 10 stats within 1e-3 of the JAX
@@ -317,7 +322,7 @@ from tests.fixtures.eval_checks import (
     recording_entry,
     register_port_backbone,
 )
-from tests.fixtures.grouping_sets import ORDER, SETS, candidate_sets
+from tests.fixtures.grouping_sets import ORDER, SETS, TIE_SETS, candidate_sets
 
 # configs/hrnet/hrnet_w32_tpu.yaml, the keys the serving and train paths read
 # (tests/test_torch_host_copies.py holds this literal equal to the yaml)
@@ -491,8 +496,14 @@ SB_DEEPER = {arch: os.path.join(CONFIGS, "simple_baseline", f"{arch}_tpu.yaml")
              for arch in ("resnet101", "resnet152")}
 SB_EPOCHS = 6
 HIGHER_YAML = os.path.join(CONFIGS, "higher_hrnet", "higher_hrnet_w32_tpu.yaml")
-GROUPING_SETS = 16  # images of each kind of SETS, per tag width and flags (512 in all)
+GROUPING_SETS = 16  # images of each kind of SETS + TIE_SETS, per tag width and flags (768)
 GROUPING_ITERS = 20  # queued launches per timing of the grouping kernel
+GROUPING_FLOOR_STEPS = 200_000  # links of the step-floor probe's chain (~10 ms)
+# (M, group_cap, candidate_sets kwargs): sets that take the grouping
+# kernel's 128- and 256-column bounds (G + M + 1 = 97, 141, 255)
+GROUPING_WIDE = ((48, 0, dict(persons=5, visible=0.3)),
+                 (100, 40, dict(persons=12, visible=0.5)),
+                 (127, 0, dict(persons=20, visible=0.5)))
 BU_EVAL_IMAGES = 64
 BU_EVAL_PEOPLE = 3
 BU_SPLIT_BATCHES = 8  # eval batches whose forward, decode and grouping are timed apart
@@ -2305,59 +2316,141 @@ def serve_simple_baseline(root: str, trained: dict, device: torch.device) -> dic
 
 
 
-def grouping_bound_ms(n: int, k: int, m: int, tag_dim: int, g: int) -> float:
-    """The matcher's least time on n images: one read of its candidates
-    (val_k, tag_k, ind_k) and one write of its groups and valid flags. Its
-    work is a chain of dependent steps (rows, augmenting paths, joints)
-    that no count of operations over a peak rate describes, so the bound
-    given is the bytes'."""
+def grouping_bytes_ms(n: int, k: int, m: int, tag_dim: int, g: int) -> float:
+    """The matcher's bytes over the card's memory rate on n images: one read
+    of its candidates (val_k, tag_k, ind_k) and one write of its groups and
+    valid flags."""
     return (4 * n * k * m * (1 + tag_dim + 2) + 4 * n * g * k * (3 + tag_dim) + n * g) \
         / HBM_BYTES_PER_MS
+
+
+def grouping_step_floor_ms(device: torch.device) -> float:
+    """The time of one link of the least chain that an LSAP iteration runs
+    (``cuda_grouping.step_floor``: a dependent shared-memory load, a warp min,
+    a ballot and a shuffle): the slope of one warp's time over
+    GROUPING_FLOOR_STEPS and twice as many links (CUDA events, median of 5)."""
+    out = torch.empty(32, dtype=torch.int32, device=device)
+    times = {}
+    for steps in (GROUPING_FLOOR_STEPS, 2 * GROUPING_FLOOR_STEPS):
+        times[steps] = time_ms(lambda: cuda_grouping.step_floor(out, steps), True, iters=3,
+                               repeats=5)
+    return (times[2 * GROUPING_FLOOR_STEPS] - times[GROUPING_FLOOR_STEPS]) / GROUPING_FLOOR_STEPS
+
+
+def grouping_bound_ms(iterations: list, floor_ms: float, n: int, k: int, m: int, tag_dim: int,
+                      g: int) -> tuple:
+    """The matcher's least time on a batch, and what sets it: the larger of
+    its bytes' time and its dependent chain's, the largest image's LSAP
+    iterations (one warp per image, the images side by side) times the step
+    floor. -> (bound ms, "operations" or "bytes", chain ms, bytes ms)."""
+    chain = max(iterations) * floor_ms
+    bytes_ms = grouping_bytes_ms(n, k, m, tag_dim, g)
+    return max(chain, bytes_ms), "operations" if chain >= bytes_ms else "bytes", chain, bytes_ms
+
+
+def plain_with_steps(sets, **kw) -> tuple:
+    """The plain matcher on each image of ``sets`` apart: (groups, valid)
+    stacked, and each image's LSAP iterations (``match_by_tag_batch.steps``)."""
+    out, steps = [], []
+    for image in zip(*sets):
+        plain_grouping.match_by_tag_batch.steps = 0
+        out.append(plain_grouping.match_by_tag_batch(*(a[None] for a in image), ORDER, **kw))
+        steps.append(plain_grouping.match_by_tag_batch.steps)
+    return (np.concatenate([g for g, _ in out]), np.concatenate([v for _, v in out])), steps
+
+
+def check_grouped(got, want, label: str) -> None:
+    """The kernel's (groups, valid) on the card bitwise equal to the plain version's."""
+    got = tuple(t.cpu().numpy() for t in got)
+    if not (np.array_equal(got[0].view(np.int32), want[0].view(np.int32))
+            and np.array_equal(got[1], want[1])):
+        bad = np.nonzero((got[0] != want[0]).any((2, 3)) | (got[1] != want[1]))
+        raise AssertionError(f"grouping kernel differs from the plain version on {label}: "
+                             f"(image, group) {list(zip(*bad))[:5]}")
+
+
+def time_grouping(device: torch.device, sets, floor_ms: float, label: str, cap: int = 0) -> dict:
+    """The kernel on a batch of the recipe's settings (L = 1, the rounded norm;
+    capacity ``cap``) and on its first image alone: bitwise against the plain
+    version, each image's iterations, the device time (CUDA events, queued)
+    and the bound of both batches."""
+    want, steps = plain_with_steps(sets, group_cap=cap)
+    dev = [torch.from_numpy(a).to(device) for a in sets]
+    one = [a[:1].contiguous() for a in dev]
+    check_grouped(cuda_grouping.match_by_tag_batch(*dev, ORDER, group_cap=cap), want, label)
+    n, k, m = sets[0].shape
+    out = {"iterations": steps, "iterations_mean": float(np.mean(steps))}
+    for key, batch, its in (("1", one, steps[:1]), (str(n), dev, steps)):
+        ms = time_ms(lambda: cuda_grouping.match_by_tag_batch(*batch, ORDER, group_cap=cap),
+                     True, iters=GROUPING_ITERS, repeats=5)
+        bound, by, chain, bytes_ms = grouping_bound_ms(its, floor_ms, len(its), k, m, 1,
+                                                       cap or m)
+        out[key] = {"ms": ms, "bound_ms": bound, "bound_by": by, "chain_ms": chain,
+                    "bytes_ms": bytes_ms, "share": bound / ms, "max_iterations": max(its)}
+    print(f"grouping kernel, {label}: iterations per image {out['iterations_mean']:.1f} "
+          f"(image 0 {steps[0]}, largest {max(steps)}); batch of 1 {out['1']['ms']:.5f} ms, "
+          f"chain bound {out['1']['chain_ms']:.5f} ms, share {out['1']['share']:.3f}; batch of "
+          f"{n} {out[str(n)]['ms']:.5f} ms, chain bound {out[str(n)]['chain_ms']:.5f} ms, share "
+          f"{out[str(n)]['share']:.3f}; {out[str(n)]['ms'] / max(steps) * 1e3:.4f} us per "
+          f"iteration of the largest image")
+    return out
 
 
 def check_grouping(device: torch.device) -> dict:
     """Phase 16: the grouping kernel against its plain version (ops/grouping.py,
     numpy on the host) on ``GROUPING_SETS`` seeded candidate sets of each kind
     of ``SETS`` (K=17, M=30: a few persons, close tags, more persons than the
-    capacity, a capacity of 4) for L = 1 and 2, the rounded norm on and off,
-    ``ignore_too_much`` on and off: groups and valid bitwise equal. Then at
-    the recipe's settings (L = 1, rounded, 5 persons) the kernel's device
-    time per batch of 1 and of 32 (CUDA events, queued), the plain version's
-    and the host Hungarian's (utils/match.py) host time per image."""
+    capacity, a capacity of 4) and of ``TIE_SETS`` (tags on a grid, no noise:
+    exact ties) for L = 1 and 2, the rounded norm on and off,
+    ``ignore_too_much`` on and off, and on wider sets that take the kernel's
+    128- and 256-column bounds: groups and valid bitwise equal. Then the step
+    floor (the bound's probe), and at the recipe's settings (L = 1, rounded)
+    on the timed batch (5 persons, drawn after the checks from their
+    generator) and on 32 images of each kind of ``SETS``
+    (each drawn from a fresh ``RandomState(0)``): each image's LSAP
+    iterations (counted by the plain version), the kernel's device time per
+    batch of 1 and of 32 (CUDA events, queued), its bound (the larger of the
+    bytes' time and the largest image's iterations times the step floor) and
+    its share of it; the plain version's and the host Hungarian's
+    (utils/match.py) host time per image."""
     rng = np.random.RandomState(SEED + 30)
+    ties = np.random.RandomState(SEED + 32)  # apart, so that rng's draws stay as they were
     total = 0
     for tag_dim in (1, 2):
         for rounded in (True, False):
             for ignore in (False, True):
-                for name, kwargs, cap in SETS:
-                    sets = candidate_sets(rng, GROUPING_SETS, tag_dim=tag_dim, **kwargs)
-                    kw = dict(vis_thr=0.1, tag_thr=1.0, use_rounded_norm=rounded,
-                              ignore_too_much=ignore, group_cap=cap)
-                    want = plain_grouping.match_by_tag_batch(*sets, ORDER, **kw)
-                    got = cuda_grouping.match_by_tag_batch(
-                        *(torch.from_numpy(a).to(device) for a in sets), ORDER, **kw)
-                    got = tuple(t.cpu().numpy() for t in got)
-                    equal = (np.array_equal(got[0].view(np.int32), want[0].view(np.int32))
-                             and np.array_equal(got[1], want[1]))
-                    total += len(sets[0])
-                    if not equal:
-                        bad = np.nonzero((got[0] != want[0]).any((2, 3)) | (got[1] != want[1]))
-                        raise AssertionError(
-                            f"grouping kernel differs from the plain version on {name}, L="
-                            f"{tag_dim}, rounded={rounded}, ignore_too_much={ignore}: (image, "
-                            f"group) {list(zip(*bad))[:5]}")
+                for source, kinds in ((rng, SETS), (ties, TIE_SETS)):
+                    for name, kwargs, cap in kinds:
+                        sets = candidate_sets(source, GROUPING_SETS, tag_dim=tag_dim, **kwargs)
+                        kw = dict(vis_thr=0.1, tag_thr=1.0, use_rounded_norm=rounded,
+                                  ignore_too_much=ignore, group_cap=cap)
+                        want = plain_grouping.match_by_tag_batch(*sets, ORDER, **kw)
+                        got = cuda_grouping.match_by_tag_batch(
+                            *(torch.from_numpy(a).to(device) for a in sets), ORDER, **kw)
+                        check_grouped(got, want, f"{name}, L={tag_dim}, rounded={rounded}, "
+                                                 f"ignore_too_much={ignore}")
+                        total += len(sets[0])
     print(f"grouping kernel: {total} candidate sets (K=17, M=30; L=1, 2; rounded norm on, off; "
-          f"ignore_too_much on, off; {[name for name, _, _ in SETS]}): groups and valid "
-          f"bitwise equal to the plain version")
+          f"ignore_too_much on, off; {[name for name, _, _ in SETS + TIE_SETS]}): groups and "
+          f"valid bitwise equal to the plain version")
+    wide = np.random.RandomState(SEED + 31)
+    for m, cap, kwargs in GROUPING_WIDE:
+        sets = candidate_sets(wide, 2, m=m, tag_dim=2, **kwargs)
+        want = plain_grouping.match_by_tag_batch(*sets, ORDER, group_cap=cap)
+        got = cuda_grouping.match_by_tag_batch(
+            *(torch.from_numpy(a).to(device) for a in sets), ORDER, group_cap=cap)
+        check_grouped(got, want, f"M={m}, G={cap or m}")
+        total += len(sets[0])
+    print(f"grouping kernel: {2 * len(GROUPING_WIDE)} wider sets (M, G = "
+          f"{[(m, cap or m) for m, cap, _ in GROUPING_WIDE]}, L=2): bitwise equal")
+
+    floor_ms = grouping_step_floor_ms(device)
+    print(f"grouping step floor (one warp: a dependent shared-memory load, redux.sync, a "
+          f"ballot, a shuffle): {floor_ms * 1e6:.3f} ns a step")
 
     sets = candidate_sets(rng, BATCH_SIZE, **SETS[0][1])
-    dev = [torch.from_numpy(a).to(device) for a in sets]
-    one = [a[:1].contiguous() for a in dev]
-    out = {"sets": total, "max_abs_err": 0.0}
-    out["ms"] = time_ms(lambda: cuda_grouping.match_by_tag_batch(*dev, ORDER), True,
-                        iters=GROUPING_ITERS, repeats=5)
-    out["ms_1"] = time_ms(lambda: cuda_grouping.match_by_tag_batch(*one, ORDER), True,
-                          iters=GROUPING_ITERS, repeats=5)
+    out = {"sets": total, "max_abs_err": 0.0, "step_floor_ms": floor_ms}
+    out["timed"] = time_grouping(device, sets, floor_ms, "the timed batch (5 persons)")
     start = time.perf_counter()
     plain_grouping.match_by_tag_batch(*sets, ORDER)
     out["plain_ms"] = (time.perf_counter() - start) * 1e3
@@ -2365,13 +2458,19 @@ def check_grouping(device: torch.device) -> dict:
     for v, t, i in zip(*sets):
         match_by_tag(v, t, i, ORDER)
     out["library_ms"] = (time.perf_counter() - start) * 1e3
-    out["bound_ms"] = grouping_bound_ms(BATCH_SIZE, 17, 30, 1, 30)
-    print(f"grouping kernel, device time (queued): {out['ms_1']:.5f} ms per batch of 1, "
-          f"{out['ms']:.5f} ms per batch of {BATCH_SIZE} ({out['ms'] / BATCH_SIZE:.5f} ms per "
-          f"image); bound {out['bound_ms']:.5f} ms (bytes; the work is a chain of dependent "
-          f"steps); the plain version on the host {out['plain_ms'] / BATCH_SIZE:.3f} ms per "
-          f"image; the host Hungarian (utils/match.py, scipy) {out['library_ms'] / BATCH_SIZE:.3f}"
-          f" ms per image")
+    out["kinds"] = {name: time_grouping(device, candidate_sets(np.random.RandomState(0),
+                                                               BATCH_SIZE, **kwargs),
+                                        floor_ms, name, cap)
+                    for name, kwargs, cap in SETS}
+    timed = out["timed"][str(BATCH_SIZE)]
+    print(f"grouping kernel, device time (queued): {out['timed']['1']['ms']:.5f} ms per batch "
+          f"of 1, {timed['ms']:.5f} ms per batch of {BATCH_SIZE} ({timed['ms'] / BATCH_SIZE:.5f} "
+          f"ms per image); bound {timed['bound_ms']:.5f} ms, by {timed['bound_by']} (the chain: "
+          f"the largest image's {timed['max_iterations']} iterations x the step floor = "
+          f"{timed['chain_ms']:.5f} ms; the bytes {timed['bytes_ms']:.5f} ms), share "
+          f"{timed['share']:.3f}; the plain version on the "
+          f"host {out['plain_ms'] / BATCH_SIZE:.3f} ms per image; the host Hungarian "
+          f"(utils/match.py, scipy) {out['library_ms'] / BATCH_SIZE:.3f} ms per image")
     return out
 
 
@@ -3809,6 +3908,7 @@ def main() -> int:
     # the conv chain's numbers at the train step's geometry (HRNet-W32 branch 0, batch 128)
     chain = next(r for r in probed["rows"] if r["b"] == HRNET_W32["batch_size"])
     warm_ms, plain_ms = decode[(BATCH_SIZE, False, True)]
+    timed = grouped["timed"][str(BATCH_SIZE)]
     kernels = [{
         "name": "argmax_shift_decode",
         "route": "cuda",
@@ -3893,15 +3993,26 @@ def main() -> int:
         "train_eval_launches": bu_trained["launches"],
         "sets_checked": grouped["sets"],
         "max_abs_err": grouped["max_abs_err"],
-        # per batch of 32 images at the recipe's settings (L=1, rounded norm):
-        # the kernel's device time; the plain version's and the host
-        # Hungarian's host time
-        "ms": grouped["ms"],
-        "ms_batch_1": grouped["ms_1"],
+        # per batch of 32 images at the recipe's settings (L=1, rounded norm),
+        # the timed batch: the kernel's device time; the plain version's and
+        # the host Hungarian's host time
+        "ms": timed["ms"],
+        "ms_batch_1": grouped["timed"]["1"]["ms"],
         "plain_ms": grouped["plain_ms"],
-        "bound_ms": grouped["bound_ms"],
-        "bound_by": "bytes",
+        # the larger of the bytes' time and the dependent chain's: the
+        # largest image's LSAP iterations x the step floor
+        "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"],
         "library_ms": grouped["library_ms"],
+        "bytes_bound_ms": timed["bytes_ms"],
+        "chain_bound_ms": timed["chain_ms"],
+        "step_floor_ms": grouped["step_floor_ms"],
+        "max_iterations": timed["max_iterations"],
+        # each kind of SETS, 32 images from a fresh RandomState(0): iterations
+        # per image, and per batch of 1 and 32 the time, bound and share
+        "kinds": {name: {"iterations_mean": r["iterations_mean"],
+                         **{key: r[key] for key in ("1", str(BATCH_SIZE))}}
+                  for name, r in grouped["kinds"].items()},
     }]
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -8,9 +8,15 @@ and design. Its plain version is ``ops/grouping.py`` (numpy on the host),
 which it equals bit for bit.
 
 ``match_by_tag_batch`` takes CUDA tensors and launches the kernel once per
-batch; it raises on a CPU tensor, and the caller that groups on the CPU
+batch; it raises on a CPU tensor, and on sizes beyond the kernel's largest
+column bound (G + M + 1 <= 256), and the caller that groups on the CPU
 calls the plain version itself. ``match_by_tag_batch.launches`` counts the
 launches.
+
+``step_floor`` launches the probe of the kernel's bound: one warp running
+the least chain of dependent steps that one LSAP iteration runs. Its time
+per step, times an image's iteration count (``ops/grouping.py``'s
+``match_by_tag_batch.steps``), is the least time the kernel could take.
 """
 import ctypes
 import functools
@@ -20,9 +26,10 @@ import torch
 
 from .build import load_library
 
-__all__ = ["match_by_tag_batch"]
+__all__ = ["match_by_tag_batch", "step_floor"]
 
 _MAX_JOINTS = 64  # the kernel's joint_order capacity (kMaxJoints)
+_MAX_COLUMNS = 256  # the largest compiled bound on the LSAP's columns, G + M + 1
 # flags of mp_match_by_tag (csrc/grouping.cu)
 _ROUNDED_NORM, _IGNORE_TOO_MUCH = 1, 2
 
@@ -34,6 +41,8 @@ def _library():
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     lib.mp_match_by_tag.restype = ctypes.c_int
+    lib.mp_grouping_step_floor.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.mp_grouping_step_floor.restype = ctypes.c_int
     return lib
 
 
@@ -63,6 +72,12 @@ def match_by_tag_batch(
     if tuple(tag_k.shape[:3]) != (n, k, m) or tuple(ind_k.shape) != (n, k, m, 2) or l < 1:
         raise ValueError(f"shapes disagree: val_k {tuple(val_k.shape)}, tag_k "
                          f"{tuple(tag_k.shape)}, ind_k {tuple(ind_k.shape)}")
+    g = int(group_cap) if group_cap else m
+    if m < 1 or g < 1:
+        raise ValueError(f"need candidates and groups: M={m}, G={g}")
+    if g + m + 1 > _MAX_COLUMNS:
+        raise ValueError(f"the grouping kernel takes G + M + 1 <= {_MAX_COLUMNS} columns, got "
+                         f"G={g}, M={m}")
     for name, t in (("val_k", val_k), ("tag_k", tag_k), ("ind_k", ind_k)):
         if t.device.type != "cuda":
             raise ValueError(f"the grouping kernel takes CUDA tensors, and {name} is on "
@@ -76,9 +91,6 @@ def match_by_tag_batch(
     if len(order) > _MAX_JOINTS or any(not 0 <= j < k for j in order):
         raise ValueError(f"joint_order must hold at most {_MAX_JOINTS} indices below {k}: "
                          f"{order}")
-    g = int(group_cap) if group_cap else m
-    if m < 1 or g < 1:
-        raise ValueError(f"need candidates and groups: M={m}, G={g}")
     groups = torch.empty((n, g, k, 3 + l), dtype=torch.float32, device=val_k.device)
     valid = torch.empty((n, g), dtype=torch.bool, device=val_k.device)
     if n == 0:
@@ -97,3 +109,21 @@ def match_by_tag_batch(
 
 
 match_by_tag_batch.launches = 0
+
+
+def step_floor(out: torch.Tensor, steps: int) -> None:
+    """Launch the bound's probe: one warp, ``steps`` dependent links of a
+    shared-memory load, a warp min, a ballot and a shuffle. ``out`` is an
+    int32 CUDA tensor of 32 entries, which the probe writes."""
+    if out.device.type != "cuda" or out.dtype != torch.int32 or out.numel() != 32:
+        raise ValueError(f"the step-floor probe writes 32 int32 on a CUDA device, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    with torch.cuda.device(out.device):
+        err = _library().mp_grouping_step_floor(int(steps), out.data_ptr(),
+                                                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"step-floor probe launch failed with CUDA error {err}")
+    step_floor.launches += 1
+
+
+step_floor.launches = 0

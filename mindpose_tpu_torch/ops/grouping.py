@@ -22,6 +22,11 @@ squared tag distance, ``fma(t_l, t_l, acc)`` for l >= 1, and the rounded
 cost, ``fma(eps, d, round(d))``. Numpy has no fused multiply-add, so
 ``_fma`` computes it exactly in float64. This version runs in the CPU
 tests, and where the inferencer groups on the CPU with ``device_grouping``.
+
+``match_by_tag_batch.steps`` counts the LSAP's Dijkstra iterations (the
+passes of ``while p[j0] != 0``) of every call of either entry: the length
+of the chain of dependent steps that the kernel runs, which gives its
+bound.
 """
 from typing import Sequence, Tuple
 
@@ -59,6 +64,7 @@ def _lsap(cost: np.ndarray) -> np.ndarray:
     u = np.zeros(n + 1, _F32)
     v = np.zeros(m + 1, _F32)
     p = np.zeros(m + 1, np.int32)  # p[j]: the row (1-based) on column j, 0 if none
+    steps = 0
     for i1 in range(1, n + 1):
         p[0] = i1
         way = np.zeros(m + 1, np.int32)
@@ -66,6 +72,7 @@ def _lsap(cost: np.ndarray) -> np.ndarray:
         used = np.zeros(m + 1, bool)
         j0 = 0
         while p[j0] != 0:
+            steps += 1
             used[j0] = True
             i0 = p[j0]
             cur = (cost[i0 - 1] - u[i0]) - v[1:]
@@ -83,6 +90,7 @@ def _lsap(cost: np.ndarray) -> np.ndarray:
             j1 = way[j0]
             p[j0] = p[j1]
             j0 = j1
+    match_by_tag_batch.steps += steps
     ans = np.zeros(n, np.int32)
     cols = np.nonzero(p[1:])[0]
     ans[p[1:][cols] - 1] = cols
@@ -194,3 +202,6 @@ def match_by_tag_batch(
         return (np.zeros((0, g_cap, num_joints, 3 + tag_dim), _F32),
                 np.zeros((0, g_cap), bool))
     return np.stack(groups), np.stack(valid)
+
+
+match_by_tag_batch.steps = 0
