@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel training) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -37,7 +37,7 @@ no result, when there is no CUDA device or when any phase fails:
    serving net's weights saved as a port checkpoint and loaded back bit for
    bit, then evaluated with the recipe's settings (O2, batch 128, GT boxes,
    OKS-NMS) on synthetic COCO from ``tools/make_synthetic_coco.py`` (648
-   frames, 2,592 crops), TTA off (a first pass and 3 warm ones, with the
+   frames, 2,592 crops), TTA off (a first pass and 2 warm ones, with the
    warm rates' spread) and on: records, batches, inferencer and evaluator
    times, crops/s, one decode launch per batch, the 10 COCO stats; the
    JAX-trained fixture checkpoint (tests/fixtures/) read by the port's
@@ -71,7 +71,7 @@ no result, when there is no CUDA device or when any phase fails:
 13. training configs/udp/resnet50_udp_tpu.yaml (ResNet-50 +
     simple_baseline_head at full width, O2, batch 128, adamw, host UDP
     targets), then configs/simple_baseline/resnet50_tpu.yaml, through the
-    train entry on phase 12's data for 6 epochs of 10 steps each,
+    train entry on phase 12's data for 4 epochs of 10 steps each,
     evaluating once after the last, overridden as phase 12: img/s with the
     loader, the step's median, peak memory; each holds finite losses, the
     last epoch's below the first's, AP above 0 and one decode launch per
@@ -94,7 +94,7 @@ no result, when there is no CUDA device or when any phase fails:
     server shut down and no thread of the phase left;
 16. the tag-grouping kernel (``csrc/grouping.cu``, the fixed-capacity
     matcher) against its plain version (``ops/grouping.py``, numpy on the
-    host), groups and valid bitwise equal, on 768 seeded candidate sets
+    host), groups and valid bitwise equal, on 384 seeded candidate sets
     (K=17, M=30; L = 1 and 2; the rounded norm and ``ignore_too_much`` on
     and off; sets that overflow the capacity; tie-heavy sets with tags on a
     grid) and 6 wider ones (the 128- and 256-column bounds); then the step
@@ -208,12 +208,29 @@ no result, when there is no CUDA device or when any phase fails:
     the full run's epoch-2 trace (torch.profiler) holds CUDA kernel events
     and epoch 2's steps only; and its last checkpoint's backbone, written as
     a published ``.pth``, goes through ``tools/convert_ckpt.py --check`` and
-    ``load_pretrained_backbone`` into a net on the card bit for bit.
+    ``load_pretrained_backbone`` into a net on the card bit for bit;
+26. data-parallel training: (a) two ranks on the one card over gloo (nccl
+    refuses two ranks on one card), fresh interpreters with a timeout,
+    HRNet-W32 at full width in float32 (TF32 off, cuDNN's deterministic
+    algorithms), 16 crops of a batch of 32 each, 5 steps at the yaml's lr,
+    against one process at
+    ``accum_steps=2`` on the 32: the ranks bitwise equal after every step,
+    the parameters within 1e-5 (twice the summed lr where a gradient was
+    below 1e-4 of its tensor's largest), the running statistics by the
+    formula of tests/test_torch_ddp.py (the mean of two momentum updates
+    against two in sequence); (b) the train entry under ``python3 -m
+    torch.distributed.run --nproc_per_node=1`` (nccl, world size 1, DDP
+    over the card) on hrnet_w32_tpu.yaml as parsed, phase 12's data, 3
+    epochs of 10 steps, evaluating after the last: finite, falling losses,
+    AP above 0, one decode launch per val batch, all-reduces issued in the
+    profiled steps; epoch 3's img/s beside phases 12 and 25 without DDP,
+    and per step the all-reduces issued, the nccl kernels' device time and
+    DDP's device-to-device copies (torch.profiler, epoch 2's first step).
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 25.
+started is still there after phase 26.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -223,6 +240,7 @@ import contextlib
 import copy
 import ctypes
 import gc
+import hashlib
 import itertools
 import json
 import os
@@ -239,6 +257,7 @@ import urllib.request
 import cv2
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -312,6 +331,7 @@ from mindpose_tpu_torch.utils.checkpoint import (
 )
 from mindpose_tpu_torch.config import parse_args
 from tests.fixtures import mpii, tiny_coco
+from tests.fixtures.ddp_ranks import free_port, run_processes
 from tests.fixtures.eval_checks import (
     BOTTOMUP_CKPT,
     BOTTOMUP_RECORD,
@@ -445,7 +465,7 @@ TRAIN_F64_RTOL = 1e-8
 # so that a pass lasts seconds and its rate can be compared across passes
 EVAL_IMAGES = 648
 EVAL_PEOPLE = 4
-EVAL_WARM_REPEATS = 3  # warm passes of the recipe, TTA off: the rate's spread
+EVAL_WARM_REPEATS = 2  # warm passes of the recipe, TTA off: the rate's spread
 EVAL_CPU_CROPS = 32  # crops of the first eval batch run on the GPU and on the CPU
 # the card's decoder multiplies by the float reciprocal of the heatmap width
 # where the CPU divides (csrc/decode.cu), so a clear joint's coordinates in
@@ -472,31 +492,31 @@ O2_SCORE_RTOL, O2_AGREE = 0.02, 0.8
 # of all joints within EVAL_XY_ATOL px (0.9995-1.0 of them there)
 DARK_AGREE = 0.95
 # Phase 12: synthetic COCO train frames (2 persons each: 1,280 records, 10
-# steps of 128 per epoch) and val frames (128 crops, one eval batch); 12
+# steps of 128 per epoch) and val frames (128 crops, one eval batch); 6
 # epochs of the recipe, warmup cut from 500 steps to 20 (the yaml's would
-# leave the rate near 0 for the whole run), evaluation every 4 epochs
+# leave the rate near 0 for the whole run), evaluation every 3 epochs
 ENTRY_TRAIN_IMAGES = 640
 ENTRY_VAL_IMAGES = 64
 ENTRY_PEOPLE = 2
-ENTRY_EPOCHS = 12
+ENTRY_EPOCHS = 6
 ENTRY_WARMUP = 20
-ENTRY_VAL_INTERVAL = 4
+ENTRY_VAL_INTERVAL = 3
 ENTRY_RESUME_WARMUP = 5  # the one-epoch resume's schedule has 10 steps in all
 ENTRY_RESUME_PREFETCH = 2  # batches the resume's DevicePrefetcher keeps in flight
 ENTRY_STATS_ATOL = 1e-4  # the last checkpoint through the eval entry against the callback
 RECIPE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "hrnet",
                            "hrnet_w32_tpu.yaml")
 # Phases 13-15: the SimpleBaseline recipes. Phase 13 trains the UDP recipe and
-# the plain one on phase 12's data for 6 epochs of 10 steps each, evaluating
+# the plain one on phase 12's data for 4 epochs of 10 steps each, evaluating
 # once, after the last
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 UDP_YAML = os.path.join(CONFIGS, "udp", "resnet50_udp_tpu.yaml")
 SB_YAML = os.path.join(CONFIGS, "simple_baseline", "resnet50_tpu.yaml")
 SB_DEEPER = {arch: os.path.join(CONFIGS, "simple_baseline", f"{arch}_tpu.yaml")
              for arch in ("resnet101", "resnet152")}
-SB_EPOCHS = 6
+SB_EPOCHS = 4
 HIGHER_YAML = os.path.join(CONFIGS, "higher_hrnet", "higher_hrnet_w32_tpu.yaml")
-GROUPING_SETS = 16  # images of each kind of SETS + TIE_SETS, per tag width and flags (768)
+GROUPING_SETS = 8  # images of each kind of SETS + TIE_SETS, per tag width and flags (384)
 GROUPING_ITERS = 20  # queued launches per timing of the grouping kernel
 GROUPING_FLOOR_STEPS = 200_000  # links of the step-floor probe's chain (~10 ms)
 # (M, group_cap, candidate_sets kwargs): sets that take the grouping
@@ -600,6 +620,17 @@ FULL_CROP_ATOL = 0.05  # the warp on the card against the CPU's, 0-255 scale
 # a batch of the same kind
 FULL_HOST_ATOL = 2 * 255 / 64 + 0.5
 FULL_TARGET_ATOL = 1e-5
+# phase 26: data-parallel training. (a) two ranks on this one card over gloo
+# (nccl refuses two ranks on one card), each given 16 crops of a batch of 32,
+# against one process at accum_steps=2 on the 32; (b) the train entry under
+# torchrun, one rank, nccl, on phase 12's data as phase 25 trains it
+DDP_WORLD = 2
+DDP_RANK_BATCH = 16
+DDP_STEPS = 5
+DDP_TIMEOUT_S = 600  # each of the phase's process groups
+DDP_STATS_RTOL = 1e-4  # the running statistics against the formula, of each tensor's largest
+DDP_EPOCHS = 3  # (b): epoch 2's steps are the profiled ones, epoch 3's the rate's
+DDP_PROFILED_STEPS = 1  # host and device activity: ~12 s for a step of HRNet-W32 at 128
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
 
@@ -1427,12 +1458,17 @@ def evaluation(net: nn.Module, device: torch.device) -> dict:
             "batches": sum(r["batches"] for r in runs), **times}
 
 
+def hrnet_w32_net() -> nn.Module:
+    """Full-width HRNet-W32 + hrnet_head, torch's own initialisation."""
+    return create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
+                          num_joints=HRNET_W32["num_joints"],
+                          backbone_args=HRNET_W32["backbone_setting"],
+                          head_args=HRNET_W32["head_setting"])
+
+
 def training_net(device: torch.device) -> nn.Module:
     """Full-width HRNet-W32 + hrnet_head with ``random_weights_``."""
-    net = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
-                         num_joints=HRNET_W32["num_joints"],
-                         backbone_args=HRNET_W32["backbone_setting"],
-                         head_args=HRNET_W32["head_setting"])
+    net = hrnet_w32_net()
     random_weights_(net, device)
     return net
 
@@ -1473,17 +1509,19 @@ def recipe_net_with_loss(net: nn.Module):
                                      has_extra_inputs=cfg["loss_with_extra_input"])
 
 
-def recipe_step(net: nn.Module, amp_level: str, schedule=None):
+def recipe_step(net: nn.Module, amp_level: str, schedule=None, accum_steps: int = 1):
     """hrnet_w32_tpu.yaml's train step over ``net``: the device preprocess,
     joint_mse with target weights, adamw with its decay and grouping.
-    Without a schedule the rate is the yaml's ``lr``, constant."""
+    Without a schedule the rate is the yaml's ``lr``, constant. Within a
+    process group the step is data-parallel (``build_train_step``)."""
     cfg = HRNET_W32
     optimizer = create_optimizer(net, cfg["optimizer"], learning_rate=cfg["lr"],
                                  weight_decay=cfg["weight_decay"],
                                  filter_bias_and_bn=cfg["filter_bias_and_bn"],
                                  **cfg["optimizer_setting"])
     return build_train_step(recipe_net_with_loss(net), optimizer, schedule,
-                            preprocess=recipe_preprocess(), amp_level=amp_level)
+                            preprocess=recipe_preprocess(), amp_level=amp_level,
+                            accum_steps=accum_steps)
 
 
 def train_throughput(device: torch.device) -> dict:
@@ -3814,21 +3852,332 @@ def input_modes_training(root: str, data: dict, device: torch.device) -> dict:
 
 
 
+def _statistics(net: nn.Module) -> dict:
+    """Each BatchNorm running mean and variance of ``net``, by state_dict name, on the host."""
+    return {k: v.detach().cpu().clone() for k, v in net.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _digest(net: nn.Module) -> str:
+    """sha256 of every tensor of ``net``'s state_dict, in order: equal replicas, equal digests."""
+    h = hashlib.sha256()
+    for value in net.state_dict().values():
+        h.update(value.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Phase 26 (a), one rank (a fresh interpreter): HRNet-W32 at full width,
+    from the one process's state (``start.pt``: its BatchNorm statistics
+    depend on the TF32 setting of the forward that drew them), through the
+    recipe's step at O0 (float32, TF32 off, cuDNN's deterministic
+    algorithms) in a gloo group on the one card, ``DDP_RANK_BATCH`` crops of
+    the batch each; per step the
+    loss, the running statistics and the digest of the state, and at the
+    end the parameters (``ddp_rank{rank}.pt``)."""
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.deterministic = True  # as the one process it is held to
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    net = hrnet_w32_net().to(device)
+    net.load_state_dict(torch.load(os.path.join(out_dir, "start.pt")))
+    step = recipe_step(net, "O0")
+    if not isinstance(step.module, nn.parallel.DistributedDataParallel):
+        raise AssertionError("the step in a process group is not data-parallel")
+    image, keypoints = train_batch(np.random.RandomState(SEED + 26), world * DDP_RANK_BATCH,
+                                   device)
+    shard = slice(rank * DDP_RANK_BATCH, (rank + 1) * DDP_RANK_BATCH)
+    steps = []
+    for _ in range(DDP_STEPS):
+        loss = step(image[shard], keypoints[shard])
+        steps.append({"loss": loss.cpu(), "stats": _statistics(net), "digest": _digest(net)})
+    torch.save({"steps": steps, "params": {n: p.detach().cpu() for n, p in
+                                           net.named_parameters()}},
+               os.path.join(out_dir, f"ddp_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ddp_on_one_card(root: str, device: torch.device) -> dict:
+    """Phase 26 (a): two ranks on the one card over gloo (``ddp_rank``),
+    against one process at ``accum_steps=2`` on the same batch of
+    ``DDP_WORLD * DDP_RANK_BATCH`` crops, 5 steps each at the yaml's lr
+    (constant), all with cuDNN's deterministic algorithms: otherwise two
+    processes' float32 gradients of one batch differ by up to 2.6e-5 of a
+    tensor's largest entry (measured), and five Adam steps of a randomly
+    initialised net carry that into differences of up to 6.8e-3 in the
+    parameters. The two ranks' states are bitwise equal after every step;
+    the parameters agree with the one process's within 1e-5, or twice the
+    summed lr where a gradient of a step was below 1e-4 of its tensor's
+    largest (Adam moves such an element about lr either way with the sign
+    of its float32 gradient); the running statistics follow the formula of
+    tests/test_torch_ddp.py: per step, m prev + ((1 - m) s_1 + (1 - m) s_2)
+    / 2 from the ranks' own prev, with (1 - m) s_1 = A1 - m prev_1 and
+    (1 - m) s_2 = A2 - m A1 from the one process's statistics after its
+    first (A1) and second (A2) microbatch, within ``DDP_STATS_RTOL`` of
+    each tensor's largest."""
+    out_dir = os.path.join(root, "ddp_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    commands = [[sys.executable, os.path.abspath(__file__), "--ddp-rank", str(rank),
+                 str(DDP_WORLD), str(port), out_dir] for rank in range(DDP_WORLD)]
+    logs = [os.path.join(out_dir, f"rank{rank}.log") for rank in range(DDP_WORLD)]
+    start = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    net = training_net(device)
+    torch.save(net.state_dict(), os.path.join(out_dir, "start.pt"))  # the ranks' start
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(run_processes, commands, logs, DDP_TIMEOUT_S, "phase 26 (a)")
+        # meanwhile the one process, on the same card
+        step = recipe_step(net, "O0", accum_steps=DDP_WORLD)
+        image, keypoints = train_batch(np.random.RandomState(SEED + 26),
+                                       DDP_WORLD * DDP_RANK_BATCH, device)
+        bns = {m: n for n, m in net.named_modules() if isinstance(m, nn.BatchNorm2d)}
+        seen = []
+
+        def record(module, _, __):
+            if len(seen) < len(bns):  # the first microbatch's forward
+                seen.append((bns[module], module.running_mean.detach().cpu().clone(),
+                             module.running_var.detach().cpu().clone()))
+
+        hooks = [m.register_forward_hook(record) for m in bns]
+        params = dict(net.named_parameters())
+        tiny = {n: torch.zeros_like(p, dtype=torch.bool) for n, p in params.items()}
+        reference = []
+        for _ in range(DDP_STEPS):
+            before = _statistics(net)
+            seen.clear()
+            step(image, keypoints)
+            for n, p in params.items():
+                tiny[n] |= p.grad.abs() < 1e-4 * p.grad.abs().max()
+            first = {}
+            for name, mean, var in seen:
+                first[f"{name}.running_mean"], first[f"{name}.running_var"] = mean, var
+            reference.append({"before": before, "first": first, "after": _statistics(net)})
+        for h in hooks:
+            h.remove()
+        torch.backends.cudnn.deterministic = deterministic
+        ranks.result()
+    rank_s = time.perf_counter() - start
+    got = [torch.load(os.path.join(out_dir, f"ddp_rank{r}.pt")) for r in range(DDP_WORLD)]
+    for i in range(DDP_STEPS):
+        a, b = got[0]["steps"][i], got[1]["steps"][i]
+        if a["digest"] != b["digest"] or not torch.equal(a["loss"], b["loss"]):
+            raise AssertionError(f"phase 26 (a): the ranks differ after step {i}")
+    lr = HRNET_W32["lr"]
+    worst, loose, beyond, equal = 0.0, 0, 0, True
+    for n, p in params.items():
+        diff = (got[0]["params"][n].to(device) - p.detach()).abs()
+        equal = equal and not bool(diff.any())
+        tol = torch.where(tiny[n], 2.0 * lr * DDP_STEPS, 1e-5)
+        beyond += int((diff > tol).sum())
+        loose += int((diff > 1e-5).sum())
+        worst = max(worst, float(diff.max()))
+    m = 0.9  # flax's momentum: running = 0.9 running + 0.1 batch
+    prev = reference[0]["before"]
+    stats_err, gap = 0.0, 0.0
+    for i, ref in enumerate(reference):
+        ranks_stats = got[0]["steps"][i]["stats"]
+        for name, value in ranks_stats.items():
+            a1, a2 = ref["first"][name], ref["after"][name]
+            want = m * prev[name] + (a1 - m * ref["before"][name] + a2 - m * a1) / 2
+            scale = float(want.abs().max())
+            stats_err = max(stats_err, float((value - want).abs().max()) / scale)
+            gap = max(gap, float((value - a2).abs().max()) / scale)
+        prev = ranks_stats
+    losses = [float(s["loss"].sum()) for s in got[0]["steps"]]
+    print(f"DDP, 2 ranks on one card over gloo (HRNet-W32, float32 O0, {DDP_RANK_BATCH} crops "
+          f"a rank, {DDP_STEPS} steps at lr {lr}): ranks bitwise equal after every step; "
+          f"losses {losses}; parameters against one process at accum_steps=2: max |diff| "
+          f"{worst:.3e} (bitwise equal: {equal}), {loose} elements beyond 1e-5, {beyond} beyond "
+          f"the bound (1e-5, or "
+          f"{2.0 * lr * DDP_STEPS:g} where a gradient was below 1e-4 of its tensor's largest); "
+          f"running statistics against the formula {stats_err:.3e} of each tensor's largest "
+          f"(tolerance {DDP_STATS_RTOL}), against the one process's own {gap:.3e}; "
+          f"{rank_s:.1f} s for the ranks and the one process")
+    if beyond or stats_err > DDP_STATS_RTOL or not gap > 10 * stats_err:
+        raise AssertionError("phase 26 (a): the two ranks do not match one process at "
+                             "accum_steps=2")
+    return {"param_max_diff": worst, "params_equal": equal, "beyond_1e-5": loose,
+            "stats_rel_err": stats_err,
+            "stats_gap": gap, "seconds": rank_s}
+
+
+class _ProfiledStep:
+    """The train entry's step with calls ``first`` to ``first + DDP_PROFILED_STEPS
+    - 1`` (from 0) under torch.profiler: per step, the all-reduces issued
+    (host ranges whose name holds ``all_reduce``), the nccl kernels' device
+    time and count (a group of one rank may launch none) and the
+    device-to-device copies' (DDP's gradient buckets) go to ``out``."""
+
+    def __init__(self, step, first: int, out: dict) -> None:
+        self.step, self.first, self.out = step, first, out
+        self.calls = 0
+        self.prof = None
+
+    @property
+    def count(self) -> int:
+        return self.step.count
+
+    def __call__(self, *batch):
+        call, self.calls = self.calls, self.calls + 1
+        if call == self.first:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        loss = self.step(*batch)
+        if call == self.first + DDP_PROFILED_STEPS - 1:
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            events = self.prof.events()
+            ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+            issued = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                      and "all_reduce" in e.name.lower()]
+            nccl = [e for e in ops if "nccl" in e.name.lower()]
+            copies = [e for e in ops if "dtod" in e.name.lower().replace(" ", "")]
+
+            def per_step_ms(evs):
+                return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / DDP_PROFILED_STEPS
+
+            self.out.update(
+                all_reduces=len(issued) / DDP_PROFILED_STEPS,
+                all_reduce_names=sorted({e.name for e in issued}),
+                nccl_ms=per_step_ms(nccl), nccl_kernels=len(nccl) / DDP_PROFILED_STEPS,
+                nccl_names=sorted({e.name for e in nccl}),
+                dtod_ms=per_step_ms(copies), dtod_copies=len(copies) / DDP_PROFILED_STEPS,
+                data_parallel=isinstance(self.step.module, nn.parallel.DistributedDataParallel))
+        return loss
+
+
+def torchrun_entry(out_dir: str, argv: list) -> None:
+    """Phase 26 (b), the process torchrun starts: the train entry's
+    ``train`` on ``argv`` (its process group from torchrun's variables),
+    the decode kernel's launches counted and epoch 2's first steps
+    profiled; writes ``entry.json``."""
+    args = train_entry.parse_train_args(argv)
+    profiled = {}
+    build_step = train_entry.build_train_step
+    steps_per_epoch = {}
+
+    def build_train_step(*a, **kw):
+        return _ProfiledStep(build_step(*a, **kw), steps_per_epoch["n"], profiled)
+
+    pipeline = train_entry.create_pipeline
+
+    def create_pipeline(*a, **kw):
+        loader = pipeline(*a, **kw)
+        if kw.get("is_train") and "n" not in steps_per_epoch:
+            steps_per_epoch["n"] = len(loader)
+        return loader
+
+    train_entry.build_train_step = build_train_step
+    train_entry.create_pipeline = create_pipeline
+    argmax_shift_decode.launches = 0
+    try:
+        result = train_entry.train(args)
+    finally:
+        train_entry.build_train_step = build_step
+        train_entry.create_pipeline = pipeline
+    record = {"launches": argmax_shift_decode.launches, "epochs": result["epochs"],
+              "step": result["step"], "world": dist.get_world_size(),
+              "backend": dist.get_backend(), "device": str(torch.cuda.current_device()),
+              "profiled": profiled}
+    with open(os.path.join(out_dir, "entry.json"), "w") as f:
+        json.dump(record, f, default=float)
+    dist.destroy_process_group()
+
+
+def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict,
+              phase25: dict) -> dict:
+    """Phase 26 (b): hrnet_w32_tpu.yaml as parsed through the train entry
+    under ``python3 -m torch.distributed.run --nproc_per_node=1`` (nccl,
+    world size 1, DDP over the one card), on phase 12's data, 3 epochs of 10
+    steps, evaluating after the last, as phase 25 trains its host mode. It
+    holds finite, falling losses, AP above 0 and one decode launch per val
+    batch, and that the profiled steps issued all-reduces; it prints the
+    img/s of epoch 3 beside phase 12's and phase 25's host mode's without
+    DDP, and per step the all-reduces issued, the nccl kernels' device time
+    (none ran in a group of one rank on the H100: 0.0000 ms) and DDP's
+    device-to-device copies (torch.profiler, epoch 2's first step)."""
+    ckpt_dir = os.path.join(root, "ddp_entry")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    argv = ["--config", RECIPE_YAML, "--cfg-options", f"train_root={train_root}",
+            f"train_label={train_label}", f"val_root={val_root}", f"val_label={val_label}",
+            f"ckpt_save_dir={ckpt_dir}", f"num_epochs={DDP_EPOCHS}", f"warmup={INPUT_WARMUP}",
+            f"val_interval={DDP_EPOCHS}"]
+    start = time.perf_counter()
+    run_processes([[sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+                    "--master_addr=127.0.0.1", f"--master_port={free_port()}",
+                    os.path.abspath(__file__), "--torchrun-entry", ckpt_dir, "--", *argv]],
+                  [os.path.join(ckpt_dir, "torchrun.log")], DDP_TIMEOUT_S, "phase 26 (b)")
+    entry_s = time.perf_counter() - start
+    with open(os.path.join(ckpt_dir, "entry.json")) as f:
+        run = json.load(f)
+    epochs = run["epochs"]
+    rate = entry_epochs("DDP entry (torchrun, 1 rank, nccl)", epochs)
+    last = epochs[-1]
+    evals = [e for e in epochs if e["metrics"]]
+    ap = float(evals[-1]["metrics"]["AP"]) if evals else 0.0
+    losses = [e["loss"] for e in epochs]
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // HRNET_W32["batch_size"])
+    prof = run["profiled"]
+    host = phase25["runs"]["host"]
+    print(f"DDP entry (torchrun --nproc_per_node=1, backend {run['backend']}, world "
+          f"{run['world']}, cuda:{run['device']}): epoch 3 {last['images_per_sec']:.1f} img/s "
+          f"(step median {last['step_median_s'] * 1e3:.1f} ms, wait "
+          f"{last['wait_total_s'] / last['steps'] * 1e3:.1f} ms a step), epochs 2-3 "
+          f"{rate:.1f}; without DDP: phase 25's host mode epoch 3 "
+          f"{host['epoch3_images_per_sec']:.1f}, phase 12's epochs 2-{ENTRY_EPOCHS} "
+          f"{phase12['images_per_sec']:.1f}; per step of epoch 2 (torch.profiler, "
+          f"{DDP_PROFILED_STEPS} step(s)): {prof['all_reduces']:.1f} all-reduces issued "
+          f"({prof['all_reduce_names']}), nccl kernels {prof['nccl_ms']:.4f} ms of device time "
+          f"({prof['nccl_kernels']:.1f} kernels: {prof['nccl_names']}), device-to-device copies "
+          f"{prof['dtod_ms']:.4f} ms ({prof['dtod_copies']:.1f}); AP {ap:.6f}; losses {losses}; "
+          f"decode kernel launches {run['launches']}; {entry_s:.1f} s with the start")
+    if not (run["backend"] == "nccl" and run["world"] == 1 and prof["data_parallel"]):
+        raise AssertionError("phase 26 (b): the entry did not train through DDP over nccl")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 26 (b): the losses are not finite or did not fall: {losses}")
+    if not (len(evals) == 1 and ap > 0 and run["launches"] == val_batches):
+        raise AssertionError(f"phase 26 (b): {len(evals)} evaluations, AP {ap}, "
+                             f"{run['launches']} decode launches for {val_batches} val batch(es)")
+    if not prof["all_reduces"] >= 1:
+        raise AssertionError("phase 26 (b): the profiled steps issued no all-reduce")
+    return {"launches": run["launches"], "images_per_sec": rate,
+            "epoch3_images_per_sec": last["images_per_sec"], "ap": ap,
+            "all_reduces_per_step": prof["all_reduces"], "nccl_ms_per_step": prof["nccl_ms"],
+            "nccl_kernels_per_step": prof["nccl_kernels"], "dtod_ms_per_step": prof["dtod_ms"],
+            "seconds": entry_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
     adopt_orphans()
     device = torch.device("cuda", 0)
+    clock = {"start": time.perf_counter(), "last": time.perf_counter()}
+
+    def lap(phases: str) -> None:
+        now = time.perf_counter()
+        print(f"time: phases {phases} took {now - clock['last']:.1f} s "
+              f"({now - clock['start']:.1f} s in all)")
+        clock["last"] = now
+
     gpu = gpu_name_and_power()
     print(f"gpu: {gpu}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     build_kernels()
+    lap("1-2")
 
     decode_err = check_decode_bitwise(device)
     decode = time_decode(device)
+    lap("3")
 
     net = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
                          num_joints=HRNET_W32["num_joints"],
@@ -3851,23 +4200,28 @@ def main() -> int:
     compare_with_cpu(predictor, cpu_predictor, image, requests[1])
     del predictor, cpu_predictor
     torch.cuda.empty_cache()
+    lap("4-5")
 
     check_conv_chain(device)
     probed = drive_probe(device)
+    lap("6-7")
 
     evaluated = evaluation(net, device)
     del net
     torch.cuda.empty_cache()
+    lap("8")
 
     phase9 = train_throughput(device)
     check_loss_falls(device)
     compare_train_with_cpu(device)
     torch.cuda.empty_cache()
+    lap("9-11")
 
     with tempfile.TemporaryDirectory() as root:
         entry = train_through_entry(root, phase9, device)
         stop_worker_servers()
         torch.cuda.empty_cache()
+        lap("12")
         trained = train_simple_baseline(root, entry["data"], device, UDP_YAML)
         torch.cuda.empty_cache()
         plain = train_simple_baseline(root, entry["data"], device, SB_YAML)
@@ -3876,22 +4230,34 @@ def main() -> int:
         sb_eval = eval_simple_baseline(root, trained, device)
         sb_served = serve_simple_baseline(root, trained, device)
         torch.cuda.empty_cache()
+        lap("13-15")
         grouped = check_grouping(device)
+        lap("16")
         bu_eval = bottomup_evaluation(root, device)
         bu_served = serve_bottomup(root, bu_eval["ckpt"], device)
         torch.cuda.empty_cache()
+        lap("17-18")
         bu_trained = bottomup_training(root, device)
         torch.cuda.empty_cache()
+        lap("19")
         vit = vitpose_training(root, entry["data"], device)
         torch.cuda.empty_cache()
         vit_recipes = vitpose_recipes(root, device)
         torch.cuda.empty_cache()
+        lap("20-21")
         simcc = family_training(root, entry["data"], device, SIMCC_YAML)
         rle = family_training(root, entry["data"], device, RLE_YAML)
         mpii_kernel = mpii_decode(device)
         mpii_run = mpii_training(root, device)
         torch.cuda.empty_cache()
+        lap("22-24")
         input_modes = input_modes_training(root, entry["data"], device)
+        torch.cuda.empty_cache()
+        lap("25")
+        ddp_on_one_card(root, device)
+        torch.cuda.empty_cache()
+        ddp = ddp_entry(root, entry["data"], device, entry, input_modes)
+        lap("26")
     check_no_processes_left()
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
                                       ("launches", "eval_launches", "serve_launches")},
@@ -3922,13 +4288,16 @@ def main() -> int:
                      + trained["launches"] + plain["launches"] + plain_eval["launches"]
                      + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]
                      + sum(sum(r.values()) for r in vit_launches.values())
-                     + sum(mpii_launches.values()) + input_modes["launches"]),
+                     + sum(mpii_launches.values()) + input_modes["launches"]
+                     + ddp["launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
         "mpii_launches": mpii_launches,
         # phase 25: the callback's evaluation of each input mode's run (1 batch each)
         "input_modes_launches": input_modes["launches"],
+        # phase 26 (b): rank 0's callback under torchrun (1 per eval batch)
+        "ddp_entry_launches": ddp["launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],
@@ -4025,6 +4394,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # phase 26 (a): one rank
+        rank, world, port = map(int, sys.argv[2:5])
+        ddp_rank(rank, world, port, sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--torchrun-entry"]:  # phase 26 (b): the process torchrun starts
+        torchrun_entry(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
+        sys.exit(0)
     try:
         code = main()
     finally:

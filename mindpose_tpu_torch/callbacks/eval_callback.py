@@ -1,15 +1,21 @@
 """Train-time evaluation callback: val-while-train, best/last checkpoints,
 metric logging.
 
-Counterpart of ``mindpose_tpu/callbacks/eval_callback.py:24-177`` on one
-process: per-epoch loss and lr logging, inference and evaluation every
-``interval`` epochs and at the last one, the best-by-target-metric and the
-last checkpoints (the port's ``torch.save`` format, under the JAX
-package's names), a ``.ema`` file beside each when the run keeps averaged
-weights (evaluation then runs on them), and ``metrics.jsonl``. The loss
-vectors stay on the device through the epoch and are read once at its end,
-as the JAX callback holds its device arrays. The rank and device count of
-a multi-process run come with DDP.
+Counterpart of ``mindpose_tpu/callbacks/eval_callback.py:24-177``:
+per-epoch loss and lr logging (the epoch's loss averaged over the ranks),
+inference and evaluation every ``interval`` epochs and at the last one,
+the best-by-target-metric and the last checkpoints (the port's
+``torch.save`` format, under the JAX package's names), a ``.ema`` file
+beside each when the run keeps averaged weights (evaluation then runs on
+them), and ``metrics.jsonl``. The loss vectors stay on the device through
+the epoch and are read once at its end, as the JAX callback holds its
+device arrays.
+
+In a data-parallel run rank 0 alone evaluates, writes the checkpoints and
+``metrics.jsonl``; it evaluates the unwrapped net it is given (the
+inferencer's), never through DDP's forward on one rank. Every rank then
+waits at a barrier, so that the others wait for rank 0's evaluation there
+rather than time out in the next step's collective.
 """
 import contextlib
 import json
@@ -20,7 +26,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import is_distributed, is_main_process
 from ..utils.checkpoint import save_checkpoint, save_ema
 from ..utils.misc import AverageMeter, allreduce_mean
 
@@ -62,6 +70,8 @@ class EvalCallback:
         last_ckpt_path: str = "./last.ckpt",
         target_metric_name: str = "AP",
         summary_dir: str = "./summary",
+        rank_id: Optional[int] = None,
+        device_num: Optional[int] = None,
         async_checkpoint: bool = False,
     ) -> None:
         self.inferencer = inferencer
@@ -77,17 +87,25 @@ class EvalCallback:
         # EPE/NME are error metrics (lower is better); the rest higher-is-better
         self._metric_sign = -1.0 if target_metric_name in ("EPE", "NME") else 1.0
         self.async_checkpoint = async_checkpoint
+        self.rank_id = rank_id if rank_id is not None else 0
+        self.device_num = device_num or 1
 
         self.best_metric = -np.inf
         self.loss_meter = AverageMeter()
         self._epoch_start = 0.0
         self._loss_vectors = []
-        os.makedirs(summary_dir, exist_ok=True)
-        self._metrics_file = os.path.join(summary_dir, "metrics.jsonl")
+        self._metrics_file = None
+        if self._is_rank0():
+            os.makedirs(summary_dir, exist_ok=True)
+            self._metrics_file = os.path.join(summary_dir, "metrics.jsonl")
+
+    def _is_rank0(self) -> bool:
+        return self.rank_id == 0 and is_main_process()
 
     def _write_summary(self, record: Dict[str, Any]) -> None:
-        with open(self._metrics_file, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if self._metrics_file:
+            with open(self._metrics_file, "a") as f:
+                f.write(json.dumps(record) + "\n")
 
     def on_epoch_begin(self, epoch: int) -> None:
         self.loss_meter.reset()
@@ -139,21 +157,25 @@ class EvalCallback:
             and self.dataset_val is not None
             and (epoch % self.interval == 0 or epoch == self.max_epoch)
         )
-        if self.save_last:
-            self._save(self.last_ckpt_path, net, optimizer, step, ema_params)
-        if run_eval:
-            with _parameters_swapped(net, ema_params):
-                outputs = self.inferencer(self.dataset_val)
-            metrics = self.evaluator(outputs)
-            for name, value in metrics.items():
-                record[f"val/{name}"] = float(value)
-            target = float(metrics[self.target_metric_name])
-            logging.info("epoch: [%d/%d], %s%s: %.4f", epoch, self.max_epoch,
-                         self.target_metric_name, " (EMA)" if ema_params is not None else "",
-                         target)
-            if self.save_best and self._metric_sign * target > self.best_metric:
-                self.best_metric = self._metric_sign * target
-                self._save(self.best_ckpt_path, net, optimizer, step, ema_params)
-                logging.info("best %s = %.4f, checkpoint saved.", self.target_metric_name, target)
-        self._write_summary(record)
+        if self._is_rank0():
+            if self.save_last:
+                self._save(self.last_ckpt_path, net, optimizer, step, ema_params)
+            if run_eval:
+                with _parameters_swapped(net, ema_params):
+                    outputs = self.inferencer(self.dataset_val)
+                metrics = self.evaluator(outputs)
+                for name, value in metrics.items():
+                    record[f"val/{name}"] = float(value)
+                target = float(metrics[self.target_metric_name])
+                logging.info("epoch: [%d/%d], %s%s: %.4f", epoch, self.max_epoch,
+                             self.target_metric_name,
+                             " (EMA)" if ema_params is not None else "", target)
+                if self.save_best and self._metric_sign * target > self.best_metric:
+                    self.best_metric = self._metric_sign * target
+                    self._save(self.best_ckpt_path, net, optimizer, step, ema_params)
+                    logging.info("best %s = %.4f, checkpoint saved.", self.target_metric_name,
+                                 target)
+            self._write_summary(record)
+        if is_distributed():
+            dist.barrier()  # the other ranks wait here for rank 0's evaluation
         return metrics

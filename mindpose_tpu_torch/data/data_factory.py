@@ -6,10 +6,10 @@ shuffled per epoch from ``seed``, the last partial batch dropped), with the
 JAX package's batch rule for bottom-up evaluation (:93-118), and the
 loader options of ``device_pipeline: full`` (``image_bucket``,
 ``decode_cache_mb``, ``frame_grouped_shuffle``, ``patch_grouped_batching``)
-passed through. ``hwc_to_chw`` is accepted and not read, as the JAX
-package's ``create_pipeline`` does not read it (batches stay NHWC). An
-argument the port does not support (sharding, other methods) raises rather
-than being ignored.
+and the rank's shard (``device_num``, ``rank_id``) passed through.
+``hwc_to_chw`` is accepted and not read, as the JAX package's
+``create_pipeline`` does not read it (batches stay NHWC). An argument the
+port does not support (other methods) raises rather than being ignored.
 """
 import logging
 from typing import Any, Dict, List, Optional, Union
@@ -40,10 +40,9 @@ def create_dataset(
 ):
     """Instantiate the record dataset plus its loader context.
 
-    Returns a dict bundle consumed by ``create_pipeline``.
+    Returns a dict bundle consumed by ``create_pipeline``, whose loader
+    keeps the records ``rank_id::device_num``.
     """
-    if (device_num or 1) != 1 or (rank_id or 0) != 0:
-        _refuse(f"sharding (device_num={device_num}, rank_id={rank_id})", "Queue 1, DDP")
     kwargs = {k: v for k, v in kwargs.items() if v is not None}
     dataset = entrypoint("dataset", dataset_format)(
         image_root, annotation_file, is_train=is_train, config=config, **kwargs
@@ -52,6 +51,8 @@ def create_dataset(
         "dataset": dataset,
         "dataset_format": dataset_format,
         "is_train": is_train,
+        "device_num": device_num,
+        "rank_id": rank_id,
         "num_workers": num_workers,
     }
 
@@ -100,6 +101,8 @@ def create_pipeline(
         normalize_mean=normalize_mean,
         normalize_std=normalize_std,
         num_workers=max(num_workers, bundle.get("num_workers", 1) or 1),
+        device_num=bundle.get("device_num"),
+        rank_id=bundle.get("rank_id"),
         seed=seed,
         image_bucket=image_bucket,
         decode_cache_mb=decode_cache_mb,

@@ -32,7 +32,13 @@ frame's records together (:326); ``patch_grouped_batching`` batches
 records of one bucket shape together (:400-505). With one worker the
 indices, the batches and their bytes are the JAX loader's.
 
-Sharding (``device_num``/``rank_id`` other than 1/0) waits for DDP.
+Sharding (:213-253): with ``device_num``/``rank_id`` a rank keeps the
+records ``rank_id::device_num`` of the dataset, and everything else runs
+on its own shard: the frame groups of ``frame_grouped_shuffle`` are built
+from its records, the epoch's ``RandomState(seed + epoch)`` shuffles them,
+and ``drop_remainder`` and ``patch_grouped_batching`` apply to its batches.
+At one worker each rank's batches are the JAX loader's at the same
+``device_num``/``rank_id``.
 
 ``DevicePrefetcher`` (:507) serves the train entry's ``device_prefetch: N``:
 on a CUDA device a thread copies each batch from pinned host memory on a
@@ -248,10 +254,9 @@ class DataLoader:
     ) -> None:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        if (device_num or 1) != 1 or (rank_id or 0) != 0:
-            raise NotImplementedError(
-                f"sharding (device_num={device_num}, rank_id={rank_id}) comes with DDP "
-                "(ROADMAP.md, Queue 1, DDP)")
+        device_num, rank_id = device_num or 1, rank_id or 0
+        if not 0 <= rank_id < device_num:
+            raise ValueError(f"rank_id must be in [0, device_num={device_num}), got {rank_id}")
         if worker_mode not in WORKER_MODES:
             raise ValueError(f"worker_mode must be one of {WORKER_MODES}, got {worker_mode!r}")
         self.dataset = dataset
@@ -271,19 +276,21 @@ class DataLoader:
         self.decode_cache_mb = decode_cache_mb
         self.decode_cache = DecodedFrameCache(decode_cache_mb) if decode_cache_mb else None
         self.epoch = 0
+        self.device_num, self.rank_id = device_num, rank_id
+        self._indices = np.arange(len(dataset))[rank_id::device_num]  # this rank's shard
         self._pool = None  # the process pool, made at the first process-mode pass
-        # frame-grouped shuffling: each frame's records, in dataset order
+        # frame-grouped shuffling: each frame's records of the shard, in dataset order
         self._frame_groups: Optional[List[np.ndarray]] = None
         if frame_grouped_shuffle:
             records = getattr(dataset, "_dataset", None)
             groups: Dict[Any, List[int]] = {}
-            for i in range(len(dataset)):
+            for i in self._indices.tolist():
                 key = records[i].get("image_file", i) if records is not None else i
                 groups.setdefault(key, []).append(i)
             self._frame_groups = [np.asarray(v) for v in groups.values()]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._indices)
         if self.drop_remainder:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -343,8 +350,13 @@ class DataLoader:
         if pool is not None:
             pool.terminate()
 
+    @property
+    def num_samples(self) -> int:
+        """The records of this rank's shard."""
+        return len(self._indices)
+
     def _epoch_indices(self) -> np.ndarray:
-        idx = np.arange(len(self.dataset))
+        idx = self._indices.copy()
         if self.is_train:
             rng = np.random.RandomState(self.seed + self.epoch)
             if self._frame_groups is not None:

@@ -135,8 +135,8 @@ def create_optimizer(
     """
     if radial_projection:
         raise NotImplementedError(
-            "radial_projection is not ported (ROADMAP.md, Queue 1, DDP: it serves only the "
-            "frozen-statistics BatchNorm, which the port refuses)")
+            "radial_projection is not ported (ROADMAP.md, Queue 1, the rest: it serves only "
+            "the frozen-statistics BatchNorm, which the port refuses)")
     params = dict(module.named_parameters())
     scales = dict.fromkeys(params, 1.0)
     if layer_decay:

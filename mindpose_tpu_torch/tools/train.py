@@ -1,7 +1,9 @@
-"""Training CLI: config-driven training on one CUDA GPU.
+"""Training CLI: config-driven training on one CUDA GPU, or data-parallel
+with one process per card.
 
-Counterpart of ``tools/train.py:61-517`` on one device, in its order: the
-config and CLI overrides; the global numpy seed (``seed + rank``, :105);
+Counterpart of ``tools/train.py:61-517``, in its order: the config and CLI
+overrides; the process group (:63-120); the global numpy seed
+(``seed + rank``, :105);
 the train and val datasets and loaders (:113-247); the net, its
 pretrained backbone (``backbone_pretrained``, :270-280), the loss and
 ``NetWithLoss``; the schedule over ``len(loader_train)`` steps per epoch
@@ -35,20 +37,37 @@ and misses. As in
 the JAX entry, a resumed run counts its epochs from 1 while the step count,
 and with it the schedule, continues.
 
+Data-parallel: where the JAX entry runs one process per host with a mesh
+over its chips, the port runs one process per card. Started by torchrun
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``)
+or with the ``MINDPOSE_COORDINATOR``/``MINDPOSE_NUM_PROCESSES``/
+``MINDPOSE_PROCESS_ID`` variables of ``tools/launch_pod.py``, the entry
+starts a process group (``nccl`` on CUDA, ``gloo`` with ``--device cpu``),
+runs on ``cuda:LOCAL_RANK``, seeds numpy with ``seed + rank``, gives its
+loader the records ``rank::world`` (``batch_size`` is per card, as in
+JAX), trains through DDP with the BatchNorm statistics averaged
+(``parallel/train.py``), evaluates and writes checkpoints and the crash
+checkpoint on rank 0 alone, and logs the throughput of all ranks. A resume
+reads the checkpoint on every rank. ``distributed_init: true`` requires
+such a launch; ``distribute`` is accepted, as a mesh of one in JAX when
+there is no group.
+
 The entry runs on the current CUDA device unless ``--device`` says
-otherwise, and raises without CUDA. ``parallel_mode: fsdp`` with one
-visible device trains as the JAX entry does on a mesh of one: nothing is
-sharded. It raises on a config key it does not read and on one whose
-setting is not ported (DDP, FSDP over more than one card, distillation;
-each message names its ROADMAP item); it ignores none.
+otherwise, and raises without CUDA, and with more than one visible card
+outside a process group. ``parallel_mode: fsdp`` in a world of one trains
+as the JAX entry does on a mesh of one: nothing is sharded. It raises on a
+config key it does not read and on one whose setting is not ported (FSDP
+over more than one card, ``model_parallel``, distillation; each message
+names its ROADMAP item); it ignores none.
 
 Usage:
     python3 -m mindpose_tpu_torch.tools.train --config configs/hrnet/hrnet_w32_tpu.yaml \\
         [--device cpu] [--seed 0] [--ckpt resume.ckpt] [--cfg-options num_epochs=1 ...]
+    torchrun --nproc_per_node=N -m mindpose_tpu_torch.tools.train --config ... [...]
 """
 import logging
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -78,7 +97,7 @@ from ..models import (
     create_network_with_loss,
 )
 from ..optim import create_optimizer
-from ..parallel import build_ema_update, build_train_step
+from ..parallel import build_ema_update, build_train_step, init_distributed, is_distributed
 from ..scheduler import create_lr_scheduler
 from ..utils.checkpoint import (
     load_ema,
@@ -109,12 +128,10 @@ KNOWN_KEYS = frozenset("""
     decoder_setting profile profile_dir
 """.split())
 
+FSDP_ITEM = "ROADMAP.md, Queue 1, FSDP over more than one card"
 # key -> (refused when, why); each names the ROADMAP item that ports it
 _REFUSED = {
-    "distributed_init": (bool, "multi-process training comes with DDP (ROADMAP.md, Queue 1, "
-                               "DDP)"),
-    "model_parallel": (bool, "model_parallel serves FSDP over more than one device "
-                             "(ROADMAP.md, Queue 1, DDP: FSDP)"),
+    "model_parallel": (bool, f"model_parallel serves FSDP over more than one device ({FSDP_ITEM})"),
     "distill_setting": (bool, "distillation is not ported (ROADMAP.md, Queue 1, the rest: "
                               "distillation)"),
     "allow_divergent_knobs": (bool, "the port refuses the divergent BatchNorm and optimizer "
@@ -140,6 +157,25 @@ def _parallel_mode(args: Any) -> str:
     return str(getattr(args, "parallel_mode", "data") or "data").lower()
 
 
+def _distributed(args: Any) -> Tuple[int, int]:
+    """Start the process group where the launch asks for one; ``(rank, world)``.
+
+    Its backend follows ``--device``: nccl on CUDA (the default), gloo on
+    the CPU."""
+    rank, world = init_distributed(device=torch.device(getattr(args, "device", None)
+                                                       or "cuda").type)
+    if getattr(args, "distributed_init", False) and not is_distributed():
+        raise ValueError(
+            "distributed_init: true, and neither torchrun's RANK/WORLD_SIZE nor "
+            "MINDPOSE_COORDINATOR is set: launch one process per card with `torchrun "
+            "--nproc_per_node=N -m mindpose_tpu_torch.tools.train --config ...`")
+    if world > 1 and _parallel_mode(args) == "fsdp":
+        raise NotImplementedError(
+            f"parallel_mode fsdp in a world of {world}: sharding the parameters and optimizer "
+            f"state over the ranks is not ported ({FSDP_ITEM})")
+    return rank, world
+
+
 def _device(args: Any) -> torch.device:
     device = getattr(args, "device", None)
     if device is None:
@@ -148,13 +184,18 @@ def _device(args: Any) -> torch.device:
                                "available; pass --device cpu to train on the CPU")
         device = "cuda"
     device = torch.device(device)
+    if device.type == "cuda" and is_distributed():
+        # init_distributed made cuda:LOCAL_RANK the current device
+        return device if device.index is not None else torch.device(
+            "cuda", torch.cuda.current_device())
     if device.type == "cuda" and torch.cuda.device_count() > 1:
-        how = ("shards the parameters and optimizer state over all of them (parallel_mode "
-               "fsdp), and FSDP" if _parallel_mode(args) == "fsdp"
-               else "trains data-parallel over all of them, and DDP")
+        n = torch.cuda.device_count()
         raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices are visible: the JAX entry {how} is not "
-            "ported (ROADMAP.md, Queue 1, DDP); make one visible with CUDA_VISIBLE_DEVICES")
+            f"{n} CUDA devices are visible and no process group is initialised: the port "
+            "trains data-parallel with one process per card, and one process does not drive "
+            f"several. Launch one process per card (`torchrun --nproc_per_node={n} -m "
+            "mindpose_tpu_torch.tools.train --config ...`), or make one card visible with "
+            "CUDA_VISIBLE_DEVICES")
     # parallel_mode fsdp on one device: the JAX entry's mesh of one, where
     # nothing is sharded and the step is the single-device one
     return device
@@ -172,16 +213,17 @@ def train(args: Any) -> Dict[str, Any]:
     cache's ``hits`` and ``misses`` (None without one).
     """
     check_config(args)
+    rank, world = _distributed(args)
     device = _device(args)
     seed = getattr(args, "seed", 0) or 0
-    # host augmentations draw from the global numpy stream (rank 0 of 1)
-    np.random.seed(seed)
+    # host augmentations draw from the global numpy stream, one per rank
+    np.random.seed(seed + rank)
     workers = getattr(args, "num_parallel_workers", 4)
 
-    # ---- data ----
+    # ---- data: this rank's shard of the records, batch_size per card ----
     dataset_train = create_dataset(
         args.train_root, args.train_label, dataset_format=args.dataset_format, is_train=True,
-        num_workers=workers, config=args.dataset_setting)
+        device_num=world, rank_id=rank, num_workers=workers, config=args.dataset_setting)
     device_pipeline = getattr(args, "device_pipeline", False)
     train_transforms = args.train_transforms
     preprocess = None
@@ -318,7 +360,7 @@ def train(args: Any) -> Dict[str, Any]:
         last_ckpt_path=os.path.join(ckpt_dir, f"{config_name}_last.ckpt"),
         target_metric_name=(args.eval_metric[0] if isinstance(args.eval_metric, list)
                             else args.eval_metric),
-        summary_dir=os.path.join(ckpt_dir, "summary"),
+        summary_dir=os.path.join(ckpt_dir, "summary"), rank_id=rank, device_num=world,
         async_checkpoint=bool(getattr(args, "async_checkpoint", False)))
 
     # ---- the train loop ----
@@ -375,16 +417,19 @@ def train(args: Any) -> Dict[str, Any]:
                                             ema_params=ema_params)
             epochs.append(dict(timer.summary(), epoch=epoch, loss=callback.loss_meter.avg,
                                lr=lr_now, metrics=metrics, batch_bytes=batch_bytes))
-            logging.info("throughput: %.1f images/sec", timer.images_per_sec)
+            logging.info("throughput: %.1f images/sec (%.1f/card)",
+                         timer.images_per_sec * world, timer.images_per_sec)
         wait_pending_checkpoints()
     except BaseException:
-        # persist the last state before the exception propagates
-        crash_path = os.path.join(ckpt_dir, f"{config_name}_crash.ckpt")
-        try:
-            save_checkpoint(crash_path, net, optimizer, step_fn.count)
-            logging.error("crash checkpoint saved to %s", crash_path)
-        except Exception:
-            logging.exception("failed to save crash checkpoint")
+        # persist the last state before the exception propagates (rank 0: the
+        # replicas are equal)
+        if rank == 0:
+            crash_path = os.path.join(ckpt_dir, f"{config_name}_crash.ckpt")
+            try:
+                save_checkpoint(crash_path, net, optimizer, step_fn.count)
+                logging.error("crash checkpoint saved to %s", crash_path)
+            except Exception:
+                logging.exception("failed to save crash checkpoint")
         raise
     cache = loader_train.decode_cache
     return {"epochs": epochs, "start_step": start_step, "step": step_fn.count,
@@ -402,7 +447,11 @@ def parse_train_args(argv=None) -> Any:
 
 def main() -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    train(parse_train_args())
+    try:
+        train(parse_train_args())
+    finally:
+        if is_distributed():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

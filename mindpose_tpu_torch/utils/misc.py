@@ -1,8 +1,8 @@
 """Metric averaging, the cross-process mean and the throughput meter.
 
 Counterpart of ``mindpose_tpu/utils/misc.py``: ``AverageMeter`` (a copy),
-``allreduce_mean`` (the mean across processes; identity on one process,
-and it raises in a multi-process run until DDP is ported) and
+``allreduce_mean`` (the mean across the ranks of the process group;
+identity on one process) and
 ``StepTimer``, which also keeps each step's wait on the loader and its
 time, so that a run can say whether the host or the step sets its pace.
 """
@@ -35,12 +35,22 @@ class AverageMeter:
 
 
 def allreduce_mean(value: np.ndarray) -> np.ndarray:
-    """Mean across processes: the value itself on one process."""
+    """Mean across the ranks of the process group: the value itself on one
+    process. A collective: every rank calls it. The host-side mean for logs;
+    the train step averages its own tensors."""
+    import torch
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("a multi-process mean comes with DDP (ROADMAP.md, Queue 1, DDP)")
-    return np.asarray(value)
+    value = np.asarray(value)
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return value
+    # nccl reduces device tensors only
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    total = torch.from_numpy(value.astype(np.float64)).to(device)
+    dist.all_reduce(total)
+    mean = (total / dist.get_world_size()).cpu().numpy()
+    return mean.astype(value.dtype) if np.issubdtype(value.dtype, np.floating) else mean
 
 
 class StepTimer:

@@ -29,6 +29,7 @@ from mindpose_tpu.models.decoders.bottom_up_decoder import (
 )
 from mindpose_tpu_torch.models import create_decoder
 from mindpose_tpu_torch.models.common import resize_bilinear, resize_nearest
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ATOL = 2e-6
 K = 17

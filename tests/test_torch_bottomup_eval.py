@@ -44,6 +44,7 @@ from mindpose_tpu_torch.tools import eval as port_eval
 from mindpose_tpu_torch.utils.checkpoint import load_net_state_dict
 from tests.fixtures import tiny_coco
 from tests.fixtures.eval_checks import BOTTOMUP_CKPT, BOTTOMUP_RECORD, register_port_backbone
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 STATS_ATOL, O2_STATS_ATOL = 1e-3, 0.02
 RUNS = [

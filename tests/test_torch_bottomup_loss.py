@@ -28,6 +28,7 @@ from mindpose_tpu.models.loss import ae as jax_ae_module
 from mindpose_tpu.models.loss import mse as jax_mse_module
 from mindpose_tpu.models.model_factory import create_loss as jax_create_loss
 from mindpose_tpu_torch.models import create_loss
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RTOL = 1e-10
 N, M, K = 4, 6, 5

@@ -38,6 +38,7 @@ from mindpose_tpu_torch.utils.checkpoint import load_net_state_dict
 from tests.fixtures import tiny_coco
 from tests.fixtures.eval_checks import BOTTOMUP_CKPT, BOTTOMUP_RECORD, register_port_backbone
 from tests.make_torch_eval_fixture import register_jax_backbone
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(ROOT, "configs", "higher_hrnet", "higher_hrnet_w32_tpu.yaml")

@@ -71,6 +71,7 @@ from tests.fixtures.eval_checks import (BOTTOMUP_CKPT, BOTTOMUP_RECORD,
                                         compare_callback_with_eval_entry, recording_entry,
                                         register_port_backbone)
 from tests.test_torch_bottomup_loss import Float64Numpy
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE = os.path.join(ROOT, "configs", "higher_hrnet", "higher_hrnet_w32_tpu.yaml")

@@ -62,6 +62,7 @@ from mindpose_tpu_torch.register import entrypoint
 from mindpose_tpu_torch.utils import coco
 from tests.fixtures import tiny_coco
 from tests.fixtures.eval_checks import BOTTOMUP_RECORD
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "configs", "higher_hrnet", "higher_hrnet_w32_tpu.yaml")) as f:

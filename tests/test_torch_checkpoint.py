@@ -39,6 +39,7 @@ from mindpose_tpu_torch.utils.checkpoint import (
 )
 from mindpose_tpu_torch.utils.flax_msgpack import load_variables, msgpack_restore
 from tests.test_torch_hrnet import CFG, build_pair, skeleton
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _assert_same_tree(got, want, path="root"):

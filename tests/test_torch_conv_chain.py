@@ -21,6 +21,7 @@ from mindpose_tpu_torch.ops.cuda.conv_chain import (
     fused_conv_chain,
     split_layers,
 )
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _inputs(b, h, w, c, depth):

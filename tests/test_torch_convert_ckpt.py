@@ -49,6 +49,7 @@ from mindpose_tpu_torch.tools import convert_ckpt
 from mindpose_tpu_torch.utils.checkpoint import load_pretrained_backbone
 from mindpose_tpu_torch.utils.download import DownLoad
 from tests.fixtures.loopback import serve_directory
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 NARROW_HRNET = "hrnet_w8_convert_test"  # hrnet_w32's modules, branches and blocks at width 8
 SHALLOW_VIT = "vit_b_depth2_convert_test"  # vit_b's width and heads, 2 blocks

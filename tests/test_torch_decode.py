@@ -43,6 +43,7 @@ from mindpose_tpu_torch.ops.heatmap import (
     gaussian_kernel_2d,
     quarter_offset,
 )
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _heatmap(case: str) -> np.ndarray:

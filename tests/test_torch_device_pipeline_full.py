@@ -52,6 +52,7 @@ from mindpose_tpu_torch.tools import train as port_train
 from tests.fixtures import tiny_coco
 from tests.fixtures.eval_checks import RECORD, register_port_backbone
 from tests.helpers import make_tiny_coco
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE = os.path.join(ROOT, "configs", "hrnet", "hrnet_w32_tpu.yaml")

@@ -51,6 +51,7 @@ from tests.fixtures import tiny_coco
 from tests.fixtures.eval_checks import CKPT, RECORD, decode_margin, register_port_backbone
 from tests.helpers import DATASET_SETTING, make_tiny_coco
 from tests.test_torch_hrnet import CFG, build_pair
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 SETTING = dict(DATASET_SETTING, image_size=[48, 64], heatmap_size=[12, 16])
 TTA_MODES = [(False, False), (True, False), (True, True)]

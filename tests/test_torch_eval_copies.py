@@ -37,6 +37,7 @@ from mindpose_tpu_torch.utils.cocoeval import COCOeval
 from mindpose_tpu_torch.utils.nms import oks_iou, oks_nms, soft_oks_nms
 from tests.cocofixtures import make_realistic_eval_fixture
 from tests.helpers import DATASET_SETTING, make_detection_json, make_tiny_coco
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVAL_SETTING = {
@@ -288,10 +289,15 @@ def test_val_loader_prefetches_and_stops(tiny):
 
 def test_pipeline_refuses_what_it_does_not_support(tiny):
     img_root, ann, _ = tiny
+    # sharding is ported: a rank's loader keeps the records rank_id::device_num
     for is_train in (True, False):
-        with pytest.raises(NotImplementedError, match="sharding"):
+        whole = create_dataset(img_root, ann, is_train=is_train, config=DATASET_SETTING,
+                               use_gt_bbox_for_val=True)["dataset"]
+        shard = create_pipeline(
             create_dataset(img_root, ann, is_train=is_train, device_num=2, rank_id=1,
-                           config=DATASET_SETTING, use_gt_bbox_for_val=True)
+                           config=DATASET_SETTING, use_gt_bbox_for_val=True),
+            VAL_TRANSFORMS, is_train=is_train, config=DATASET_SETTING)
+        assert shard.num_samples == len(whole) // 2 and shard.rank_id == 1
     ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
                         use_gt_bbox_for_val=True)
     with pytest.raises(NotImplementedError):

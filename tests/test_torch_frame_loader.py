@@ -30,6 +30,7 @@ from mindpose_tpu_torch.data import device_pipeline
 from mindpose_tpu_torch.data.loader import DataLoader, DecodedFrameCache, _decode_image
 from mindpose_tpu_torch.register import entrypoint
 from tests.helpers import make_tiny_coco
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 SETTING = {
     "image_size": [64, 64],

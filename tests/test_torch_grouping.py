@@ -41,6 +41,7 @@ from mindpose_tpu_torch.ops import grouping
 from mindpose_tpu_torch.ops.cuda import grouping as cuda_grouping
 from mindpose_tpu_torch.utils.match import match_by_tag
 from tests.fixtures.grouping_sets import ORDER, SETS, TIE_SETS, candidate_sets
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "mindpose_tpu_torch", "csrc", "grouping.cu")

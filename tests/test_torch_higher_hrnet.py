@@ -42,6 +42,7 @@ from mindpose_tpu_torch.models.convert import (
 from mindpose_tpu_torch.models.heads import HigherHRNetHead
 from mindpose_tpu_torch.models.networks import Net
 from tests.test_torch_hrnet import CFG
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(ROOT, "configs", "higher_hrnet", "higher_hrnet_w32_tpu.yaml")

@@ -67,6 +67,7 @@ from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
 from mindpose_tpu_torch.utils import download, keypoint_metrics, ms_ckpt
 from mindpose_tpu_torch.utils.match import match_by_tag
 from tests.fixtures.grouping_sets import ORDER, candidate_sets
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SETTING = {

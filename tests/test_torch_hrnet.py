@@ -31,6 +31,7 @@ from mindpose_tpu_torch.models.common import resize_nearest
 from mindpose_tpu_torch.models.convert import convert_net_variables, hrnet_mapping
 from mindpose_tpu_torch.models.heads import HRNetHead
 from mindpose_tpu_torch.models.networks import Net
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 CFG = {
     "stage1": {"num_modules": 1, "num_branches": 1, "block": "BOTTLENECK",
@@ -136,7 +137,8 @@ def test_mapping_names_every_tensor_of_the_port_module():
         leaves = ("weight",) if kind == "conv" else (
             "weight", "bias", "running_mean", "running_var", "num_batches_tracked")
         names.update(f"{prefix}.{leaf}" for leaf in leaves)
-    sd = create_backbone("hrnet_w32").state_dict()
+    with torch.device("meta"):  # the names only: no weights drawn
+        sd = create_backbone("hrnet_w32").state_dict()
     assert set(sd) == names
     assert len([k for k in sd if not k.endswith("num_batches_tracked")]) == 1460
     assert "stage4.2.fuse_layers.0.3.1.running_var" in sd
@@ -151,9 +153,12 @@ def test_resize_nearest_matches_jax(hw):
 
 
 def test_tpu_knobs_are_checked():
-    # exact TPU rewrites and the fused-backward BN are plain BN here
-    create_network("hrnet_w32", "hrnet_head",
-                   backbone_args={"stem_s2d": True, "branch0_s2d": True, "bn_grad_stats": "fused"})
+    # exact TPU rewrites and the fused-backward BN are plain BN here (built on
+    # the meta device: the structure only)
+    with torch.device("meta"):
+        create_network("hrnet_w32", "hrnet_head",
+                       backbone_args={"stem_s2d": True, "branch0_s2d": True,
+                                      "bn_grad_stats": "fused"})
     with pytest.raises(NotImplementedError, match="performance.md"):
         create_backbone("hrnet_w32", bn_grad_stats="frozen")
     with pytest.raises(NotImplementedError, match="performance.md"):

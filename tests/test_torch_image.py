@@ -16,6 +16,7 @@ from mindpose_tpu.ops.image import affine_warp as jax_affine_warp
 from mindpose_tpu.ops.image import invert_affine as jax_invert_affine
 from mindpose_tpu.ops.image import normalize_image as jax_normalize_image
 from mindpose_tpu_torch.ops.image import affine_warp, invert_affine, normalize_image
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _mats(rng, n):

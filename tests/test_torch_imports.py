@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mindpose_tpu")
@@ -19,6 +20,7 @@ def _port_files():
              ("chip_smoke.py", "profile_serving.py", "profile_train.py", "grad_precision.py",
               os.path.join("tests", "fixtures", "tiny_coco.py"),
               os.path.join("tests", "fixtures", "eval_checks.py"),
+              os.path.join("tests", "fixtures", "ddp_ranks.py"),
               os.path.join("tests", "fixtures", "grouping_sets.py"),
               os.path.join("tests", "fixtures", "mpii.py"))]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "mindpose_tpu_torch")):

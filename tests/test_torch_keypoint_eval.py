@@ -30,6 +30,7 @@ from mindpose_tpu_torch.tools import train as port_train
 from tests.fixtures import mpii
 from tests.fixtures.eval_checks import RECORD, register_port_backbone
 from tests.test_torch_simcc import small_crops, train_recipe_through_the_entries
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MPII_YAML = os.path.join(ROOT, "configs", "mpii", "hrnet_w32_mpii_tpu.yaml")

@@ -29,6 +29,7 @@ from mindpose_tpu.ops.image import affine_warp as jax_affine_warp
 from mindpose_tpu.ops.image import normalize_image as jax_normalize_image
 from mindpose_tpu_torch.engine import TopDownPredictor
 from tests.test_torch_hrnet import pair  # noqa: F401  (the reduced HRNet, both packages)
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 SETTING = {
     "image_size": [192, 256],

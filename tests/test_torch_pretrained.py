@@ -47,6 +47,7 @@ from mindpose_tpu_torch.utils.checkpoint import (
 from tests.fixtures.loopback import serve_directory
 from tests.test_torch_hrnet import CFG as HRNET_CFG
 from tests.test_torch_vit import TINY, fill_variables
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 GRID_ATOL = 1e-6
 PATCH = 16

@@ -75,6 +75,7 @@ from tests.test_torch_simcc import (
     train_recipe_through_the_entries,
 )
 from tests.test_torch_train_step import _keypoints
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RLE_YAML = os.path.join(ROOT, "configs", "rle", "resnet50_rle_tpu.yaml")
 

@@ -37,6 +37,7 @@ from mindpose_tpu_torch.models.convert import convert_net_variables
 from mindpose_tpu_torch.tools import serve
 from mindpose_tpu_torch.utils.checkpoint import save_checkpoint
 from tests.test_torch_simple_baseline import full  # noqa: F401  (ResNet-50 flax variables)
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "simple_baseline", "resnet50_tpu.yaml")

@@ -19,6 +19,7 @@ from mindpose_tpu_torch.models.backbones.hrnet import HRNet
 from mindpose_tpu_torch.models.heads import HRNetHead
 from mindpose_tpu_torch.models.networks import Net
 from tests.test_torch_hrnet import CFG
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 SETTING = {
     "image_size": [64, 64],

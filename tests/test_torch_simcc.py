@@ -87,6 +87,7 @@ from tests.fixtures import tiny_coco
 from tests.test_torch_bottomup_loss import Float64Numpy
 from tests.test_torch_simple_baseline import _randomize
 from tests.test_torch_train_step import _as, _keypoints
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIMCC_YAML = os.path.join(ROOT, "configs", "simcc", "resnet50_simcc_tpu.yaml")

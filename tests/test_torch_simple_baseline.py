@@ -38,7 +38,6 @@ from mindpose_tpu.models.model_factory import create_loss as jax_create_loss
 from mindpose_tpu.models.model_factory import create_network_with_loss as jax_create_nwl
 from mindpose_tpu.models.networks import Net as JaxNet
 from mindpose_tpu.optim.optim_factory import create_optimizer as jax_create_optimizer
-from mindpose_tpu.parallel.train import accum_loss_and_grads as jax_accum
 from mindpose_tpu.parallel.train import build_train_step as jax_build_train_step
 from mindpose_tpu.parallel.train import create_train_state
 from mindpose_tpu.scheduler.schedulers import create_lr_scheduler as jax_create_scheduler
@@ -70,7 +69,8 @@ from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import train as port_train
 from mindpose_tpu_torch.utils.checkpoint import restore_train_state
 from tests.test_torch_bottomup_loss import Float64Numpy
-from tests.test_torch_train_step import YAML, _as, _keypoints, _schedule_kwargs
+from tests.test_torch_train_step import YAML, _adam_gradients, _as, _keypoints, _schedule_kwargs
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 BLOCKS = (1, 1, 1, 1)
 FILTERS = (16, 16, 16)
@@ -444,14 +444,15 @@ def test_three_steps_match_jax_float64(reduced, monkeypatch):
         tx = jax_create_optimizer(variables64["params"], learning_rate=schedule_j, **YAML)
         state = create_train_state(variables64, tx)
         step_j = jax_build_train_step(nwl_j, tx, donate=False)
-        grads_j = jax.jit(lambda p, s, *b: jax_accum(nwl_j, p, s, b))
         # NCHW -> NHWC for the JAX net and loss
         batch_j = (jnp.asarray(batch[0].permute(0, 2, 3, 1).numpy()),
                    jnp.asarray(batch[1].permute(0, 2, 3, 1).numpy()), jnp.asarray(batch[2].numpy()))
+        mu = None
         for i in range(3):
-            _, _, g = grads_j(state.params, state.batch_stats, *batch_j)
-            want_g = convert_net_variables({"params": g, "batch_stats": state.batch_stats}, net)
+            stats = state.batch_stats
             state, loss_j = step_j(state, *batch_j)
+            g, mu = _adam_gradients(state.opt_state, mu)  # the gradient the step took
+            want_g = convert_net_variables({"params": g, "batch_stats": stats}, net)
             loss = step(*batch)
             np.testing.assert_allclose(loss.numpy(), np.asarray(loss_j), rtol=F64_RTOL)
             for name, p in net.named_parameters():

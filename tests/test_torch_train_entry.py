@@ -6,9 +6,10 @@ hrnet_w32_tpu.yaml for the fixture's reduced HRNet (tests/fixtures, 8
 channels per branch) on tiny_coco's train split, one loader worker, one
 seed. Here: the CLI trains and its last checkpoint gives the callback's
 stats through the eval entry; a failing step leaves a crash checkpoint at
-the step reached; each config key the entry does not support raises (DDP,
-FSDP over more than one card, distillation, a key it does not read), and
-so does more than one visible GPU; ``device_pipeline: true`` with
+the step reached; each config key the entry does not support raises
+(``model_parallel``, which serves FSDP over more than one card;
+distillation; a key it does not read), and so does more than one visible
+GPU outside a process group (tests/test_torch_ddp_entry.py trains in two); ``device_pipeline: true`` with
 ``device_prefetch`` trains.
 """
 import json
@@ -26,6 +27,7 @@ from mindpose_tpu_torch.utils.checkpoint import load_checkpoint
 from tests import make_torch_eval_fixture as fixture
 from tests.fixtures import tiny_coco
 from tests.fixtures.eval_checks import CKPT, RECORD, register_port_backbone
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE = os.path.join(ROOT, "configs", "hrnet", "hrnet_w32_tpu.yaml")
@@ -100,7 +102,7 @@ def test_a_failing_step_leaves_a_crash_checkpoint(data, tmp_path, monkeypatch):
 @pytest.mark.parametrize("options, match", [
     ({"parallel_mode": "pipeline"}, "unknown parallel_mode"),
     ({"distill_setting": {"teacher_backbone": "hrnet_w48"}}, "distillation"),
-    ({"distributed_init": True}, "DDP"),
+    ({"model_parallel": 2}, "FSDP over more than one card"),
     ({"allow_divergent_knobs": True}, "refuses"),
     ({"some_new_knob": 1}, "does not read"),
 ], ids=lambda v: "-".join(map(str, v)) if isinstance(v, dict) else None)
@@ -111,9 +113,10 @@ def test_unsupported_keys_raise(data, tmp_path, options, match):
 
 
 def test_more_than_one_visible_gpu_raises(data, tmp_path, monkeypatch):
+    """Outside a process group: the port runs one process per card."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     args = Config(**dict(vars(_args(str(tmp_path), data)), device="cuda"))
-    with pytest.raises(NotImplementedError, match="DDP"):
+    with pytest.raises(NotImplementedError, match="one process per card.*torchrun"):
         port_train.train(args)
 
 

@@ -35,6 +35,7 @@ from mindpose_tpu_torch.data import create_dataset, create_pipeline
 from mindpose_tpu_torch.data.loader import DataLoader, DevicePrefetcher, stop_worker_servers
 from mindpose_tpu_torch.register import entrypoint
 from tests.fixtures import tiny_coco
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "configs", "hrnet", "hrnet_w32_tpu.yaml")) as f:
@@ -226,10 +227,14 @@ def test_device_prefetcher_on_the_cpu_hands_over_tensors(train_split):
 def test_refusals(train_split):
     img_root, ann = train_split
     ds = create_dataset(img_root, ann, is_train=True, config=SETTING)["dataset"]
-    with pytest.raises(NotImplementedError, match="DDP"):
-        DataLoader(ds, [], ["image"], device_num=2, rank_id=1)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        create_dataset(img_root, ann, is_train=True, device_num=4, rank_id=0, config=SETTING)
+    # sharding is ported (tests/test_torch_ddp.py holds the shards to JAX's): a
+    # rank outside the world still raises, and a rank's shard is accepted
+    with pytest.raises(ValueError, match="rank_id"):
+        DataLoader(ds, [], ["image"], device_num=2, rank_id=2)
+    shard = create_pipeline(
+        create_dataset(img_root, ann, is_train=True, device_num=4, rank_id=0, config=SETTING),
+        TRAIN_TRANSFORMS, is_train=True, config=SETTING)
+    assert shard.num_samples == len(range(0, len(ds), 4))
     with pytest.raises(ValueError, match="worker_mode"):
         DataLoader(ds, [], ["image"], worker_mode="fiber")
     with pytest.raises(ValueError, match="joint_weights"):

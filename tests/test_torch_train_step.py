@@ -43,6 +43,7 @@ from mindpose_tpu_torch.optim import create_optimizer, decay_mask
 from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_ema_update, build_train_step
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from tests.test_torch_hrnet import CFG, _randomize, skeleton
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 IMAGE_SIZE = (48, 64)  # (W, H) of the reduced net's input crops
 HEATMAP_SIZE = (12, 16)
@@ -348,6 +349,20 @@ def _grad_errors(net, want_grads):
     return out
 
 
+def _adam_gradients(opt_state, mu_prev=None):
+    """The gradient an optax adam step took, read back from its first moment:
+    g_t = (mu_t - b1 mu_(t-1)) / (1 - b1), b1 = 0.9 (exact to float64
+    rounding; no second compile of the forward and backward). Returns the
+    gradient tree (numpy) and mu_t, to pass to the next call."""
+    (adam,) = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    mu = jax.device_get(adam.mu)
+    if mu_prev is None:
+        return jax.tree.map(lambda m: m / 0.1, mu), mu
+    return jax.tree.map(lambda m, p: (m - 0.9 * p) / 0.1, mu, mu_prev), mu
+
+
 def _adam_tolerance(want_g, start, lrs):
     """Per element: 1e-5, or 2 * sum(lr) where a step's JAX gradient is below
     1e-4 of its tensor's largest. Adam's first updates are about lr * sign(g),
@@ -391,14 +406,13 @@ def test_three_steps_match_jax(variables, batch):
         tx = jax_create_optimizer(variables64["params"], learning_rate=schedule_j, **YAML)
         state = create_train_state(variables64, tx)
         step_j = jax_build_train_step(nwl_j, tx, preprocess=pp_j, donate=False)
-        grads_j = jax.jit(lambda p, s, i, k: jax_accum(nwl_j, p, s, (i, k), preprocess=pp_j))
         ij, kj = jnp.asarray(image), jnp.asarray(kpts)
-        want_g, lrs = [], []
+        want_g, lrs, mu = [], [], None
         for i in range(3):
-            _, _, g = grads_j(state.params, state.batch_stats, ij, kj)
-            want_g.append(_params_sd(g, variables["batch_stats"]))
             lrs.append(schedule(i))
             state, loss_j = step_j(state, ij, kj)
+            g, mu = _adam_gradients(state.opt_state, mu)  # the gradient the step took
+            want_g.append(_params_sd(g, variables["batch_stats"]))
             loss = step(it, kt)
             np.testing.assert_allclose(loss.numpy(), np.asarray(loss_j), rtol=1e-5)
             if i == 0:

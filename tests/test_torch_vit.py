@@ -51,6 +51,7 @@ from mindpose_tpu_torch.models.convert import (
 )
 from mindpose_tpu_torch.tools import train as port_train
 from tests.test_torch_bottomup_loss import Float64Numpy
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPES = sorted(glob.glob(os.path.join(ROOT, "configs", "vitpose", "*.yaml")))

@@ -43,7 +43,6 @@ from mindpose_tpu.models.model_factory import create_network_with_loss as jax_cr
 from mindpose_tpu.models.networks import Net as JaxNet
 from mindpose_tpu.optim.optim_factory import create_optimizer as jax_create_optimizer
 from mindpose_tpu.optim.optim_factory import layer_decay_scales as jax_layer_decay_scales
-from mindpose_tpu.parallel.train import accum_loss_and_grads as jax_accum
 from mindpose_tpu.parallel.train import build_train_step as jax_build_train_step
 from mindpose_tpu.parallel.train import create_train_state
 from mindpose_tpu.scheduler.schedulers import create_lr_scheduler as jax_create_scheduler
@@ -76,8 +75,9 @@ from mindpose_tpu_torch.utils.checkpoint import (
 from tests.fixtures import tiny_coco
 from tests.fixtures.eval_checks import RECORD
 from tests.test_torch_bottomup_loss import Float64Numpy
-from tests.test_torch_train_step import _as, _keypoints
+from tests.test_torch_train_step import _adam_gradients, _as, _keypoints
 from tests.test_torch_vit import TINY, fill_variables
+from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPES = sorted(glob.glob(os.path.join(ROOT, "configs", "vitpose", "*.yaml")))
@@ -218,13 +218,14 @@ def test_three_steps_match_jax_float64(variables, monkeypatch, accum_steps):
                                   layer_decay=DECAY, **OPTIMIZER)
         state = create_train_state(variables64, tx)
         step_j = jax_build_train_step(nwl_j, tx, donate=False, accum_steps=accum_steps)
-        grads_j = jax.jit(lambda p, s, *b: jax_accum(nwl_j, p, s, b, accum_steps=accum_steps))
         batch_j = (jnp.asarray(batch[0].permute(0, 2, 3, 1).numpy()),
                    jnp.asarray(batch[1].permute(0, 2, 3, 1).numpy()), jnp.asarray(batch[2].numpy()))
+        mu = None
         for _ in range(3):
-            _, _, g = grads_j(state.params, state.batch_stats, *batch_j)
-            want_g = convert_net_variables({"params": g, "batch_stats": state.batch_stats}, net)
+            stats = state.batch_stats
             state, loss_j = step_j(state, *batch_j)
+            g, mu = _adam_gradients(state.opt_state, mu)  # the gradient the step took
+            want_g = convert_net_variables({"params": g, "batch_stats": stats}, net)
             loss = step(*batch)
             np.testing.assert_allclose(loss.numpy(), np.asarray(loss_j), rtol=F64_RTOL)
             for name, p in net.named_parameters():
