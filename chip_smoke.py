@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel training) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -71,7 +71,7 @@ no result, when there is no CUDA device or when any phase fails:
 13. training configs/udp/resnet50_udp_tpu.yaml (ResNet-50 +
     simple_baseline_head at full width, O2, batch 128, adamw, host UDP
     targets), then configs/simple_baseline/resnet50_tpu.yaml, through the
-    train entry on phase 12's data for 4 epochs of 10 steps each,
+    train entry on phase 12's data for 3 epochs of 10 steps each,
     evaluating once after the last, overridden as phase 12: img/s with the
     loader, the step's median, peak memory; each holds finite losses, the
     last epoch's below the first's, AP above 0 and one decode launch per
@@ -141,7 +141,7 @@ no result, when there is no CUDA device or when any phase fails:
     ``bottomup_generate_target``'s on the same warped keypoints;
 20. configs/vitpose/vitpose_b_tpu.yaml as parsed (ViT-B/16 + the deconv
     head at full width, 256x192, O2, batch 128, adamw) through the train
-    entry on phase 12's data, 3 epochs of 10 steps, evaluating after the
+    entry on phase 12's data, 2 epochs of 10 steps, evaluating after the
     last, from a ViT-B backbone file saved at 224x224 (random weights from a
     numpy seed; its 14x14 position grid resized on load): the tensors
     loaded, img/s with the loader, the step median, peak memory, the losses
@@ -152,13 +152,12 @@ no result, when there is no CUDA device or when any phase fails:
     the card against the CPU at phase 5's tolerance, keypoints within 1e-3
     px: the card's back-projection rounds apart from the CPU's in the last
     bits);
-21. vitpose_s_tpu.yaml, vitpose_l_tpu.yaml (layer decay 0.8) and
-    vitpose_h_tpu.yaml (``parallel_mode: fsdp`` on one card, 4
-    microbatches, layer decay 0.8) through the train entry, 2 epochs on 64
-    synthetic frames, evaluating after the last: img/s, the step median,
-    peak memory, finite losses, one decode launch per val batch; each last
-    checkpoint through the eval entry (the callback's stats) and the
-    serving entry (a 40-box request, 2 decode launches);
+21. vitpose_s_tpu.yaml and vitpose_l_tpu.yaml (layer decay 0.8) through
+    the train entry, 2 epochs on 64 synthetic frames, evaluating after the
+    last: img/s, the step median, peak memory, finite losses, one decode
+    launch per val batch; each last checkpoint through the eval entry (the
+    callback's stats) and the serving entry (a 40-box request, 2 decode
+    launches); vitpose_h_tpu.yaml trains sharded in phase 27 (b);
 22. configs/simcc/resnet50_simcc_tpu.yaml as parsed (ResNet-50 +
     ``simcc_head`` at full width, 256x192, O2, batch 128, adamw, host
     targets) through the train entry on phase 12's data, 3 epochs of 10
@@ -183,7 +182,7 @@ no result, when there is no CUDA device or when any phase fails:
     dim=1)`` and the bound; configs/mpii/hrnet_w32_mpii_tpu.yaml as parsed
     (HRNet-W32 at 256x256, 16 joints, O2, batch 128, ``topdown_keypoint``)
     through the train entry on synthetic MPII frames (tests/fixtures/mpii.py,
-    converted by tools/convert_mpii.py), 3 epochs of 10 steps, evaluating
+    converted by tools/convert_mpii.py), 2 epochs of 10 steps, evaluating
     after the last (PCKh and EPE, one decode launch per eval batch); the last
     checkpoint through the eval entry (the callback's PCKh and EPE, one launch
     per batch) and a 40-box request through the serving entry (16 joints, one
@@ -198,8 +197,8 @@ no result, when there is no CUDA device or when any phase fails:
     to uint8; targets within 1e-5) and against the same preprocess on the CPU (crops
     within 0.05, targets within 1e-5); then the yaml as parsed (full width,
     O2, batch 128, adamw) through the train entry on phase 12's data, 3
-    epochs of 10 steps each, evaluating after the last, with host targets,
-    with ``device_pipeline: true`` and with ``device_pipeline: full``
+    epochs of 10 steps each, evaluating after the last, with
+    ``device_pipeline: true`` and with ``device_pipeline: full``
     (``image_bucket`` 64, the decode cache, frame-grouped shuffling,
     patch-grouped batching, ``profile: true``): per run img/s with the
     loader, the step median, the wait per step, the bytes handed to the step
@@ -212,7 +211,7 @@ no result, when there is no CUDA device or when any phase fails:
 26. data-parallel training: (a) two ranks on the one card over gloo (nccl
     refuses two ranks on one card), fresh interpreters with a timeout,
     HRNet-W32 at full width in float32 (TF32 off, cuDNN's deterministic
-    algorithms), 16 crops of a batch of 32 each, 5 steps at the yaml's lr,
+    algorithms), 16 crops of a batch of 32 each, 3 steps at the yaml's lr,
     against one process at
     ``accum_steps=2`` on the 32: the ranks bitwise equal after every step,
     the parameters within 1e-5 (twice the summed lr where a gradient was
@@ -223,14 +222,45 @@ no result, when there is no CUDA device or when any phase fails:
     over the card) on hrnet_w32_tpu.yaml as parsed, phase 12's data, 3
     epochs of 10 steps, evaluating after the last: finite, falling losses,
     AP above 0, one decode launch per val batch, all-reduces issued in the
-    profiled steps; epoch 3's img/s beside phases 12 and 25 without DDP,
+    profiled steps; epoch 3's img/s beside phase 12's without DDP,
     and per step the all-reduces issued, the nccl kernels' device time and
-    DDP's device-to-device copies (torch.profiler, epoch 2's first step).
+    DDP's device-to-device copies (torch.profiler, epoch 2's first step);
+27. FSDP on vitpose_h_tpu.yaml (ViT-H/16 + the deconv head, 632M
+    parameters): (a) the net at full width, cut to 4 of its 32 encoder
+    blocks, sharded over two ranks on the one card over gloo (fresh
+    interpreters with a timeout), float64, 8 crops a rank, 2
+    steps of the recipe's adamw with layer decay, against one process on
+    the 16 (the head's BatchNorm takes the global batch's statistics under
+    FSDP): each step's loss within 1e-12, the first step's reduced
+    gradients (put together from the ranks' shards) within 1e-9 of each
+    tensor's largest, and each rank's parameter and AdamW-moment bytes
+    beside the whole ones; (b) the train
+    entry under ``python3 -m torch.distributed.run --nproc_per_node=1``
+    (nccl, world size 1, the net sharded over a mesh of one) on the yaml as
+    parsed (batch 32 in 4 microbatches, O2) and phase 21's data, 2 epochs,
+    rank 0's callback evaluating its unsharded copy: finite losses, one
+    decode launch per val batch, the rank's bytes, the copy's and peak
+    memory; then the
+    last checkpoint, gathered from the shards, through the eval entry (the
+    callback's stats) and the serving entry, which load it strictly;
+28. distillation: hrnet_w32_tpu.yaml as the student of an HRNet-W48
+    teacher (torch's initialisation, BatchNorm statistics from one batch,
+    written as a port checkpoint) through the
+    train entry with ``distill_setting`` and ``joint_mse_distill``, one
+    epoch of phase 12's data, evaluating after it: both loss components
+    logged and positive, one decode launch per val batch, and the
+    teacher's heatmaps appended to the last microbatch against a plain
+    forward of the teacher within 1e-5 of their largest;
+29. remat: the recipe's step (batch 128, O2) with and without ``remat`` from
+    the same weights on the same batch: the first step's loss, gradients and
+    running statistics within 1e-3 of each tensor's largest (cuDNN's
+    deterministic algorithms), then each one's step time (CUDA events, 5
+    steps) and peak ``torch.cuda.max_memory_allocated``.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 26.
+started is still there after phase 29.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -259,6 +289,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from mindpose_tpu_torch.config import Config
@@ -284,14 +315,17 @@ from mindpose_tpu_torch.engine import (
     create_inferencer,
 )
 from mindpose_tpu_torch.models import (
+    Net,
     create_backbone,
     create_decoder,
     create_eval_network,
+    create_head,
     create_loss,
     create_network,
     create_network_from_config,
     create_network_with_loss,
 )
+from mindpose_tpu_torch.models.backbones.vit import ViT
 from mindpose_tpu_torch.ops.cuda.build import load_library
 from mindpose_tpu_torch.ops.image import affine_warp
 from mindpose_tpu_torch.ops.cuda.conv_chain import (
@@ -313,7 +347,13 @@ from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
 from mindpose_tpu_torch.ops.cuda import grouping as cuda_grouping
 from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.register import entrypoint
-from mindpose_tpu_torch.parallel import accum_loss_and_grads, build_train_step
+from mindpose_tpu_torch.parallel import (
+    accum_loss_and_grads,
+    build_train_step,
+    create_mesh,
+    is_sharded,
+    shard_net,
+)
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import ablate_conv_chain as probe
 from mindpose_tpu_torch.tools import convert_ckpt
@@ -498,23 +538,23 @@ DARK_AGREE = 0.95
 ENTRY_TRAIN_IMAGES = 640
 ENTRY_VAL_IMAGES = 64
 ENTRY_PEOPLE = 2
-ENTRY_EPOCHS = 6
-ENTRY_WARMUP = 20
-ENTRY_VAL_INTERVAL = 3
+ENTRY_EPOCHS = 4
+ENTRY_WARMUP = 10
+ENTRY_VAL_INTERVAL = 2
 ENTRY_RESUME_WARMUP = 5  # the one-epoch resume's schedule has 10 steps in all
 ENTRY_RESUME_PREFETCH = 2  # batches the resume's DevicePrefetcher keeps in flight
 ENTRY_STATS_ATOL = 1e-4  # the last checkpoint through the eval entry against the callback
 RECIPE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "hrnet",
                            "hrnet_w32_tpu.yaml")
 # Phases 13-15: the SimpleBaseline recipes. Phase 13 trains the UDP recipe and
-# the plain one on phase 12's data for 4 epochs of 10 steps each, evaluating
+# the plain one on phase 12's data for 3 epochs of 10 steps each, evaluating
 # once, after the last
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 UDP_YAML = os.path.join(CONFIGS, "udp", "resnet50_udp_tpu.yaml")
 SB_YAML = os.path.join(CONFIGS, "simple_baseline", "resnet50_tpu.yaml")
 SB_DEEPER = {arch: os.path.join(CONFIGS, "simple_baseline", f"{arch}_tpu.yaml")
              for arch in ("resnet101", "resnet152")}
-SB_EPOCHS = 4
+SB_EPOCHS = 3
 HIGHER_YAML = os.path.join(CONFIGS, "higher_hrnet", "higher_hrnet_w32_tpu.yaml")
 GROUPING_SETS = 8  # images of each kind of SETS + TIE_SETS, per tag width and flags (384)
 GROUPING_ITERS = 20  # queued launches per timing of the grouping kernel
@@ -568,13 +608,13 @@ BU_PROFILED_CALL = 3
 
 # Phases 20-21: the ViTPose recipes. Phase 20 trains vitpose_b_tpu.yaml as
 # parsed on phase 12's data from a ViT-B backbone saved at 224x224 (a 14x14
-# position grid, resized onto the recipe's 16x12 as it loads), 3 epochs of
-# 10 steps, evaluating after the last; phase 21 trains vitpose_s_tpu.yaml,
-# vitpose_l_tpu.yaml and vitpose_h_tpu.yaml 2 epochs each on 64 frames of
+# position grid, resized onto the recipe's 16x12 as it loads), 2 epochs of
+# 10 steps, evaluating after the last; phase 21 trains vitpose_s_tpu.yaml and
+# vitpose_l_tpu.yaml (and phase 27 vitpose_h_tpu.yaml) 2 epochs on 64 frames of
 # their own.
 VITPOSE_YAML = {arch: os.path.join(CONFIGS, "vitpose", f"vitpose_{arch}_tpu.yaml")
                 for arch in ("s", "b", "l", "h")}
-VIT_EPOCHS = 3
+VIT_EPOCHS = 2
 VIT_PRETRAINED_SIZE = (224, 224)
 # flax leaves per block: 2 LayerNorms (4), query/key/value (6), out (2), 2 Dense (4)
 VIT_LEAVES_PER_BLOCK = 16
@@ -602,10 +642,11 @@ SIMCC_TARGET_RTOL = 2e-6
 MPII_TRAIN_IMAGES = 640
 MPII_VAL_IMAGES = 96
 MPII_PEOPLE = 2
-MPII_EPOCHS = 3
+MPII_EPOCHS = 2
 MPII_HEATMAP = (16, 64, 64)  # K, H, W of the yaml's 64x64x16 heatmaps
 # phase 25: hrnet_w32_tpu.yaml through the train entry on phase 12's data in
-# three input modes (host targets, device_pipeline true and full), 3 epochs
+# two input modes beside phase 12's host targets (device_pipeline true and
+# full), 3 epochs
 # of 10 steps each, evaluating after the last; full mode with its loader
 # options and epoch 2 traced by torch.profiler
 INPUT_EPOCHS = 3
@@ -626,11 +667,36 @@ FULL_TARGET_ATOL = 1e-5
 # torchrun, one rank, nccl, on phase 12's data as phase 25 trains it
 DDP_WORLD = 2
 DDP_RANK_BATCH = 16
-DDP_STEPS = 5
+DDP_STEPS = 3
 DDP_TIMEOUT_S = 600  # each of the phase's process groups
 DDP_STATS_RTOL = 1e-4  # the running statistics against the formula, of each tensor's largest
 DDP_EPOCHS = 3  # (b): epoch 2's steps are the profiled ones, epoch 3's the rate's
 DDP_PROFILED_STEPS = 1  # host and device activity: ~12 s for a step of HRNet-W32 at 128
+# phase 27: FSDP on vitpose_h_tpu.yaml (ViT-H/16 + the deconv head, 632M
+# parameters). (a) at full width, FSDP_DEPTH blocks deep, two ranks on this
+# one card over gloo, each given
+# FSDP_RANK_BATCH crops of a batch, against one process on the whole batch;
+# (b) the train entry under torchrun, one rank, nccl, on phase 21's data
+FSDP_WORLD = 2
+FSDP_DEPTH = 4  # (a): encoder blocks of ViT-H's 32, at full width
+FSDP_RANK_BATCH = 8
+FSDP_STEPS = 2
+FSDP_EPOCHS = 2
+FSDP_TIMEOUT_S = 600
+# phase 27 (a) runs in float64: in float32, cuDNN's weight gradient of the
+# head's transposed conv summed over 8 + 8 crops lay up to 6.25e-4 of its
+# largest entry from the same gradient over the 16 crops in one process
+# (measured), a cancellation that float64 takes down by eps's ratio, ~1e-9
+FSDP_LOSS_RTOL = 1e-12  # each step's loss of the ranks against the one process's
+FSDP_GRAD_RTOL = 1e-9  # the first step's reduced gradients, of each tensor's largest
+# phase 28: hrnet_w32_tpu.yaml as student of an HRNet-W48 teacher, one epoch on
+# phase 12's data, evaluating after it
+DISTILL_TEACHER = "hrnet_w48"
+DISTILL_ALPHA = 0.5
+DISTILL_HEAT_RTOL = 1e-5  # the appended heatmaps against a plain forward, of the largest
+# phase 29: the recipe's step (batch 128, O2) with and without remat
+REMAT_TIMED_STEPS = 5
+REMAT_RTOL = 1e-3  # loss, gradients, running statistics: of each tensor's largest
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
 
@@ -3229,24 +3295,61 @@ def vitpose_training(root: str, data: dict, device: torch.device) -> dict:
             "peak_bytes": run["peak_bytes"], "stats": run["stats"]}
 
 
-def vitpose_recipes(root: str, device: torch.device) -> dict:
-    """Phase 21: vitpose_s_tpu.yaml, vitpose_l_tpu.yaml (layer decay 0.8,
-    batch 64) and vitpose_h_tpu.yaml (``parallel_mode: fsdp`` on one card:
-    nothing is sharded; batch 32 in 4 microbatches; layer decay 0.8) through
-    the train entry as parsed, random weights, on 64 synthetic frames of
-    their own for 2 epochs, evaluating after the last on 16 frames;
-    overridden: the data paths, ``num_epochs``, ``warmup``, ``val_interval``
-    and ``ckpt_save_dir``. Per recipe: img/s of epoch 2, the step median, the
-    peak memory; it holds finite losses and one decode launch per val batch.
-    Then each last checkpoint through the eval entry (the callback's stats
-    within ``ENTRY_STATS_ATOL``, one decode launch per batch) and the
-    serving entry (a 40-box request, checked as phase 4 checks it, one
-    decode launch per 32-crop chunk)."""
-    data = write_synthetic_coco(os.path.join(root, "vit_small"), VIT_SMALL_IMAGES,
-                                VIT_SMALL_VAL_IMAGES, ENTRY_PEOPLE)
+def check_recipe_checkpoint(name: str, recipe: str, args: Config, last_path: str, stats: dict,
+                            val_batches: int, root: str, device: torch.device) -> dict:
+    """A recipe's last checkpoint through the eval entry (the callback's stats
+    within ``ENTRY_STATS_ATOL``, one decode launch per batch) and the serving
+    entry (a 40-box request, checked as phase 4 checks it, one decode launch
+    per 32-crop chunk); both load the file strictly into an unsharded net."""
     image, requests, payloads, _ = request_payloads(SEED + 21)
+    argmax_shift_decode.launches = 0
+    got = evaluate(Config(**dict(vars(args), ckpt=last_path,
+                                 result_path=os.path.join(root, f"{name}_entry.json"))),
+                   device=device)
+    eval_launches = argmax_shift_decode.launches
+    worst = max(abs(float(got[k]) - stats[k]) for k in stats)
+    serve_args = serve_entry.parse_serve_args(["--config", recipe, "--ckpt", last_path,
+                                               "--batch-size", str(BATCH_SIZE)])
+    service = serve_entry.build_service(serve_args, batch_size=BATCH_SIZE, device=device)
+    try:
+        service.predict(payloads[-1])  # warm-up
+        torch.cuda.synchronize()
+        argmax_shift_decode.launches = 0
+        start = time.perf_counter()
+        answer = service.predict(payloads[-1])
+        serve_ms = (time.perf_counter() - start) * 1e3
+        serve_launches = argmax_shift_decode.launches
+    finally:
+        service.close()
+    check_preds(np.asarray(answer["predictions"], np.float32), requests[-1])
+    print(f"{name}'s last checkpoint: through the eval entry max |diff| against the "
+          f"callback's stats {worst:.2e} (tolerance {ENTRY_STATS_ATOL}), decode kernel "
+          f"launches {eval_launches}; through the serving entry a 40-box request in "
+          f"{serve_ms:.3f} ms (warm, one run; the service's latency_ms "
+          f"{answer['latency_ms']:.3f}), decode kernel launches {serve_launches}")
+    if worst > ENTRY_STATS_ATOL:
+        raise AssertionError(f"{name}'s last checkpoint's stats differ from the callback's")
+    if eval_launches != val_batches or serve_launches != -(-40 // BATCH_SIZE):
+        raise AssertionError(f"{name}: {eval_launches} decode launches for {val_batches} "
+                             f"eval batches, {serve_launches} for 40 boxes")
+    del service
+    torch.cuda.empty_cache()
+    return {"eval_launches": eval_launches, "serve_launches": serve_launches,
+            "serve_40_ms": serve_ms}
+
+
+def vitpose_recipes(root: str, data: dict, device: torch.device) -> dict:
+    """Phase 21: vitpose_s_tpu.yaml and vitpose_l_tpu.yaml (layer decay 0.8,
+    batch 64) through the train entry as parsed, random weights, on
+    ``data`` (64 synthetic frames) for 2 epochs, evaluating after the last on
+    16 frames; overridden: the data paths, ``num_epochs``, ``warmup``,
+    ``val_interval`` and ``ckpt_save_dir``. Per recipe: img/s of epoch 2, the
+    step median, the peak memory; it holds finite losses and one decode
+    launch per val batch. Then each last checkpoint through the eval and
+    serving entries (``check_recipe_checkpoint``). vitpose_h_tpu.yaml trains
+    in phase 27, sharded."""
     out = {}
-    for arch in ("s", "l", "h"):
+    for arch in ("s", "l"):
         name = f"vitpose_{arch}_tpu"
         ckpt_dir = os.path.join(root, name)
         args = recipe_args(VITPOSE_YAML[arch], data, ckpt_dir, device,
@@ -3279,45 +3382,12 @@ def vitpose_recipes(root: str, device: torch.device) -> dict:
             raise AssertionError(f"{len(evals)} evaluations of {val_batches} batches made "
                                  f"{launches} decode launches")
         stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
-        last_path = os.path.join(ckpt_dir, f"{name}_last.ckpt")
         torch.cuda.empty_cache()
-
-        argmax_shift_decode.launches = 0
-        got = evaluate(Config(**dict(vars(args), ckpt=last_path,
-                                     result_path=os.path.join(root, f"{name}_entry.json"))),
-                       device=device)
-        eval_launches = argmax_shift_decode.launches
-        worst = max(abs(float(got[k]) - stats[k]) for k in stats)
-        serve_args = serve_entry.parse_serve_args(["--config", VITPOSE_YAML[arch], "--ckpt",
-                                                   last_path, "--batch-size", str(BATCH_SIZE)])
-        service = serve_entry.build_service(serve_args, batch_size=BATCH_SIZE, device=device)
-        try:
-            service.predict(payloads[-1])  # warm-up
-            torch.cuda.synchronize()
-            argmax_shift_decode.launches = 0
-            start = time.perf_counter()
-            answer = service.predict(payloads[-1])
-            serve_ms = (time.perf_counter() - start) * 1e3
-            serve_launches = argmax_shift_decode.launches
-        finally:
-            service.close()
-        check_preds(np.asarray(answer["predictions"], np.float32), requests[-1])
-        print(f"{name}'s last checkpoint: through the eval entry max |diff| against the "
-              f"callback's stats {worst:.2e} (tolerance {ENTRY_STATS_ATOL}), decode kernel "
-              f"launches {eval_launches}; through the serving entry a 40-box request in "
-              f"{serve_ms:.3f} ms (warm, one run; the service's latency_ms "
-              f"{answer['latency_ms']:.3f}), decode kernel launches {serve_launches}")
-        if worst > ENTRY_STATS_ATOL:
-            raise AssertionError(f"{name}'s last checkpoint's stats differ from the callback's")
-        if eval_launches != val_batches or serve_launches != -(-40 // BATCH_SIZE):
-            raise AssertionError(f"{name}: {eval_launches} decode launches for {val_batches} "
-                                 f"eval batches, {serve_launches} for 40 boxes")
-        out[name] = {"launches": launches, "eval_launches": eval_launches,
-                     "serve_launches": serve_launches, "images_per_sec": rate,
-                     "peak_bytes": peak, "step_median_ms": epochs[-1]["step_median_s"] * 1e3,
-                     "serve_40_ms": serve_ms}
-        del service
-        torch.cuda.empty_cache()
+        checked = check_recipe_checkpoint(name, VITPOSE_YAML[arch], args,
+                                          os.path.join(ckpt_dir, f"{name}_last.ckpt"), stats,
+                                          val_batches, root, device)
+        out[name] = {"launches": launches, "images_per_sec": rate, "peak_bytes": peak,
+                     "step_median_ms": epochs[-1]["step_median_s"] * 1e3, **checked}
     return out
 
 
@@ -3793,8 +3863,8 @@ def convert_round_trip(root: str, args: Config, ckpt: str, device: torch.device)
 def input_modes_training(root: str, data: dict, device: torch.device) -> dict:
     """Phase 25: hrnet_w32_tpu.yaml (full width, O2, batch 128, adamw) through
     the train entry on phase 12's data, 3 epochs of 10 steps each, evaluating
-    after the last, in three input modes: host targets; ``device_pipeline:
-    true``; ``device_pipeline: full`` with ``image_bucket`` 64, the decode
+    after the last, in two input modes beside phase 12's host targets:
+    ``device_pipeline: true``; ``device_pipeline: full`` with ``image_bucket`` 64, the decode
     cache, frame-grouped shuffling, patch-grouped batching and ``profile:
     true``. First full mode's first batch (``check_full_mode_batch``). Each
     run holds finite, falling losses, AP above 0 and one decode launch per
@@ -3803,8 +3873,7 @@ def input_modes_training(root: str, data: dict, device: torch.device) -> dict:
     numbers, the decode launches and the checks'."""
     base = recipe_args(RECIPE_YAML, data, os.path.join(root, "input_check"), device)
     first = check_full_mode_batch(base, device)
-    modes = {
-        "host": (),
+    modes = {  # host targets: phase 12's run of the same yaml
         "device": ("device_pipeline=True",),
         "full": ("device_pipeline=full", f"image_bucket={FULL_BUCKET}",
                  f"decode_cache_mb={FULL_CACHE_MB}", "frame_grouped_shuffle=True",
@@ -3902,7 +3971,7 @@ def ddp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
 def ddp_on_one_card(root: str, device: torch.device) -> dict:
     """Phase 26 (a): two ranks on the one card over gloo (``ddp_rank``),
     against one process at ``accum_steps=2`` on the same batch of
-    ``DDP_WORLD * DDP_RANK_BATCH`` crops, 5 steps each at the yaml's lr
+    ``DDP_WORLD * DDP_RANK_BATCH`` crops, ``DDP_STEPS`` steps each at the yaml's lr
     (constant), all with cuDNN's deterministic algorithms: otherwise two
     processes' float32 gradients of one batch differ by up to 2.6e-5 of a
     tensor's largest entry (measured), and five Adam steps of a randomly
@@ -4089,16 +4158,14 @@ def torchrun_entry(out_dir: str, argv: list) -> None:
     dist.destroy_process_group()
 
 
-def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict,
-              phase25: dict) -> dict:
+def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict) -> dict:
     """Phase 26 (b): hrnet_w32_tpu.yaml as parsed through the train entry
     under ``python3 -m torch.distributed.run --nproc_per_node=1`` (nccl,
     world size 1, DDP over the one card), on phase 12's data, 3 epochs of 10
-    steps, evaluating after the last, as phase 25 trains its host mode. It
-    holds finite, falling losses, AP above 0 and one decode launch per val
-    batch, and that the profiled steps issued all-reduces; it prints the
-    img/s of epoch 3 beside phase 12's and phase 25's host mode's without
-    DDP, and per step the all-reduces issued, the nccl kernels' device time
+    steps, evaluating after the last, as phase 25 trains its input modes.
+    It holds finite, falling losses, AP above 0 and one decode launch per
+    val batch, and that the profiled steps issued all-reduces; it prints the
+    img/s of epoch 3 beside phase 12's host targets without DDP, and per step the all-reduces issued, the nccl kernels' device time
     (none ran in a group of one rank on the H100: 0.0000 ms) and DDP's
     device-to-device copies (torch.profiler, epoch 2's first step)."""
     ckpt_dir = os.path.join(root, "ddp_entry")
@@ -4124,13 +4191,11 @@ def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict,
     losses = [e["loss"] for e in epochs]
     val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // HRNET_W32["batch_size"])
     prof = run["profiled"]
-    host = phase25["runs"]["host"]
     print(f"DDP entry (torchrun --nproc_per_node=1, backend {run['backend']}, world "
           f"{run['world']}, cuda:{run['device']}): epoch 3 {last['images_per_sec']:.1f} img/s "
           f"(step median {last['step_median_s'] * 1e3:.1f} ms, wait "
           f"{last['wait_total_s'] / last['steps'] * 1e3:.1f} ms a step), epochs 2-3 "
-          f"{rate:.1f}; without DDP: phase 25's host mode epoch 3 "
-          f"{host['epoch3_images_per_sec']:.1f}, phase 12's epochs 2-{ENTRY_EPOCHS} "
+          f"{rate:.1f}; without DDP: phase 12's epochs 2-{ENTRY_EPOCHS} "
           f"{phase12['images_per_sec']:.1f}; per step of epoch 2 (torch.profiler, "
           f"{DDP_PROFILED_STEPS} step(s)): {prof['all_reduces']:.1f} all-reduces issued "
           f"({prof['all_reduce_names']}), nccl kernels {prof['nccl_ms']:.4f} ms of device time "
@@ -4151,6 +4216,440 @@ def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict,
             "all_reduces_per_step": prof["all_reduces"], "nccl_ms_per_step": prof["nccl_ms"],
             "nccl_kernels_per_step": prof["nccl_kernels"], "dtod_ms_per_step": prof["dtod_ms"],
             "seconds": entry_s}
+
+
+def vitpose_h_args(device: torch.device) -> Config:
+    """vitpose_h_tpu.yaml as the train entry parses it, on ``device``."""
+    return train_entry.parse_train_args(["--config", VITPOSE_YAML["h"], "--device",
+                                         str(device)])
+
+
+def vitpose_h_step(args: Config, accum_steps: int):
+    """vitpose_h_tpu.yaml's net (ViT-H/16 + the deconv head) at full width,
+    cut to ``FSDP_DEPTH`` encoder blocks, torch's initialisation from
+    ``SEED`` (on the CPU: the same weights in every process), in float64,
+    through the recipe's step at O0: the device preprocess (its crops and
+    targets cast to float64), joint_mse with target weights, adamw with the
+    recipe's layer decay at its constant lr. Within a process group the net is sharded
+    over a mesh of model = the world first. Returns (net, optimizer, step)."""
+    with torch.device("meta"):  # the recipe's backbone: its widths only
+        full = create_backbone(args.backbone_name, **args.backbone_setting)
+    torch.manual_seed(SEED)
+    backbone = ViT(hidden_dim=full.hidden_dim, depth=FSDP_DEPTH,
+                   num_heads=full.blocks[0].attn.num_heads,
+                   image_size=args.dataset_setting["image_size"])
+    net = Net(backbone, create_head(args.head_name, in_channels=full.hidden_dim,
+                                    num_joints=args.num_joints,
+                                    **args.head_setting)).to(args.device, torch.float64)
+    if dist.is_initialized():
+        shard_net(net, create_mesh(dist.get_world_size(), "cuda"))
+    optimizer = create_optimizer(net, args.optimizer, learning_rate=args.lr,
+                                 weight_decay=args.weight_decay,
+                                 filter_bias_and_bn=args.filter_bias_and_bn,
+                                 **args.optimizer_setting)
+    ds = args.dataset_setting
+    _, target_kwargs = strip_host_target_transform(args.train_transforms)
+    render = build_topdown_preprocess(ds["image_size"], ds["heatmap_size"],
+                                      args.normalize_mean, args.normalize_std, **target_kwargs)
+
+    def preprocess(*batch):  # crops and targets in the net's float64
+        return tuple(t.double() for t in render(*batch))
+
+    nwl = create_network_with_loss(net, create_loss(args.loss, **args.loss_setting),
+                                   has_extra_inputs=args.loss_with_extra_input)
+    return net, optimizer, build_train_step(nwl, optimizer, preprocess=preprocess,
+                                            amp_level="O0", accum_steps=accum_steps)
+
+
+def vit_batch(n: int, device: torch.device):
+    """``train_batch``'s crops and keypoints at vitpose_h_tpu.yaml's 256x192."""
+    return train_batch(np.random.RandomState(SEED + 27), n, device)
+
+
+def local_bytes(tensors) -> tuple:
+    """(bytes this rank holds, bytes of the whole tensors) of ``tensors``,
+    sharded (``DTensor``) or not."""
+    mine = whole = 0
+    for t in tensors:
+        local = t.to_local() if isinstance(t, DTensor) else t
+        mine += local.numel() * local.element_size()
+        whole += t.numel() * t.element_size()
+    return mine, whole
+
+
+def moments(optimizer) -> list:
+    return [s[k] for s in optimizer.state.values() for k in ("exp_avg", "exp_avg_sq")]
+
+
+def fsdp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Phase 27 (a), one rank (a fresh interpreter): ``vitpose_h_step``
+    sharded over the ranks (gloo on the one card), ``FSDP_RANK_BATCH`` crops
+    of the batch each, ``FSDP_STEPS`` steps; per step the loss, after the
+    first the rank's shard of each reduced gradient with its dim, at the end
+    the local and whole bytes of the parameters and of the AdamW moments
+    (``fsdp_rank{rank}.pt``). The shards are not gathered here: the state
+    dict's gather (``full_state``) runs DTensor's functional collectives,
+    which end in a segmentation fault over gloo on CUDA tensors (torch
+    2.11.0+cu128); FSDP's own collectives run."""
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    net, optimizer, step = vitpose_h_step(vitpose_h_args(device), accum_steps=1)
+    if not is_sharded(net):
+        raise AssertionError("phase 27 (a): the net was not sharded")
+    image, keypoints = vit_batch(world * FSDP_RANK_BATCH, device)
+    shard = slice(rank * FSDP_RANK_BATCH, (rank + 1) * FSDP_RANK_BATCH)
+    losses, grads = [], None
+    for _ in range(FSDP_STEPS):
+        losses.append(step(image[shard], keypoints[shard]).cpu())
+        if grads is None:
+            grads = {n: (p.grad.to_local().cpu(), p.grad.placements[-1].dim)
+                     for n, p in net.named_parameters()}
+    torch.save({"losses": losses, "grads": grads, "params": local_bytes(net.parameters()),
+                "moments": local_bytes(moments(optimizer)),
+                "peak": torch.cuda.max_memory_allocated()},
+               os.path.join(out_dir, f"fsdp_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def fsdp_on_one_card(root: str, device: torch.device) -> dict:
+    """Phase 27 (a): ViT-H at full width, cut to ``FSDP_DEPTH`` blocks,
+    sharded over two ranks on the one card over gloo (``fsdp_rank``),
+    against one process on the whole batch, ``FSDP_STEPS`` steps of the
+    recipe's adamw with layer decay in float64. The deconv head's BatchNorm
+    takes the global batch's statistics under FSDP, as one process on the
+    whole batch takes them (one process at ``accum_steps=2``, each
+    microbatch with its own statistics, is another step: its gradients lay
+    up to 0.19 of a tensor's largest entry away, measured); the sharded
+    step's reduce-scatter then averages the two ranks' gradients. Held: each
+    step's loss of the ranks against the one process's within
+    ``FSDP_LOSS_RTOL`` (the later ones after the sharded AdamW update with
+    layer decay), and the first step's gradients, put together from the
+    ranks' shards, within ``FSDP_GRAD_RTOL`` of each tensor's largest
+    (float64 sums in another order). Each rank's parameters and AdamW
+    moments are printed beside the whole ones."""
+    out_dir = os.path.join(root, "fsdp_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    commands = [[sys.executable, os.path.abspath(__file__), "--fsdp-rank", str(rank),
+                 str(FSDP_WORLD), str(port), out_dir] for rank in range(FSDP_WORLD)]
+    logs = [os.path.join(out_dir, f"rank{rank}.log") for rank in range(FSDP_WORLD)]
+    args = vitpose_h_args(device)
+    start = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(run_processes, commands, logs, FSDP_TIMEOUT_S, "phase 27 (a)")
+        # meanwhile the one process, on the same card
+        net, optimizer, step = vitpose_h_step(args, accum_steps=1)
+        image, keypoints = vit_batch(FSDP_WORLD * FSDP_RANK_BATCH, device)
+        losses, grads = [], None
+        for _ in range(FSDP_STEPS):
+            losses.append(step(image, keypoints).cpu())
+            if grads is None:
+                grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+        whole = {"params": local_bytes(net.parameters()),
+                 "moments": local_bytes(moments(optimizer))}
+        ranks.result()
+    seconds = time.perf_counter() - start
+    got = [torch.load(os.path.join(out_dir, f"fsdp_rank{r}.pt")) for r in range(FSDP_WORLD)]
+    grad_err, worst_name, equal = 0.0, "", True
+    for n, g in grads.items():
+        # the reduced gradient from the ranks' shards, in rank order along its dim
+        reduced = torch.cat([r["grads"][n][0] for r in got], dim=got[0]["grads"][n][1])
+        diff = (reduced.to(device) - g).abs()
+        equal = equal and not bool(diff.any())
+        err = float(diff.max() / g.abs().max().clamp_min(1e-30))
+        if err > grad_err:
+            grad_err, worst_name = err, n
+    rank_losses = [float(x.sum()) for x in got[0]["losses"]]
+    one_losses = [float(x.sum()) for x in losses]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(rank_losses, one_losses))
+    ranks_equal = all(torch.equal(a, b) for a, b in zip(got[0]["losses"], got[1]["losses"]))
+    sizes = "; ".join(
+        f"rank {r}: parameters {g['params'][0]} of {g['params'][1]} B, AdamW moments "
+        f"{g['moments'][0]} of {g['moments'][1]} B, peak {g['peak'] / 2**30:.2f} GiB"
+        for r, g in enumerate(got))
+    print(f"FSDP, 2 ranks on one card over gloo (ViT-H/16 at full width, {FSDP_DEPTH} of its "
+          f"32 blocks, + deconv head, {sum(g.numel() for g in grads.values())} parameters, "
+          f"float64, "
+          f"{FSDP_RANK_BATCH} crops a rank, {FSDP_STEPS} steps with layer decay): {sizes}; one "
+          f"process holds {whole['params'][0]} B of parameters and {whole['moments'][0]} B of "
+          f"moments; losses of the ranks {rank_losses} (equal on both: {ranks_equal}), of the "
+          f"one process on the {FSDP_WORLD * FSDP_RANK_BATCH} crops {one_losses}, at worst "
+          f"{loss_err:.3e} apart "
+          f"(tolerance {FSDP_LOSS_RTOL}); the first step's reduced gradients against the one "
+          f"process's {grad_err:.3e} of each tensor's largest at worst ({worst_name}; "
+          f"tolerance {FSDP_GRAD_RTOL}; bitwise equal: {equal}); {seconds:.1f} s for the ranks "
+          f"and the one process")
+    for g in got:
+        if not (g["params"][0] * FSDP_WORLD <= g["params"][1] + 2**20
+                and g["moments"][0] * FSDP_WORLD <= g["moments"][1] + 2**21):
+            raise AssertionError("phase 27 (a): a rank holds more than its share")
+    if not ranks_equal or loss_err > FSDP_LOSS_RTOL or grad_err > FSDP_GRAD_RTOL:
+        raise AssertionError("phase 27 (a): the two sharded ranks do not match one process on "
+                             "the whole batch")
+    return {"grad_rel_err": grad_err, "grads_equal": equal, "loss_rel_err": loss_err,
+            "rank_param_bytes": got[0]["params"], "rank_moment_bytes": got[0]["moments"],
+            "seconds": seconds}
+
+
+def torchrun_fsdp_entry(out_dir: str, argv: list) -> None:
+    """Phase 27 (b), the process torchrun starts: the train entry's ``train``
+    on ``argv`` (its process group from torchrun's variables), the decode
+    kernel's launches counted, the sharded net's and its optimizer's local
+    bytes and the bytes of rank 0's unsharded eval copy recorded; writes
+    ``entry.json``."""
+    args = train_entry.parse_train_args(argv)
+    seen = {}
+    shard, build_step = train_entry.shard_net, train_entry.build_train_step
+    make_callback = train_entry.EvalCallback
+
+    def shard_net_recorded(net, mesh):
+        seen["net"], seen["mesh"] = net, dict(zip(mesh.mesh_dim_names, mesh.shape))
+        return shard(net, mesh)
+
+    def build_train_step_recorded(nwl, optimizer, *a, **kw):
+        seen["optimizer"] = optimizer
+        return build_step(nwl, optimizer, *a, **kw)
+
+    def callback_recorded(*a, **kw):
+        seen["callback"] = make_callback(*a, **kw)
+        return seen["callback"]
+
+    train_entry.shard_net, train_entry.build_train_step = (shard_net_recorded,
+                                                           build_train_step_recorded)
+    train_entry.EvalCallback = callback_recorded
+    argmax_shift_decode.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        result = train_entry.train(args)
+    finally:
+        train_entry.shard_net, train_entry.build_train_step = shard, build_step
+        train_entry.EvalCallback = make_callback
+    eval_copy = seen["callback"].eval_net
+    record = {"launches": argmax_shift_decode.launches, "epochs": result["epochs"],
+              "step": result["step"], "world": dist.get_world_size(),
+              "backend": dist.get_backend(), "sharded": is_sharded(seen["net"]),
+              "mesh": seen["mesh"], "params": local_bytes(seen["net"].parameters()),
+              "moments": local_bytes(moments(seen["optimizer"])),
+              "eval_copy": local_bytes([*eval_copy.parameters(), *eval_copy.buffers()]),
+              "peak": torch.cuda.max_memory_allocated()}
+    with open(os.path.join(out_dir, "entry.json"), "w") as f:
+        json.dump(record, f, default=float)
+    dist.destroy_process_group()
+
+
+def fsdp_entry(root: str, data: dict, device: torch.device) -> dict:
+    """Phase 27 (b): vitpose_h_tpu.yaml as parsed (``parallel_mode: fsdp``,
+    batch 32 in 4 microbatches, O2, layer decay 0.8) through the train entry
+    under ``python3 -m torch.distributed.run --nproc_per_node=1`` (nccl,
+    world size 1: the net sharded over a mesh of one), on phase 21's data,
+    ``FSDP_EPOCHS`` epochs, evaluating after the last through rank 0's
+    unsharded copy. It holds: nccl, world 1, the net sharded, finite losses,
+    one decode launch per val batch; then the last checkpoint, gathered from
+    the shards, through the eval and serving entries
+    (``check_recipe_checkpoint``), which load it strictly into unsharded
+    nets."""
+    name = "vitpose_h_tpu"
+    ckpt_dir = os.path.join(root, "fsdp_entry")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    options = [f"train_root={train_root}", f"train_label={train_label}",
+               f"val_root={val_root}", f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}",
+               f"num_epochs={FSDP_EPOCHS}", f"warmup={VIT_SMALL_WARMUP}",
+               f"val_interval={FSDP_EPOCHS}", "save_best=False"]
+    argv = ["--config", VITPOSE_YAML["h"], "--cfg-options", *options]
+    start = time.perf_counter()
+    run_processes([[sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+                    "--master_addr=127.0.0.1", f"--master_port={free_port()}",
+                    os.path.abspath(__file__), "--torchrun-fsdp-entry", ckpt_dir, "--", *argv]],
+                  [os.path.join(ckpt_dir, "torchrun.log")], FSDP_TIMEOUT_S, "phase 27 (b)")
+    entry_s = time.perf_counter() - start
+    with open(os.path.join(ckpt_dir, "entry.json")) as f:
+        run = json.load(f)
+    epochs = run["epochs"]
+    rate = entry_epochs(f"{name} FSDP entry (torchrun, 1 rank, nccl)", epochs)
+    losses = [e["loss"] for e in epochs]
+    evals = [e for e in epochs if e["metrics"]]
+    args = recipe_args(VITPOSE_YAML["h"], data, ckpt_dir, device, *options[5:])
+    val_batches = -(-VIT_SMALL_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    print(f"{name} FSDP entry (torchrun --nproc_per_node=1, backend {run['backend']}, world "
+          f"{run['world']}, mesh {run['mesh']}, sharded {run['sharded']}): epoch 2 "
+          f"{rate:.1f} img/s, step median {epochs[-1]['step_median_s'] * 1e3:.1f} ms; "
+          f"parameters {run['params'][0]} of {run['params'][1]} B, AdamW moments "
+          f"{run['moments'][0]} of {run['moments'][1]} B on the rank, and its unsharded "
+          f"eval copy's parameters and buffers {run['eval_copy'][0]} B; peak "
+          f"torch.cuda.max_memory_allocated {run['peak']} B ({run['peak'] / 2**30:.2f} GiB); "
+          f"losses {losses}; decode kernel launches {run['launches']}; {entry_s:.1f} s with "
+          f"the start")
+    if not (run["backend"] == "nccl" and run["world"] == 1 and run["sharded"]):
+        raise AssertionError("phase 27 (b): the entry did not train sharded over nccl")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 27 (b): the losses are not finite: {losses}")
+    if not (len(evals) == 1 and run["launches"] == val_batches):
+        raise AssertionError(f"phase 27 (b): {len(evals)} evaluations, {run['launches']} decode "
+                             f"launches for {val_batches} val batch(es)")
+    stats = {k: float(v) for k, v in evals[-1]["metrics"].items()}
+    checked = check_recipe_checkpoint(name, VITPOSE_YAML["h"], args,
+                                      os.path.join(ckpt_dir, f"{name}_last.ckpt"), stats,
+                                      val_batches, root, device)
+    return {"launches": run["launches"], **checked, "images_per_sec": rate,
+            "peak_bytes": run["peak"], "seconds": entry_s}
+
+
+def distill_training(root: str, data: dict, device: torch.device) -> dict:
+    """Phase 28: hrnet_w32_tpu.yaml as parsed, as the student of an HRNet-W48
+    teacher (torch's initialisation from a seed, its BatchNorm statistics
+    taken from one batch of crops; written as a port checkpoint with
+    ``save_checkpoint``), through the train entry with
+    ``distill_setting``, ``loss: joint_mse_distill`` (alpha 0.5), one epoch
+    of phase 12's data, evaluating after it. It holds finite losses, both
+    loss components logged and above 0, one decode launch per val batch,
+    and the teacher's heatmaps that the preprocess appended to the last
+    microbatch equal to a plain forward of the teacher on that microbatch's
+    image within ``DISTILL_HEAT_RTOL`` of their largest (cuDNN may pick
+    another algorithm for the second call)."""
+    ckpt_dir = os.path.join(root, "distill")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    teacher_path = os.path.join(ckpt_dir, f"{DISTILL_TEACHER}_teacher.ckpt")
+    torch.manual_seed(SEED + 28)
+    teacher = create_network(DISTILL_TEACHER, HRNET_W32["head_name"],
+                             num_joints=HRNET_W32["num_joints"]).to(device)
+    # BatchNorm statistics from the data (one train-mode forward at momentum
+    # 1), as a trained teacher has: at their initial 0 and 1 the eval-mode
+    # activations grow through the stages to heatmaps of ~1e6
+    crops = recipe_preprocess()(*train_batch(np.random.RandomState(SEED + 28), 32, device))[0]
+    norms = [m for m in teacher.modules() if isinstance(m, nn.BatchNorm2d)]
+    with torch.no_grad():
+        for m in norms:
+            m.momentum = 1.0
+        teacher.train()(crops)
+        for m in norms:
+            m.momentum = 0.1
+    save_checkpoint(teacher_path, teacher)
+    del teacher
+    setting = {"teacher_backbone": DISTILL_TEACHER, "teacher_head": HRNET_W32["head_name"],
+               "teacher_ckpt": teacher_path}
+    args = recipe_args(RECIPE_YAML, data, ckpt_dir, device, "num_epochs=1",
+                       f"warmup={INPUT_WARMUP}", "val_interval=1", "loss=joint_mse_distill",
+                       f"loss_setting={{'use_target_weight': True, 'alpha': {DISTILL_ALPHA}}}",
+                       f"distill_setting={setting!r}")
+    seen = {}
+    make = train_entry.build_teacher_preprocess
+
+    def build_teacher_preprocess(teacher, base_preprocess=None):
+        preprocess = make(teacher, base_preprocess)
+
+        def recorded(*cols):
+            out = preprocess(*cols)
+            seen.update(teacher=teacher, image=out[0], heat=out[-1])
+            return out
+
+        return recorded
+
+    train_entry.build_teacher_preprocess = build_teacher_preprocess
+    torch.cuda.reset_peak_memory_stats()
+    argmax_shift_decode.launches = 0
+    start = time.perf_counter()
+    try:
+        result = train_entry.train(args)
+    finally:
+        train_entry.build_teacher_preprocess = make
+    seconds = time.perf_counter() - start
+    launches = argmax_shift_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        plain = seen["teacher"](seen["image"].float())
+    heat_err = float((plain - seen["heat"]).abs().max() / plain.abs().max())
+    with open(os.path.join(ckpt_dir, "summary", "metrics.jsonl")) as f:
+        (record,) = [json.loads(line) for line in f]
+    (epoch,) = result["epochs"]
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    print(f"distillation (hrnet_w32_tpu.yaml student, {DISTILL_TEACHER} teacher from a port "
+          f"checkpoint, alpha {DISTILL_ALPHA}): {epoch['steps']} steps, "
+          f"{epoch['images_per_sec']:.1f} img/s, step median {epoch['step_median_s'] * 1e3:.1f} "
+          f"ms; loss {epoch['loss']:.6g} = task {record['train/loss_0']:.6g} + distill "
+          f"{record['train/loss_1']:.6g} (the epoch's mean components); AP "
+          f"{float(epoch['metrics']['AP']):.6f}; the appended teacher heatmaps "
+          f"{tuple(seen['heat'].shape)} {seen['heat'].dtype} against a plain teacher forward "
+          f"{heat_err:.3e} of their largest (bitwise equal: "
+          f"{bool(torch.equal(plain, seen['heat']))}); peak torch.cuda.max_memory_allocated "
+          f"{peak} B ({peak / 2**30:.2f} GiB); decode kernel launches {launches}; "
+          f"{seconds:.1f} s")
+    if not (np.isfinite(epoch["loss"]) and record["train/loss_0"] > 0
+            and record["train/loss_1"] > 0):
+        raise AssertionError(f"phase 28: the loss components are not both logged and positive: "
+                             f"{record}")
+    if heat_err > DISTILL_HEAT_RTOL or seen["heat"].dtype != torch.float32:
+        raise AssertionError("phase 28: the appended heatmaps are not the teacher's float32 ones")
+    if launches != val_batches:
+        raise AssertionError(f"phase 28: {launches} decode launches for {val_batches} val "
+                             f"batch(es)")
+    return {"launches": launches, "heat_rel_err": heat_err, "seconds": seconds,
+            "images_per_sec": epoch["images_per_sec"]}
+
+
+def remat_step(device: torch.device) -> dict:
+    """Phase 29: the recipe's step (batch 128, O2, constant lr) on HRNet-W32
+    with and without ``remat``, from the same weights on the same batch.
+    The first step of each runs with cuDNN's deterministic algorithms and
+    their loss, gradients and running statistics are held equal within
+    ``REMAT_RTOL`` of each tensor's largest; then ``REMAT_TIMED_STEPS``
+    steps each are timed (CUDA events) with the peak of
+    ``torch.cuda.max_memory_allocated`` over them."""
+    plain = training_net(device)
+    remat = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
+                           num_joints=HRNET_W32["num_joints"],
+                           backbone_args=dict(HRNET_W32["backbone_setting"], remat=True),
+                           head_args=HRNET_W32["head_setting"]).to(device)
+    remat.load_state_dict(plain.state_dict())
+    image, keypoints = train_batch(np.random.RandomState(SEED + 29),
+                                   HRNET_W32["batch_size"], device)
+    runs = {}
+    for label, net in (("plain", plain), ("remat", remat)):
+        step = recipe_step(net, "O2")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        loss = step(image, keypoints)
+        torch.backends.cudnn.deterministic = deterministic
+        first = {"loss": loss.detach().clone(),
+                 "grads": {n: p.grad.detach().clone() for n, p in net.named_parameters()},
+                 "stats": _statistics(net)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        for _ in range(REMAT_TIMED_STEPS):
+            step(image, keypoints)
+        end.record()
+        torch.cuda.synchronize()
+        runs[label] = dict(first, ms=begin.elapsed_time(end) / REMAT_TIMED_STEPS,
+                           peak=torch.cuda.max_memory_allocated())
+        del step
+        torch.cuda.empty_cache()
+    a, b = runs["plain"], runs["remat"]
+
+    def rel(x, y):
+        return float((x.float() - y.float()).abs().max() / y.float().abs().max().clamp_min(1e-30))
+
+    loss_err = rel(b["loss"], a["loss"])
+    grad_err = max(rel(b["grads"][n], g) for n, g in a["grads"].items())
+    stats_err = max(rel(b["stats"][n], v) for n, v in a["stats"].items())
+    equal = (torch.equal(a["loss"], b["loss"])
+             and all(torch.equal(b["grads"][n], g) for n, g in a["grads"].items()))
+    print(f"remat (hrnet_w32_tpu.yaml step, batch {HRNET_W32['batch_size']}, O2): loss "
+          f"{float(a['loss'].sum()):.6g} plain, remat against it {loss_err:.3e}; gradients "
+          f"{grad_err:.3e} and running statistics after one update {stats_err:.3e} of each "
+          f"tensor's largest (tolerance {REMAT_RTOL}; bitwise equal: {equal}); step "
+          f"{a['ms']:.1f} ms plain, {b['ms']:.1f} ms remat ({b['ms'] / a['ms']:.3f}x), peak "
+          f"torch.cuda.max_memory_allocated {a['peak']} B ({a['peak'] / 2**30:.2f} GiB) plain, "
+          f"{b['peak']} B ({b['peak'] / 2**30:.2f} GiB) remat ({b['peak'] / a['peak']:.3f}x), "
+          f"{REMAT_TIMED_STEPS} steps each (CUDA events)")
+    if max(loss_err, grad_err, stats_err) > REMAT_RTOL:
+        raise AssertionError("phase 29: the remat step differs from the plain one")
+    return {"grad_rel_err": grad_err, "ms": a["ms"], "remat_ms": b["ms"], "peak": a["peak"],
+            "remat_peak": b["peak"]}
 
 
 def main() -> int:
@@ -4242,7 +4741,9 @@ def main() -> int:
         lap("19")
         vit = vitpose_training(root, entry["data"], device)
         torch.cuda.empty_cache()
-        vit_recipes = vitpose_recipes(root, device)
+        vit_data = write_synthetic_coco(os.path.join(root, "vit_small"), VIT_SMALL_IMAGES,
+                                        VIT_SMALL_VAL_IMAGES, ENTRY_PEOPLE)
+        vit_recipes = vitpose_recipes(root, vit_data, device)
         torch.cuda.empty_cache()
         lap("20-21")
         simcc = family_training(root, entry["data"], device, SIMCC_YAML)
@@ -4256,14 +4757,28 @@ def main() -> int:
         lap("25")
         ddp_on_one_card(root, device)
         torch.cuda.empty_cache()
-        ddp = ddp_entry(root, entry["data"], device, entry, input_modes)
+        ddp = ddp_entry(root, entry["data"], device, entry)
         lap("26")
+        fsdp_on_one_card(root, device)
+        torch.cuda.empty_cache()
+        fsdp = fsdp_entry(root, vit_data, device)
+        torch.cuda.empty_cache()
+        lap("27")
+        distilled = distill_training(root, entry["data"], device)
+        torch.cuda.empty_cache()
+        lap("28")
+        remat_step(device)
+        torch.cuda.empty_cache()
+        lap("29")
     check_no_processes_left()
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
                                       ("launches", "eval_launches", "serve_launches")},
                     **{name: {key: r[key] for key in
                               ("launches", "eval_launches", "serve_launches")}
-                       for name, r in vit_recipes.items()}}
+                       for name, r in vit_recipes.items()},
+                    # phase 27 (b): rank 0's callback, then the eval and serving entries
+                    "vitpose_h_tpu": {key: fsdp[key] for key in
+                                      ("launches", "eval_launches", "serve_launches")}}
 
     mpii_launches = {key: mpii_run[key] for key in ("launches", "eval_launches",
                                                     "serve_launches")}
@@ -4289,7 +4804,7 @@ def main() -> int:
                      + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]
                      + sum(sum(r.values()) for r in vit_launches.values())
                      + sum(mpii_launches.values()) + input_modes["launches"]
-                     + ddp["launches"]),
+                     + ddp["launches"] + distilled["launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
@@ -4298,6 +4813,11 @@ def main() -> int:
         "input_modes_launches": input_modes["launches"],
         # phase 26 (b): rank 0's callback under torchrun (1 per eval batch)
         "ddp_entry_launches": ddp["launches"],
+        # phase 27 (b): rank 0's callback on its unsharded copy under torchrun
+        # (1 per eval batch; also in vitpose_launches)
+        "fsdp_entry_launches": fsdp["launches"],
+        # phase 28: the distillation run's callback (1 per eval batch)
+        "distill_launches": distilled["launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],
@@ -4400,6 +4920,13 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--torchrun-entry"]:  # phase 26 (b): the process torchrun starts
         torchrun_entry(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--fsdp-rank"]:  # phase 27 (a): one rank
+        rank, world, port = map(int, sys.argv[2:5])
+        fsdp_rank(rank, world, port, sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--torchrun-fsdp-entry"]:  # phase 27 (b): the process torchrun starts
+        torchrun_fsdp_entry(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
         sys.exit(0)
     try:
         code = main()

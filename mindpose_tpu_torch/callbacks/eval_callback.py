@@ -16,6 +16,16 @@ In a data-parallel run rank 0 alone evaluates, writes the checkpoints and
 inferencer's), never through DDP's forward on one rank. Every rank then
 waits at a barrier, so that the others wait for rank 0's evaluation there
 rather than time out in the next step's collective.
+
+A sharded net (``parallel_mode: fsdp``) cannot run on rank 0 alone: its
+forward all-gathers from ranks that wait at the barrier. So every rank
+first gathers the whole net, optimizer and EMA state
+(``parallel/fsdp.full_state``, as the JAX callback calls
+``replicate_sharded`` before its rank gate, :128-139); rank 0 loads it into
+``eval_net``, an unsharded copy of the net that its inferencer holds (the
+other ranks hold neither), evaluates that (the EMA swapped into it), and
+writes the checkpoints from the gathered dicts: the same files a
+single-device run writes.
 """
 import contextlib
 import json
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel.fsdp import full_state, is_sharded
 from ..parallel.mesh import is_distributed, is_main_process
 from ..utils.checkpoint import save_checkpoint, save_ema
 from ..utils.misc import AverageMeter, allreduce_mean
@@ -73,6 +84,7 @@ class EvalCallback:
         rank_id: Optional[int] = None,
         device_num: Optional[int] = None,
         async_checkpoint: bool = False,
+        eval_net: Optional[torch.nn.Module] = None,
     ) -> None:
         self.inferencer = inferencer
         self.evaluator = evaluator
@@ -87,6 +99,7 @@ class EvalCallback:
         # EPE/NME are error metrics (lower is better); the rest higher-is-better
         self._metric_sign = -1.0 if target_metric_name in ("EPE", "NME") else 1.0
         self.async_checkpoint = async_checkpoint
+        self.eval_net = eval_net  # the unsharded copy a sharded run evaluates
         self.rank_id = rank_id if rank_id is not None else 0
         self.device_num = device_num or 1
 
@@ -127,7 +140,9 @@ class EvalCallback:
 
         ``ema_params``: when given, evaluation runs on these averaged
         parameters (swapped into ``net`` for it) and best/last saves also
-        write a ``<path>.ema`` file with ``{"params": ema}``.
+        write a ``<path>.ema`` file with ``{"params": ema}``. A sharded
+        ``net`` is gathered first, on every rank, and evaluated through
+        ``eval_net``.
         """
         epoch_time = time.time() - self._epoch_start
         last_loss_vector = None
@@ -151,17 +166,23 @@ class EvalCallback:
                 record[f"train/loss_{i}"] = float(v)
 
         metrics: Dict[str, Any] = {}
-        run_eval = (
-            self.inferencer is not None
-            and self.evaluator is not None
-            and self.dataset_val is not None
-            and (epoch % self.interval == 0 or epoch == self.max_epoch)
-        )
+        # the same on every rank (each builds the val loader); a sharded run
+        # builds the inferencer and the evaluator on rank 0 only
+        eval_due = self.dataset_val is not None and (
+            epoch % self.interval == 0 or epoch == self.max_epoch)
+        run_eval = eval_due and self.inferencer is not None and self.evaluator is not None
+        eval_net = net
+        if is_sharded(net) and (self.save_last or eval_due):
+            # a collective: every rank gathers, rank 0 alone receives
+            net, optimizer, ema_params = full_state(net, optimizer, ema_params)
+            eval_net = self.eval_net
+            if self._is_rank0() and run_eval:
+                eval_net.load_state_dict(net)
         if self._is_rank0():
             if self.save_last:
                 self._save(self.last_ckpt_path, net, optimizer, step, ema_params)
             if run_eval:
-                with _parameters_swapped(net, ema_params):
+                with _parameters_swapped(eval_net, ema_params):
                     outputs = self.inferencer(self.dataset_val)
                 metrics = self.evaluator(outputs)
                 for name, value in metrics.items():

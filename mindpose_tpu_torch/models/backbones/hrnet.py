@@ -8,7 +8,15 @@ branch only), with the submodule names of the official HRNet torch code
 stage2.0.fuse_layers.0.1.0, ...). Those are the names that the JAX
 package's ``export_backbone_state(..., naming="torch")`` emits.
 
-The JAX package's TPU knobs are checked once, in ``_hrnet``: the
+``remat: true`` recomputes each exchange unit (``HRModule``) in the
+backward pass instead of keeping its activations, as the JAX package's
+``nn.remat(HRModule)`` does (:195), through ``torch.utils.checkpoint``. flax's
+remat is functional and updates the BatchNorm running statistics once; the
+recompute here runs the forward a second time, so it runs under
+``frozen_statistics`` and the statistics update once, with the values they
+take without remat.
+
+The JAX package's other TPU knobs are checked once, in ``_hrnet``: the
 space-to-depth rewrites (``stem_s2d``, ``branch0_s2d``) and
 ``bn_grad_stats: fused`` (exact BN with a hand-written backward) change no
 result, so they are accepted and build plain BN here; subsampled BN
@@ -16,14 +24,23 @@ statistics (``bn_stats_frac < 1``) and frozen-statistic gradients
 (``frozen``, ``frozen_var``) were measured to diverge
 (docs/performance.md:103-122) and are refused.
 """
+import contextlib
 import copy
 from typing import Any, Dict, List, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...register import register
-from ..common import BatchNorm2d, check_bn_settings, conv1x1, conv3x3, resize_nearest
+from ..common import (
+    BatchNorm2d,
+    check_bn_settings,
+    conv1x1,
+    conv3x3,
+    frozen_statistics,
+    resize_nearest,
+)
 from .backbone import Backbone
 from .resnet import BasicBlock, Bottleneck
 
@@ -41,7 +58,11 @@ def _conv_bn(conv: nn.Conv2d, channels: int, relu: bool) -> nn.Sequential:
 
 
 class HRModule(nn.Module):
-    """One exchange unit: per-branch residual blocks then cross-scale fusion."""
+    """One exchange unit: per-branch residual blocks then cross-scale fusion.
+
+    ``remat``: a train-mode forward that records gradients keeps only its
+    inputs, and the backward recomputes the rest.
+    """
 
     def __init__(
         self,
@@ -51,8 +72,10 @@ class HRModule(nn.Module):
         in_channels: Sequence[int],
         num_channels: Sequence[int],
         multi_scale_output: bool = True,
+        remat: bool = False,
     ) -> None:
         super().__init__()
+        self.remat = remat
         block_cls = _BLOCKS[block]
         out_ch = [c * block_cls.expansion for c in num_channels]
 
@@ -88,6 +111,17 @@ class HRModule(nn.Module):
             self.fuse_layers = nn.ModuleList(rows)
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self._forward(xs)
+        # the forward runs as it is; the recompute leaves the statistics be
+        return list(checkpoint(
+            self._forward_tuple, *xs, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), frozen_statistics(self))))
+
+    def _forward_tuple(self, *xs: torch.Tensor) -> tuple:
+        return tuple(self._forward(list(xs)))
+
+    def _forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         ys = [branch(x) for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return ys
@@ -110,13 +144,14 @@ class HRNet(Backbone):
     """HRNet backbone; returns the highest-resolution (stride-4) NCHW feature.
 
     ``stage_cfg`` is the stage dict of ``w_cfg`` (or a reduced one in the
-    same form).
+    same form); ``remat`` recomputes every exchange unit in the backward.
     """
 
     def __init__(
         self,
         stage_cfg: Dict[str, Dict[str, Any]],
         in_channels: int = 3,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         self.stage_cfg = copy.deepcopy(stage_cfg)
@@ -150,6 +185,7 @@ class HRNet(Backbone):
                     in_channels=cur_channels,
                     num_channels=cfg["num_channels"],
                     multi_scale_output=multi_out or not is_last_module,
+                    remat=remat,
                 ))
             setattr(self, stage_name, nn.Sequential(*modules))
             pre_channels = cur_channels
@@ -232,10 +268,8 @@ def _hrnet(width: int, in_channels: int, kwargs: Dict[str, Any]) -> HRNet:
     unknown = sorted(set(kwargs) - set(_KNOBS))
     if unknown:
         raise TypeError(f"unknown HRNet settings: {unknown}")
-    if kwargs.get("remat", False):
-        raise NotImplementedError("remat is not ported (no memory need shown on the GPU yet)")
     check_bn_settings(kwargs.get("bn_grad_stats", "exact"), kwargs.get("bn_stats_frac", 1.0))
-    return HRNet(w_cfg(width), in_channels=in_channels)
+    return HRNet(w_cfg(width), in_channels=in_channels, remat=bool(kwargs.get("remat", False)))
 
 
 @register("backbone")

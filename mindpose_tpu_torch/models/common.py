@@ -5,8 +5,9 @@ its ``batch_norm``; the JAX package's TPU-only BatchNorm knobs are checked
 once, where a backbone or head is built from its settings
 (``check_bn_settings``).
 """
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -15,6 +16,7 @@ from torch import nn
 __all__ = [
     "BatchNorm2d",
     "check_bn_settings",
+    "frozen_statistics",
     "conv1x1",
     "conv3x3",
     "dense",
@@ -77,25 +79,63 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``x.dtype``. bf16 statistics would lose a channel's variance whenever it
     is small against its mean. The running statistics keep their own dtype.
     (Flax momentum 0.9 is torch momentum 0.1.)
+
+    ``sync_group``: a process group over which train mode takes its batch
+    statistics (``parallel/fsdp.py`` sets it): the per-channel sums of x and
+    x^2 and the count are all-reduced inside the forward, through the
+    differentiable all-reduce, so that the statistics, the gradient and the
+    running statistics are the global batch's, as one GSPMD program over the
+    global batch computes them. ``update_statistics`` False (set by
+    ``frozen_statistics``) leaves the running statistics as they are.
     """
 
     def __init__(self, num_features: int) -> None:
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.sync_group = None
+        self.update_statistics = True
+
+    def _batch_moments(self, xf: torch.Tensor):
+        """E[x] and E[x^2] per channel, over this rank's batch or the group's."""
+        if self.sync_group is None:
+            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        from torch.distributed.nn.functional import all_reduce
+
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                     count]), group=self.sync_group)
+        c = xf.shape[1]
+        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-        with torch.no_grad():
-            # flax's order of operations: 0.9 * running + 0.1 * batch
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked += 1
+        mean, mean_sq = self._batch_moments(xf)
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+        if self.update_statistics:
+            with torch.no_grad():
+                # flax's order of operations: 0.9 * running + 0.1 * batch
+                self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+                self.num_batches_tracked += 1
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module) -> Iterator[None]:
+    """Run the block with every ``BatchNorm2d`` of ``module`` leaving its
+    running statistics untouched (a recompute of a forward already counted)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    kept = [m.update_statistics for m in norms]
+    for m in norms:
+        m.update_statistics = False
+    try:
+        yield
+    finally:
+        for m, k in zip(norms, kept):
+            m.update_statistics = k
 
 
 def check_bn_settings(bn_grad_stats: str = "exact", bn_stats_frac: float = 1.0) -> None:

@@ -1,4 +1,5 @@
 from .ae import AELoss  # noqa: F401
+from .distill import JointsMSEDistillLoss  # noqa: F401
 from .loss import Loss  # noqa: F401
 from .mse import JointsMSELoss, JointsMSELossWithMask  # noqa: F401
 from .multi_loss import AEMultiLoss  # noqa: F401

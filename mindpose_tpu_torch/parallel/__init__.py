@@ -1,4 +1,6 @@
+from .fsdp import full_state, is_sharded, shard_net  # noqa: F401
 from .mesh import (  # noqa: F401
+    create_mesh,
     gather_records,
     init_distributed,
     is_distributed,

@@ -8,10 +8,13 @@ process group takes the place of ``jax.distributed``. The backend follows
 the device the caller names: ``nccl`` for CUDA, ``gloo`` for the CPU; there
 is no fallback from one to the other.
 
-``create_mesh``, ``data_sharding`` and ``replicated_sharding`` have no
-counterpart: ``DistributedDataParallel`` keeps a full replica on each rank
-(``parallel/train.py``), and each rank's loader feeds it its own shard of
-the records (``data/loader.py``), so there is no mesh and no sharding spec.
+``create_mesh`` builds the 2-D ``(data, model)`` ``DeviceMesh`` that
+``parallel_mode: fsdp`` shards over (``parallel/fsdp.py``), sized as the
+JAX entry sizes its mesh (``tools/train.py:89-90``). ``data_sharding`` and
+``replicated_sharding`` have no counterpart: ``DistributedDataParallel``
+keeps a full replica on each rank (``parallel/train.py``), FSDP places its
+own shards, and each rank's loader feeds the rank its own shard of the
+records (``data/loader.py``), so there is no batch sharding spec.
 """
 import datetime
 import os
@@ -21,6 +24,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "create_mesh",
     "init_distributed",
     "is_distributed",
     "local_device_count",
@@ -31,6 +37,8 @@ __all__ = [
 # The other ranks wait in a collective while rank 0 evaluates: the timeout
 # must cover one evaluation.
 TIMEOUT = datetime.timedelta(hours=2)
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 def is_distributed() -> bool:
@@ -111,3 +119,24 @@ def gather_records(records: list) -> list:
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, records)
     return [r for part in gathered for r in part]
+
+
+def create_mesh(model_parallel: Optional[int] = None, device: str = "cuda"):
+    """The ``(data, model)`` ``DeviceMesh`` over every rank of the group.
+
+    ``model`` is ``model_parallel`` or, where that is 0 or None, the world
+    size, and ``data`` the world size over it, as the JAX entry sizes its
+    FSDP mesh (``tools/train.py:89-90``); a ``model`` that does not divide
+    the world raises. ``device`` is the mesh's device type, ``cuda`` or
+    ``cpu``. Every rank calls it: it makes a process group per axis.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not is_distributed():
+        raise RuntimeError("a device mesh needs an initialised process group")
+    world = dist.get_world_size()
+    model = int(model_parallel or 0) or world
+    if model < 1 or world % model:
+        raise ValueError(f"model_parallel={model} does not divide the {world} ranks")
+    return init_device_mesh(torch.device(device).type, (world // model, model),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))

@@ -21,6 +21,14 @@ copy rank 0's running statistics to the others instead of averaging them.
 Every rank then holds the same parameters, optimizer state and
 statistics, bit for bit: the all-reduced values are the same on each.
 
+FSDP (``parallel/fsdp.py``): a net that ``shard_net`` sharded runs as it
+is, without DDP; all microbatches but the last run with FSDP's gradient
+sync off, so that the last backward reduce-scatters the accumulated
+gradients once, as JAX's FSDP step (:129) reduces its accumulated ones.
+The loss vector is all-reduced to its mean; the BatchNorm statistics were
+taken over the global batch inside the forward, so they are not averaged
+again.
+
 ``amp_level`` O1/O2/O3 is the JAX package's bf16 compute dtype
 (``tools/train.py`` builds the net with ``dtype=bfloat16`` for any level but
 O0): the forward runs under ``torch.autocast(bfloat16)`` with float32
@@ -36,6 +44,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..models.networks import NetWithLoss
+from .fsdp import is_sharded, no_gradient_sync
 
 __all__ = ["accum_loss_and_grads", "build_train_step", "build_ema_update"]
 
@@ -57,9 +66,10 @@ def accum_loss_and_grads(
     BatchNorm running statistics update once per microbatch, in order, as
     the JAX scan threads them (the semantics of training at the smaller
     batch). ``preprocess`` runs on each microbatch before the forward.
-    ``net_with_loss`` may be a ``DistributedDataParallel`` over one: all
-    microbatches but the last run under its ``no_sync``, so that it
-    averages the accumulated gradients across ranks once.
+    ``net_with_loss`` may be a ``DistributedDataParallel`` over one, or hold
+    a sharded net: all microbatches but the last run under DDP's
+    ``no_sync`` or FSDP's ``no_gradient_sync``, so that the gradients are
+    reduced across ranks once.
     """
     params = [p for p in net_with_loss.parameters() if p.requires_grad]
     for p in params:
@@ -73,6 +83,9 @@ def accum_loss_and_grads(
         micro = list(zip(*(x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
                            for x in batch)))
     no_sync = getattr(net_with_loss, "no_sync", contextlib.nullcontext)
+    if is_sharded(net_with_loss):
+        def no_sync():
+            return no_gradient_sync(net_with_loss)
     losses = []
     for i, mb in enumerate(micro):
         if preprocess is not None:
@@ -148,7 +161,10 @@ def build_train_step(
     running statistics are the means over the ranks. At world size 1 the
     wrap and the all-reduces still run, so that a one-card run under
     torchrun measures their cost. Every net of the port gives each of its
-    parameters a gradient, so DDP looks for none left unused.
+    parameters a gradient, so DDP looks for none left unused. A net that
+    ``parallel/fsdp.shard_net`` sharded is not wrapped (``step.module`` is
+    ``net_with_loss``): FSDP reduces the gradients, and only the loss
+    vector is all-reduced after the step.
     """
     if amp_level not in _AMP_LEVELS:
         raise ValueError(f"amp_level must be one of {_AMP_LEVELS}, got {amp_level!r}")
@@ -157,7 +173,7 @@ def build_train_step(
         process_group = dist.group.WORLD
     module = net_with_loss
     statistics = []
-    if process_group is not None:
+    if process_group is not None and not is_sharded(net_with_loss):
         module = nn.parallel.DistributedDataParallel(
             net_with_loss, device_ids=[device.index] if device.type == "cuda" else None,
             broadcast_buffers=False, process_group=process_group)
@@ -196,7 +212,10 @@ def build_ema_update(decay: float) -> Callable[[Tensors, Tensors], Tensors]:
 
     Takes two dicts of tensors with the same keys (a ``state_dict``'s
     floating tensors, say) and updates ``ema_params`` in place, where the
-    JAX package returns a new tree; returns it.
+    JAX package returns a new tree; returns it. A sharded net's parameters
+    and their EMA clones are ``DTensor``s of the same placements, so each
+    rank updates its own shards, as JAX's EMA inherits the FSDP sharding
+    (``tools/train.py:355-359``).
     """
 
     @torch.no_grad()

@@ -52,18 +52,33 @@ reads the checkpoint on every rank. ``distributed_init: true`` requires
 such a launch; ``distribute`` is accepted, as a mesh of one in JAX when
 there is no group.
 
+``parallel_mode: fsdp`` in a process group (:88-95, 340-359) shards the
+net over the ``(data, model)`` mesh, ``model`` = ``model_parallel`` or the
+world (``parallel/fsdp.py``), in this order: the net is built and restored
+(the resume checkpoint, or a pretrained backbone) unsharded, then sharded;
+the optimizer is built over the shards and takes the resumed state; EMA
+starts from the sharded parameters. The BatchNorm statistics are the
+global batch's, and rank 0 evaluates an unsharded copy of the net loaded
+from the state that every rank gathers (``callbacks/eval_callback.py``);
+the checkpoints are the files a single-device run writes. Without a
+process group nothing is sharded, as the JAX entry's mesh of one, and
+``model_parallel`` is not read, as JAX reads it only for an FSDP mesh.
+
+``distill_setting`` (:311-333) builds the frozen teacher
+(``models/distill.py``) and appends its heatmaps to each batch after the
+base preprocess, for ``joint_mse_distill``.
+
 The entry runs on the current CUDA device unless ``--device`` says
 otherwise, and raises without CUDA, and with more than one visible card
-outside a process group. ``parallel_mode: fsdp`` in a world of one trains
-as the JAX entry does on a mesh of one: nothing is sharded. It raises on a
-config key it does not read and on one whose setting is not ported (FSDP
-over more than one card, ``model_parallel``, distillation; each message
-names its ROADMAP item); it ignores none.
+outside a process group. It raises on a config key it does not read and
+on ``allow_divergent_knobs``; it ignores none.
 
 Usage:
     python3 -m mindpose_tpu_torch.tools.train --config configs/hrnet/hrnet_w32_tpu.yaml \\
         [--device cpu] [--seed 0] [--ckpt resume.ckpt] [--cfg-options num_epochs=1 ...]
     torchrun --nproc_per_node=N -m mindpose_tpu_torch.tools.train --config ... [...]
+    torchrun --nproc_per_node=N -m mindpose_tpu_torch.tools.train \\
+        --config configs/vitpose/vitpose_h_tpu.yaml --cfg-options model_parallel=N [...]
 """
 import logging
 import os
@@ -97,7 +112,16 @@ from ..models import (
     create_network_with_loss,
 )
 from ..optim import create_optimizer
-from ..parallel import build_ema_update, build_train_step, init_distributed, is_distributed
+from ..models.distill import build_teacher, build_teacher_preprocess
+from ..parallel import (
+    build_ema_update,
+    build_train_step,
+    create_mesh,
+    init_distributed,
+    is_distributed,
+    shard_net,
+)
+from ..parallel.fsdp import load_optimizer_state, load_sharded, parameter_names
 from ..scheduler import create_lr_scheduler
 from ..utils.checkpoint import (
     load_ema,
@@ -128,12 +152,8 @@ KNOWN_KEYS = frozenset("""
     decoder_setting profile profile_dir
 """.split())
 
-FSDP_ITEM = "ROADMAP.md, Queue 1, FSDP over more than one card"
-# key -> (refused when, why); each names the ROADMAP item that ports it
+# key -> (refused when, why)
 _REFUSED = {
-    "model_parallel": (bool, f"model_parallel serves FSDP over more than one device ({FSDP_ITEM})"),
-    "distill_setting": (bool, "distillation is not ported (ROADMAP.md, Queue 1, the rest: "
-                              "distillation)"),
     "allow_divergent_knobs": (bool, "the port refuses the divergent BatchNorm and optimizer "
                                     "knobs themselves, so there is nothing to allow"),
 }
@@ -169,10 +189,6 @@ def _distributed(args: Any) -> Tuple[int, int]:
             "distributed_init: true, and neither torchrun's RANK/WORLD_SIZE nor "
             "MINDPOSE_COORDINATOR is set: launch one process per card with `torchrun "
             "--nproc_per_node=N -m mindpose_tpu_torch.tools.train --config ...`")
-    if world > 1 and _parallel_mode(args) == "fsdp":
-        raise NotImplementedError(
-            f"parallel_mode fsdp in a world of {world}: sharding the parameters and optimizer "
-            f"state over the ranks is not ported ({FSDP_ITEM})")
     return rank, world
 
 
@@ -196,8 +212,6 @@ def _device(args: Any) -> torch.device:
             f"several. Launch one process per card (`torchrun --nproc_per_node={n} -m "
             "mindpose_tpu_torch.tools.train --config ...`), or make one card visible with "
             "CUDA_VISIBLE_DEVICES")
-    # parallel_mode fsdp on one device: the JAX entry's mesh of one, where
-    # nothing is sharded and the step is the single-device one
     return device
 
 
@@ -277,15 +291,18 @@ def train(args: Any) -> Dict[str, Any]:
             normalize_std=args.normalize_std, num_workers=workers, config=args.dataset_setting)
 
     # ---- model ----
+    def build_net() -> torch.nn.Module:
+        return create_network(
+            backbone_name=args.backbone_name, head_name=args.head_name,
+            neck_name=getattr(args, "neck_name", "") or "",
+            backbone_pretrained=getattr(args, "backbone_pretrained", False),
+            backbone_ckpt_url=getattr(args, "backbone_ckpt_url", "") or "",
+            in_channels=getattr(args, "in_channels", 3), num_joints=args.num_joints,
+            backbone_args=getattr(args, "backbone_setting", None),
+            head_args=getattr(args, "head_setting", None))
+
     torch.manual_seed(seed)
-    net = create_network(
-        backbone_name=args.backbone_name, head_name=args.head_name,
-        neck_name=getattr(args, "neck_name", "") or "",
-        backbone_pretrained=getattr(args, "backbone_pretrained", False),
-        backbone_ckpt_url=getattr(args, "backbone_ckpt_url", "") or "",
-        in_channels=getattr(args, "in_channels", 3), num_joints=args.num_joints,
-        backbone_args=getattr(args, "backbone_setting", None),
-        head_args=getattr(args, "head_setting", None)).to(device)
+    net = build_net().to(device)
     # a local path, file:// or http(s):// (tools/train.py:270-280)
     pretrained_path = getattr(args, "backbone_ckpt_url", "") or ""
     pretrained_tensors = 0
@@ -304,22 +321,48 @@ def train(args: Any) -> Dict[str, Any]:
         args.scheduler, lr=args.lr, total_epochs=args.num_epochs,
         steps_per_epoch=len(loader_train), warmup=getattr(args, "warmup", 0),
         **(getattr(args, "lr_scheduler_setting", None) or {}))
-    optimizer = create_optimizer(
-        net, name=args.optimizer, learning_rate=args.lr,
-        weight_decay=getattr(args, "weight_decay", 0.0),
-        filter_bias_and_bn=getattr(args, "filter_bias_and_bn", True),
-        **(getattr(args, "optimizer_setting", None) or {}))
+
+    def build_optimizer() -> torch.optim.Optimizer:
+        return create_optimizer(
+            net, name=args.optimizer, learning_rate=args.lr,
+            weight_decay=getattr(args, "weight_decay", 0.0),
+            filter_bias_and_bn=getattr(args, "filter_bias_and_bn", True),
+            **(getattr(args, "optimizer_setting", None) or {}))
+
+    optimizer = build_optimizer()
 
     # ---- resume ----
     ckpt = getattr(args, "ckpt", None)
     start_step = restore_train_state(ckpt, net, optimizer) if ckpt else 0
+
+    # ---- FSDP: shard the restored net, then the optimizer over its shards ----
+    sharded = _parallel_mode(args) == "fsdp" and is_distributed()
+    if sharded:
+        mesh = create_mesh(getattr(args, "model_parallel", None), device.type)
+        resumed = optimizer.state_dict() if ckpt else None
+        names = parameter_names(net, optimizer)
+        shard_net(net, mesh)
+        optimizer = build_optimizer()
+        if resumed is not None:
+            load_optimizer_state(net, optimizer, resumed, names)
+        logging.info("fsdp: mesh %s", dict(zip(mesh.mesh_dim_names, mesh.shape)))
+
+    # ---- distillation: the frozen teacher's heatmaps appended to each batch ----
+    host_layout = preprocess is None  # the step takes the loader's columns, made NCHW
+    distill_setting = getattr(args, "distill_setting", None)
+    if distill_setting:
+        teacher = build_teacher(distill_setting, num_joints=args.num_joints,
+                                in_channels=getattr(args, "in_channels", 3), device=device)
+        preprocess = build_teacher_preprocess(teacher, base_preprocess=preprocess)
+        logging.info("distillation: teacher %s/%s from %s", distill_setting["teacher_backbone"],
+                     distill_setting["teacher_head"], distill_setting["teacher_ckpt"])
 
     step_fn = build_train_step(
         net_with_loss, optimizer, lr_scheduler, preprocess=preprocess,
         accum_steps=int(getattr(args, "grad_accum_steps", 1) or 1),
         amp_level=getattr(args, "amp_level", "O0") or "O0", start_step=start_step)
 
-    # ---- EMA: evaluation runs on the averaged parameters ----
+    # ---- EMA: evaluation runs on the averaged parameters (sharded as the net) ----
     ema_decay = float(getattr(args, "ema_decay", 0.0) or 0.0)
     ema_params = ema_step = None
     if ema_decay:
@@ -327,29 +370,38 @@ def train(args: Any) -> Dict[str, Any]:
             raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
         ema_params = {n: p.detach().clone() for n, p in net.named_parameters()}
         if ckpt and os.path.exists(ckpt + ".ema"):
-            for name, value in load_ema(ckpt + ".ema").items():
-                ema_params[name].copy_(value)
+            load_sharded(ema_params, load_ema(ckpt + ".ema"))
             logging.info("resumed EMA params from %s", ckpt + ".ema")
         ema_step = build_ema_update(ema_decay)
 
     # ---- eval engines ----
     config_name = os.path.splitext(os.path.basename(args.config))[0]
     ckpt_dir = getattr(args, "ckpt_save_dir", "./ckpt")
-    inferencer = evaluator = None
+    inferencer = evaluator = eval_copy = None
     if val_while_train:
         decoder = create_decoder(args.decoder_name, **(getattr(args, "decoder_setting", None)
                                                        or {}))
-        eval_net = create_eval_network(
-            net, decoder, output_raw=args.eval_setting.get("has_heatmap_output", True))
-        inferencer = create_inferencer(
-            eval_net, name=args.inference_method, config=args.eval_setting,
-            dataset_config=args.dataset_setting, device=device,
-            amp_level=getattr(args, "amp_level", "O0") or "O0")
-        evaluator = create_evaluator(
-            args.val_label, name=args.eval_method, metric=args.eval_metric,
-            config=args.eval_setting, dataset_config=args.dataset_setting,
-            num_joints=args.num_joints,
-            result_path=os.path.join(ckpt_dir, "result_keypoints.json"))
+        # a sharded net runs only with every rank: rank 0 alone evaluates, an
+        # unsharded copy loaded from the gathered state at each evaluation
+        # (so built without initialising its weights); the other ranks hold
+        # no copy and no inferencer
+        if sharded and rank == 0:
+            with torch.device("meta"):
+                eval_copy = build_net()
+            eval_copy = eval_copy.to_empty(device=device)
+        if not sharded or rank == 0:
+            eval_net = create_eval_network(
+                eval_copy if sharded else net, decoder,
+                output_raw=args.eval_setting.get("has_heatmap_output", True))
+            inferencer = create_inferencer(
+                eval_net, name=args.inference_method, config=args.eval_setting,
+                dataset_config=args.dataset_setting, device=device,
+                amp_level=getattr(args, "amp_level", "O0") or "O0")
+            evaluator = create_evaluator(
+                args.val_label, name=args.eval_method, metric=args.eval_metric,
+                config=args.eval_setting, dataset_config=args.dataset_setting,
+                num_joints=args.num_joints,
+                result_path=os.path.join(ckpt_dir, "result_keypoints.json"))
 
     # ---- callback ----
     callback = EvalCallback(
@@ -361,7 +413,7 @@ def train(args: Any) -> Dict[str, Any]:
         target_metric_name=(args.eval_metric[0] if isinstance(args.eval_metric, list)
                             else args.eval_metric),
         summary_dir=os.path.join(ckpt_dir, "summary"), rank_id=rank, device_num=world,
-        async_checkpoint=bool(getattr(args, "async_checkpoint", False)))
+        async_checkpoint=bool(getattr(args, "async_checkpoint", False)), eval_net=eval_copy)
 
     # ---- the train loop ----
     device_prefetch = int(getattr(args, "device_prefetch", 0) or 0)
@@ -375,7 +427,7 @@ def train(args: Any) -> Dict[str, Any]:
                    for c in final_columns]
 
     def step_inputs(arrays: List[torch.Tensor]) -> List[torch.Tensor]:
-        if preprocess is not None:  # the preprocess takes NHWC crops itself
+        if not host_layout:  # the device preprocess takes NHWC crops itself
             return arrays
         image, target, *extra = arrays
         image = image.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
@@ -422,8 +474,12 @@ def train(args: Any) -> Dict[str, Any]:
         wait_pending_checkpoints()
     except BaseException:
         # persist the last state before the exception propagates (rank 0: the
-        # replicas are equal)
-        if rank == 0:
+        # replicas are equal). A sharded state needs every rank to gather it,
+        # and the others may not come: as in JAX, whose rank 0 cannot write a
+        # state sharded over processes, it is not written.
+        if rank == 0 and sharded:
+            logging.error("no crash checkpoint: the state is sharded over the ranks")
+        elif rank == 0:
             crash_path = os.path.join(ckpt_dir, f"{config_name}_crash.ckpt")
             try:
                 save_checkpoint(crash_path, net, optimizer, step_fn.count)

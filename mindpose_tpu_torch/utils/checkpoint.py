@@ -20,7 +20,7 @@ a net, where shapes match (:113-201).
 import logging
 import os
 import threading
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,16 +85,20 @@ def _save(path: str, state: Dict[str, Any], async_write: bool) -> None:
     t.start()
 
 
-def save_checkpoint(path: str, net: torch.nn.Module,
-                    optimizer: Optional[torch.optim.Optimizer] = None, step: int = 0,
-                    async_write: bool = False) -> None:
+def save_checkpoint(path: str, net: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+                    optimizer: Union[torch.optim.Optimizer, Mapping[str, Any], None] = None,
+                    step: int = 0, async_write: bool = False) -> None:
     """Write ``{"net", "optimizer", "step"}`` to ``path`` atomically, now or
-    (``async_write``) from a thread, from a CPU copy taken now."""
-    _save(path, {
-        "net": net.state_dict(),
-        "optimizer": None if optimizer is None else optimizer.state_dict(),
-        "step": int(step),
-    }, async_write)
+    (``async_write``) from a thread, from a CPU copy taken now.
+
+    ``net`` and ``optimizer`` are the module and the optimizer, or their
+    ``state_dict``s (a sharded net's, gathered by ``parallel/fsdp.full_state``).
+    """
+    if isinstance(net, torch.nn.Module):
+        net = net.state_dict()
+    if isinstance(optimizer, torch.optim.Optimizer):
+        optimizer = optimizer.state_dict()
+    _save(path, {"net": net, "optimizer": optimizer, "step": int(step)}, async_write)
 
 
 def save_ema(path: str, params: Dict[str, torch.Tensor], async_write: bool = False) -> None:

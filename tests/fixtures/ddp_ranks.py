@@ -85,14 +85,16 @@ def run_processes(commands: List[list], logs: List[str], timeout: float, label: 
     return outputs
 
 
-def start_ranks(scenario: str, world: int, out_dir: str, timeout: float = 900.0) -> List[str]:
-    """Run ``scenario`` in ``world`` rank processes (``run_processes``);
-    returns their output."""
+def start_ranks(scenario: str, world: int, out_dir: str, timeout: float = 900.0,
+                module: str = "tests.fixtures.ddp_ranks") -> List[str]:
+    """Run ``scenario`` of ``module`` (this one, or a sibling with the same
+    command line) in ``world`` rank processes (``run_processes``); returns
+    their output."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(key, None)
     port = free_port()
-    commands = [[sys.executable, "-m", "tests.fixtures.ddp_ranks", scenario, str(rank),
+    commands = [[sys.executable, "-m", module, scenario, str(rank),
                  str(world), str(port), out_dir] for rank in range(world)]
     logs = [os.path.join(out_dir, f"{scenario}_rank{rank}.log") for rank in range(world)]
     return run_processes(commands, logs, timeout, scenario, env)

@@ -6,6 +6,12 @@ given non-trivial BN parameters and running statistics, carried into the
 port with the port's own converter, and both are run on the same input.
 Heatmaps agree to atol 1e-4: both are float32 on the CPU, but the two
 libraries sum each convolution in a different order.
+
+``remat: true`` (each exchange unit recomputed in the backward, as JAX's
+``nn.remat(HRModule)``): one float64 train step of the reduced net with it
+equals the step without it, bit for bit (loss, every gradient, the running
+statistics, updated once), and equals JAX's remat step within 1e-6 of each
+tensor's largest entry (measured: 5.4e-8).
 """
 import jax
 import jax.numpy as jnp
@@ -19,19 +25,27 @@ from mindpose_tpu.models.backbones.hrnet import HRNet as JaxHRNet
 from mindpose_tpu.models.backbones.hrnet import _freeze_cfg
 from mindpose_tpu.models.common import resize_nearest as jax_resize_nearest
 from mindpose_tpu.models.heads.hrnet_head import HRNetHead as JaxHRNetHead
+from mindpose_tpu.models.loss import mse as jax_mse_module
+from mindpose_tpu.models.model_factory import create_loss as jax_create_loss
+from mindpose_tpu.models.model_factory import create_network_with_loss as jax_create_nwl
 from mindpose_tpu.models.networks import Net as JaxNet
+from mindpose_tpu.parallel.train import accum_loss_and_grads as jax_accum
 from mindpose_tpu_torch.models import (
     create_backbone,
     create_decoder,
     create_eval_network,
+    create_loss,
     create_network,
+    create_network_with_loss,
 )
-from mindpose_tpu_torch.models.backbones.hrnet import HRNet, w_cfg
+from mindpose_tpu_torch.models.backbones.hrnet import HRModule, HRNet, w_cfg
 from mindpose_tpu_torch.models.common import resize_nearest
 from mindpose_tpu_torch.models.convert import convert_net_variables, hrnet_mapping
 from mindpose_tpu_torch.models.heads import HRNetHead
 from mindpose_tpu_torch.models.networks import Net
+from mindpose_tpu_torch.parallel import accum_loss_and_grads
 from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
+from tests.test_torch_bottomup_loss import Float64Numpy
 
 CFG = {
     "stage1": {"num_modules": 1, "num_branches": 1, "block": "BOTTLENECK",
@@ -163,8 +177,11 @@ def test_tpu_knobs_are_checked():
         create_backbone("hrnet_w32", bn_grad_stats="frozen")
     with pytest.raises(NotImplementedError, match="performance.md"):
         create_backbone("hrnet_w32", bn_stats_frac=0.25)
-    with pytest.raises(NotImplementedError):
-        create_backbone("hrnet_w32", remat=True)
+    # remat builds, with every exchange unit recomputed (the step: below)
+    with torch.device("meta"):
+        units = [m for m in create_backbone("hrnet_w32", remat=True).modules()
+                 if isinstance(m, HRModule)]
+    assert len(units) == 8 and all(m.remat for m in units)
     with pytest.raises(TypeError):
         create_backbone("hrnet_w32", no_such_setting=1)
 
@@ -271,3 +288,84 @@ def test_float64_train_batch_norm_stays_float64(case):
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=1e-12)
     np.testing.assert_allclose(port.running_mean.numpy(), 0.1 * mean, rtol=1e-14)
     np.testing.assert_allclose(port.running_var.numpy(), 0.9 + 0.1 * var, rtol=1e-14)
+
+
+# of each tensor's largest entry, port remat against JAX remat in float64
+# (measured: 5.4e-8, a gradient of transition2; the loss 3e-16)
+REMAT_RTOL = 1e-6
+
+
+def _renamed(tree, old, new):
+    """A flax tree with each scope ``old...`` named ``new...``: flax names a
+    remat unit's scope ``CheckpointHRModule_i`` where the plain net has
+    ``HRModule_i``."""
+    if not isinstance(tree, dict):
+        return tree
+    return {(new + k[len(old):] if k.startswith(old) else k): _renamed(v, old, new)
+            for k, v in tree.items()}
+
+
+def _remat_step(variables, remat, image, target, weight):
+    """One float64 forward and backward of the reduced net (port), from the
+    converted JAX variables: the loss vector, the gradients, the state_dict
+    after it, and how many times each BatchNorm's forward ran."""
+    net = Net(HRNet(CFG, remat=remat), HRNetHead(8, 17))
+    net.load_state_dict(convert_net_variables(variables, net), strict=True)
+    net.double()
+    nwl = create_network_with_loss(net, create_loss("joint_mse", use_target_weight=True),
+                                   has_extra_inputs=True)
+    calls = []
+    for m in net.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.register_forward_hook(lambda *_: calls.append(None))
+    loss = accum_loss_and_grads(nwl, (image, target, weight))
+    return (loss, {n: p.grad for n, p in net.named_parameters()}, net.state_dict(), len(calls),
+            sum(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules()))
+
+
+def test_remat_step_equals_the_plain_step_and_jax_s_remat_step(pair, monkeypatch):
+    """Remat recomputes each exchange unit's forward in the backward (the
+    BatchNorm forwards of stages 2-4 run twice), yet the step is the plain
+    step bit for bit and the running statistics took one update; JAX's
+    ``remat=True`` step in float64 (its loss's float32 casts lifted) on the
+    same batch agrees within ``REMAT_RTOL`` of each tensor's largest entry."""
+    _, variables, _, x = pair
+    rng = np.random.RandomState(7)
+    target = rng.uniform(0, 1, (2, 16, 12, 17))  # NHWC, as the JAX net's output
+    weight = rng.uniform(0, 1, (2, 17))
+    batch = (torch.from_numpy(x.astype(np.float64)).permute(0, 3, 1, 2).contiguous(),
+             torch.from_numpy(target).permute(0, 3, 1, 2).contiguous(), torch.from_numpy(weight))
+    loss, grads, state, calls, norms = _remat_step(variables, True, *batch)
+    loss0, grads0, state0, calls0, _ = _remat_step(variables, False, *batch)
+    assert calls0 == norms < calls  # the recompute ran the BatchNorm forwards again
+    assert torch.equal(loss, loss0)
+    for name, g in grads0.items():
+        assert torch.equal(grads[name], g), name
+    for name, v in state0.items():
+        assert torch.equal(state[name], v), name  # one update of the running statistics
+
+    monkeypatch.setattr(jax_mse_module, "jnp", Float64Numpy())
+    with jax.enable_x64(True):
+        jax_net = JaxNet(backbone=JaxHRNet(stage_cfg=_freeze_cfg(CFG), dtype=jnp.float64,
+                                           remat=True),
+                         head=JaxHRNetHead(in_channels=8, num_joints=17, dtype=jnp.float64))
+        nwl_j = jax_create_nwl(jax_net, jax_create_loss("joint_mse", use_target_weight=True),
+                               has_extra_inputs=True)
+        as64 = lambda tree: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)  # noqa: E731
+        remat_vars = _renamed(unfreeze(variables), "HRModule_", "CheckpointHRModule_")
+        loss_j, stats_j, grads_j = jax.jit(lambda p, s, *b: jax_accum(nwl_j, p, s, b))(
+            as64(remat_vars["params"]), as64(remat_vars["batch_stats"]),
+            jnp.asarray(x, jnp.float64), jnp.asarray(target), jnp.asarray(weight))
+        grads_j, stats_j = (_renamed(jax.device_get(t), "CheckpointHRModule_", "HRModule_")
+                            for t in (grads_j, stats_j))
+        want_g = convert_net_variables({"params": grads_j, "batch_stats": stats_j}, skeleton())
+        want = convert_net_variables({"params": variables["params"], "batch_stats": stats_j},
+                                     skeleton())
+    np.testing.assert_allclose(loss.numpy(), np.asarray(loss_j), rtol=REMAT_RTOL)
+    for name, g in grads.items():
+        w = want_g[name].double()
+        assert float((g - w).abs().max()) <= REMAT_RTOL * float(w.abs().max()), name
+    for name, v in want.items():
+        if name.endswith(("running_mean", "running_var")):
+            w = v.double()
+            assert float((state[name] - w).abs().max()) <= REMAT_RTOL * float(w.abs().max()), name

@@ -7,10 +7,11 @@ channels per branch) on tiny_coco's train split, one loader worker, one
 seed. Here: the CLI trains and its last checkpoint gives the callback's
 stats through the eval entry; a failing step leaves a crash checkpoint at
 the step reached; each config key the entry does not support raises
-(``model_parallel``, which serves FSDP over more than one card;
-distillation; a key it does not read), and so does more than one visible
-GPU outside a process group (tests/test_torch_ddp_entry.py trains in two); ``device_pipeline: true`` with
-``device_prefetch`` trains.
+(``allow_divergent_knobs``; a key it does not read), and so does more than
+one visible GPU outside a process group (tests/test_torch_ddp_entry.py
+trains in two); ``distill_setting`` and ``model_parallel``, refused until
+they were ported, train (tests/test_torch_fsdp_entry.py shards over four
+ranks); ``device_pipeline: true`` with ``device_prefetch`` trains.
 """
 import json
 import os
@@ -101,8 +102,6 @@ def test_a_failing_step_leaves_a_crash_checkpoint(data, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("options, match", [
     ({"parallel_mode": "pipeline"}, "unknown parallel_mode"),
-    ({"distill_setting": {"teacher_backbone": "hrnet_w48"}}, "distillation"),
-    ({"model_parallel": 2}, "FSDP over more than one card"),
     ({"allow_divergent_knobs": True}, "refuses"),
     ({"some_new_knob": 1}, "does not read"),
 ], ids=lambda v: "-".join(map(str, v)) if isinstance(v, dict) else None)
@@ -110,6 +109,38 @@ def test_unsupported_keys_raise(data, tmp_path, options, match):
     args = Config(**dict(vars(_args(str(tmp_path), data)), **options))
     with pytest.raises((NotImplementedError, ValueError), match=match):
         port_train.train(args)
+
+
+# refused until distillation and FSDP were ported; each trains now
+DISTILL_OPTIONS = {
+    "distill_setting": {"teacher_backbone": RECORD["config"]["backbone_name"],
+                        "teacher_head": RECORD["config"]["head_name"], "teacher_ckpt": CKPT},
+    "loss": "joint_mse_distill", "loss_setting": {"use_target_weight": True, "alpha": 0.5}}
+
+
+@pytest.mark.parametrize("options", [DISTILL_OPTIONS, {"model_parallel": 2}],
+                         ids=["distill_setting", "model_parallel"])
+def test_once_refused_keys_train(data, tmp_path, options):
+    """``distill_setting``: the teacher (the eval fixture's JAX TrainState)
+    appends its heatmaps and the callback logs both loss components.
+    ``model_parallel`` in one process: not read, as the JAX entry reads it
+    only for an FSDP mesh."""
+    got = port_train.train(_args(str(tmp_path), data, num_epochs=1, val_while_train=False,
+                                 **options))
+    (epoch,) = got["epochs"]
+    assert epoch["steps"] == 4 and np.isfinite(epoch["loss"])
+    with open(tmp_path / "ckpt" / "summary" / "metrics.jsonl") as f:
+        (record,) = [json.loads(line) for line in f]
+    if "distill_setting" in options:
+        assert record["train/loss_0"] > 0 and record["train/loss_1"] > 0
+        # the components of the epoch's mean loss vector sum to its mean loss
+        assert record["train/loss_0"] + record["train/loss_1"] == pytest.approx(epoch["loss"],
+                                                                               rel=1e-5)
+    else:
+        assert "train/loss_1" not in record
+        parsed = port_train.parse_train_args(["--config", RECIPE, "--cfg-options",
+                                              "model_parallel=2"])
+        assert parsed.model_parallel == 2
 
 
 def test_more_than_one_visible_gpu_raises(data, tmp_path, monkeypatch):

@@ -23,8 +23,14 @@ the port in float32:
   10 COCO stats within 1e-3 (an AP above 0.5);
 - from the resumed state, one more step on one loader batch gives JAX's
   loss, parameters and Adam moments within 1e-4 of each tensor's largest
-  entry (measured at worst 5e-6 and 5e-5), at JAX's step count and
-  learning rate;
+  entry, at JAX's step count and learning rate. The worst is the second
+  moment of the stem's second conv, whose float32 weight gradient sums
+  over the whole batch in an order that follows torch's thread count:
+  measured 4.8e-5 at 8 threads, 1.0032e-4 at 2 and 1.9e-4 at 1, where the
+  same step taken in float64 by the port is 1.2e-7 from JAX's, and JAX's
+  own float32 step 3.1e-2 (a BatchNorm bias's moments in stage 4). So this
+  file runs at torch's default thread count, outside
+  tests/fixtures/torch_threads.py;
 - the callback writes the best and last checkpoints, their ``.ema`` files
   and one ``metrics.jsonl`` line per epoch (``async_checkpoint``: all
   written by the time ``train`` returns). The CLI trains and its last
