@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat, int8 serving, the serving export, the demos) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -36,8 +36,8 @@ no result, when there is no CUDA device or when any phase fails:
 8. evaluation through the eval entry (``tools/eval.evaluate``): the
    serving net's weights saved as a port checkpoint and loaded back bit for
    bit, then evaluated with the recipe's settings (O2, batch 128, GT boxes,
-   OKS-NMS) on synthetic COCO from ``tools/make_synthetic_coco.py`` (648
-   frames, 2,592 crops), TTA off (a first pass and 2 warm ones, with the
+   OKS-NMS) on synthetic COCO from ``tools/make_synthetic_coco.py`` (168
+   frames, 672 crops), TTA off (a first pass and 2 warm ones, with the
    warm rates' spread) and on: records, batches, inferencer and evaluator
    times, crops/s, one decode launch per batch, the 10 COCO stats; the
    JAX-trained fixture checkpoint (tests/fixtures/) read by the port's
@@ -71,7 +71,7 @@ no result, when there is no CUDA device or when any phase fails:
 13. training configs/udp/resnet50_udp_tpu.yaml (ResNet-50 +
     simple_baseline_head at full width, O2, batch 128, adamw, host UDP
     targets), then configs/simple_baseline/resnet50_tpu.yaml, through the
-    train entry on phase 12's data for 3 epochs of 10 steps each,
+    train entry on phase 12's data for 4 epochs of 10 steps each,
     evaluating once after the last, overridden as phase 12: img/s with the
     loader, the step's median, peak memory; each holds finite losses, the
     last epoch's below the first's, AP above 0 and one decode launch per
@@ -94,7 +94,7 @@ no result, when there is no CUDA device or when any phase fails:
     server shut down and no thread of the phase left;
 16. the tag-grouping kernel (``csrc/grouping.cu``, the fixed-capacity
     matcher) against its plain version (``ops/grouping.py``, numpy on the
-    host), groups and valid bitwise equal, on 384 seeded candidate sets
+    host), groups and valid bitwise equal, on 96 seeded candidate sets
     (K=17, M=30; L = 1 and 2; the rounded norm and ``ignore_too_much`` on
     and off; sets that overflow the capacity; tie-heavy sets with tags on a
     grid) and 6 wider ones (the 128- and 256-column bounds); then the step
@@ -109,7 +109,7 @@ no result, when there is no CUDA device or when any phase fails:
     package's with the grouping kernel and with the host Hungarian; then
     higher_hrnet_w32_tpu.yaml at full width (random weights from a numpy
     seed, O2, batch 1 as the yaml's non-square max_image_size gives it) on
-    64 frames of ``tools/make_synthetic_coco.py``: images/s, one grouping
+    32 frames of ``tools/make_synthetic_coco.py``: images/s, one grouping
     launch per batch, and the split (loader alone, forward, decode,
     grouping, host post-processing, evaluator);
 18. the same net through the serving entry in bottom-up mode over HTTP on
@@ -160,7 +160,7 @@ no result, when there is no CUDA device or when any phase fails:
     launches); vitpose_h_tpu.yaml trains sharded in phase 27 (b);
 22. configs/simcc/resnet50_simcc_tpu.yaml as parsed (ResNet-50 +
     ``simcc_head`` at full width, 256x192, O2, batch 128, adamw, host
-    targets) through the train entry on phase 12's data, 3 epochs of 10
+    targets) through the train entry on phase 12's data, 2 epochs of 10
     steps, evaluating after the last with hflip TTA: img/s with the loader,
     the step median, the wait on the loader, peak memory, finite falling
     losses, AP, no decode launch (SimCC decodes with plain PyTorch); the
@@ -255,12 +255,38 @@ no result, when there is no CUDA device or when any phase fails:
     the same weights on the same batch: the first step's loss, gradients and
     running statistics within 1e-3 of each tensor's largest (cuDNN's
     deterministic algorithms), then each one's step time (CUDA events, 5
-    steps) and peak ``torch.cuda.max_memory_allocated``.
+    steps) and peak ``torch.cuda.max_memory_allocated``;
+30. int8 serving: hrnet_w32_tpu.yaml's net at full width (random weights
+    from a numpy seed, written as a port checkpoint) through the serving
+    entry with ``--quantize int8`` and without: the quantized bytes and
+    each predictor's ``torch.cuda.memory_allocated``; requests of 1, 5 and
+    40 boxes, one decode launch per 32-crop chunk, the keypoints equal to a
+    float32 predictor's on the dequantized weights (bit for bit, or else
+    every clear joint equal), one request over HTTP; the 5-box request on
+    the card against int8 on the CPU (phase 5's check); the requests' times,
+    int8 and float32 interleaved, a 40-box request's peak memory, and the
+    dequantize's device time;
+31. the serving export: the same net and the decoder traced with
+    ``torch.export`` on the card (batch symbolic, traced at 2), saved,
+    loaded from the bytes alone (``engine/export.py``), and called at
+    batches 1, 5 and 32: one decode launch per call, the outputs against the
+    direct forward and decode; the times of the trace, the save and the
+    load, the artifact's size, its time per call against the direct path,
+    the host's cost of the decode op's dispatch; then ``python3 -m
+    mindpose_tpu_torch.tools.export --selftest`` on
+    configs/simple_baseline/resnet50_tpu.yaml as parsed (O2, bf16 autocast)
+    with phase 13's checkpoint, in a process of its own (ResNet-50 traces in
+    a fraction of HRNet-W32's time);
+32. the demo CLIs: ``tools/demo.py`` top-down (phase 12's last checkpoint,
+    the whole frame as the box) and bottom-up (phase 17's checkpoint) on 4
+    frames of phase 12's val split, then ``tools/demo_video.py`` on an 8-frame
+    clip that cv2 writes from them: the files written, one decode launch
+    per frame top-down, one grouping launch per image bottom-up.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 29.
+started is still there after phase 32.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -313,7 +339,9 @@ from mindpose_tpu_torch.engine import (
     TopDownPredictor,
     build_http_server,
     create_inferencer,
+    load_serving_fn,
 )
+from mindpose_tpu_torch.engine.export import ServingModule, save_program, trace_eval_net
 from mindpose_tpu_torch.models import (
     Net,
     create_backbone,
@@ -326,6 +354,7 @@ from mindpose_tpu_torch.models import (
     create_network_with_loss,
 )
 from mindpose_tpu_torch.models.backbones.vit import ViT
+from mindpose_tpu_torch.models.quantize import QTensor, dequantize_variables, quantized_bytes
 from mindpose_tpu_torch.ops.cuda.build import load_library
 from mindpose_tpu_torch.ops.image import affine_warp
 from mindpose_tpu_torch.ops.cuda.conv_chain import (
@@ -344,6 +373,7 @@ from mindpose_tpu_torch.ops.cuda.decode import (
 )
 from mindpose_tpu_torch.ops import grouping as plain_grouping
 from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
+from mindpose_tpu_torch.ops.cuda import decode as cuda_decode
 from mindpose_tpu_torch.ops.cuda import grouping as cuda_grouping
 from mindpose_tpu_torch.optim import create_optimizer
 from mindpose_tpu_torch.register import entrypoint
@@ -357,6 +387,8 @@ from mindpose_tpu_torch.parallel import (
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
 from mindpose_tpu_torch.tools import ablate_conv_chain as probe
 from mindpose_tpu_torch.tools import convert_ckpt
+from mindpose_tpu_torch.tools import demo as demo_tool
+from mindpose_tpu_torch.tools import demo_video as demo_video_tool
 from mindpose_tpu_torch.tools import serve as serve_entry
 from mindpose_tpu_torch.tools import eval as eval_entry
 from mindpose_tpu_torch.tools import train as train_entry
@@ -501,9 +533,9 @@ TRAIN_GRAD_FACTOR = 2.0
 # tensor of the GPU's backward down to 1e-8 of its scale shows.
 TRAIN_F64_RTOL = 1e-8
 # Phase 8: synthetic COCO val frames (tools/make_synthetic_coco.py) with 4
-# persons each, 2,592 crops: 20 full batches of 128 and a ragged one of 32,
+# persons each, 672 crops: 5 full batches of 128 and a ragged one of 32,
 # so that a pass lasts seconds and its rate can be compared across passes
-EVAL_IMAGES = 648
+EVAL_IMAGES = 168
 EVAL_PEOPLE = 4
 EVAL_WARM_REPEATS = 2  # warm passes of the recipe, TTA off: the rate's spread
 EVAL_CPU_CROPS = 32  # crops of the first eval batch run on the GPU and on the CPU
@@ -532,13 +564,14 @@ O2_SCORE_RTOL, O2_AGREE = 0.02, 0.8
 # of all joints within EVAL_XY_ATOL px (0.9995-1.0 of them there)
 DARK_AGREE = 0.95
 # Phase 12: synthetic COCO train frames (2 persons each: 1,280 records, 10
-# steps of 128 per epoch) and val frames (128 crops, one eval batch); 6
-# epochs of the recipe, warmup cut from 500 steps to 20 (the yaml's would
-# leave the rate near 0 for the whole run), evaluation every 3 epochs
+# steps of 128 per epoch) and val frames (128 crops, one eval batch); 3
+# epochs of the recipe, warmup cut from 500 steps to 10 (the yaml's would
+# leave the rate near 0 for the whole run), evaluation every 2 epochs and
+# after the last
 ENTRY_TRAIN_IMAGES = 640
 ENTRY_VAL_IMAGES = 64
 ENTRY_PEOPLE = 2
-ENTRY_EPOCHS = 4
+ENTRY_EPOCHS = 3
 ENTRY_WARMUP = 10
 ENTRY_VAL_INTERVAL = 2
 ENTRY_RESUME_WARMUP = 5  # the one-epoch resume's schedule has 10 steps in all
@@ -547,16 +580,17 @@ ENTRY_STATS_ATOL = 1e-4  # the last checkpoint through the eval entry against th
 RECIPE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "hrnet",
                            "hrnet_w32_tpu.yaml")
 # Phases 13-15: the SimpleBaseline recipes. Phase 13 trains the UDP recipe and
-# the plain one on phase 12's data for 3 epochs of 10 steps each, evaluating
-# once, after the last
+# the plain one on phase 12's data for 4 epochs of 10 steps each, evaluating
+# once, after the last (at 30 steps the plain recipe's AP read 0 in one of two
+# runs: ResNet-50 from scratch sits at AP ~1e-4 there)
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 UDP_YAML = os.path.join(CONFIGS, "udp", "resnet50_udp_tpu.yaml")
 SB_YAML = os.path.join(CONFIGS, "simple_baseline", "resnet50_tpu.yaml")
 SB_DEEPER = {arch: os.path.join(CONFIGS, "simple_baseline", f"{arch}_tpu.yaml")
              for arch in ("resnet101", "resnet152")}
-SB_EPOCHS = 3
+SB_EPOCHS = 4
 HIGHER_YAML = os.path.join(CONFIGS, "higher_hrnet", "higher_hrnet_w32_tpu.yaml")
-GROUPING_SETS = 8  # images of each kind of SETS + TIE_SETS, per tag width and flags (384)
+GROUPING_SETS = 2  # images of each kind of SETS + TIE_SETS, per tag width and flags (96)
 GROUPING_ITERS = 20  # queued launches per timing of the grouping kernel
 GROUPING_FLOOR_STEPS = 200_000  # links of the step-floor probe's chain (~10 ms)
 # (M, group_cap, candidate_sets kwargs): sets that take the grouping
@@ -564,7 +598,7 @@ GROUPING_FLOOR_STEPS = 200_000  # links of the step-floor probe's chain (~10 ms)
 GROUPING_WIDE = ((48, 0, dict(persons=5, visible=0.3)),
                  (100, 40, dict(persons=12, visible=0.5)),
                  (127, 0, dict(persons=20, visible=0.5)))
-BU_EVAL_IMAGES = 64
+BU_EVAL_IMAGES = 32
 BU_EVAL_PEOPLE = 3
 BU_SPLIT_BATCHES = 8  # eval batches whose forward, decode and grouping are timed apart
 BU_STATS_ATOL = 1e-3  # the bottom-up fixture's stats against the JAX package's, O0
@@ -632,7 +666,7 @@ VIT_SMALL_WARMUP = 2
 SIMCC_YAML = os.path.join(CONFIGS, "simcc", "resnet50_simcc_tpu.yaml")
 RLE_YAML = os.path.join(CONFIGS, "rle", "resnet50_rle_tpu.yaml")
 MPII_YAML = os.path.join(CONFIGS, "mpii", "hrnet_w32_mpii_tpu.yaml")
-FAMILY_EPOCHS = 3
+FAMILY_EPOCHS = 2
 FAMILY_DEVICE_EPOCHS = 2
 # the SimCC device labels against the host transform's on the same warped
 # keypoints: float32 exp on the card against numpy's and each row's sum in
@@ -4652,6 +4686,357 @@ def remat_step(device: torch.device) -> dict:
             "remat_peak": b["peak"]}
 
 
+def resident_bytes(build) -> tuple:
+    """(what ``build()`` returns, the device memory it holds once built:
+    ``torch.cuda.memory_allocated`` after against before). Garbage of
+    earlier phases (reference cycles) is collected first, or its release
+    during the build would count against it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    built = build()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return built, torch.cuda.memory_allocated() - before
+
+
+def request_peak_bytes(predictor: TopDownPredictor, image, boxes) -> int:
+    """The device memory one request allocates at its peak, above what was held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    predictor(image, boxes)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
+def int8_heatmaps(predictor: TopDownPredictor, x: torch.Tensor) -> torch.Tensor:
+    """The heatmaps that an int8 predictor's forward computes for crops ``x``:
+    its net under its dequantized weights."""
+    weights = dequantize_variables(predictor._forward.quantized)
+    with torch.inference_mode():
+        return torch.func.functional_call(predictor.net, weights, (x,))
+
+
+def compare_int8_with_dequantized(qp: TopDownPredictor, deq: TopDownPredictor, image,
+                                  boxes, got: np.ndarray, want: np.ndarray) -> float:
+    """The int8 predictor's keypoints against a float32 predictor's on the
+    dequantized weights: bitwise, or else every joint whose heatmap peak leads
+    its runner-up by more than twice the heatmaps' largest gap equal, the
+    scores within that gap. Returns the keypoints' largest |diff|."""
+    gap = float(np.abs(got - want).max())
+    if bitwise_equal(torch.from_numpy(got), torch.from_numpy(want)):
+        return gap
+    with torch.inference_mode():
+        x, _, _ = deq.preprocess(image, boxes)
+        heat_deq = deq.net(x)
+    heat_err = float((int8_heatmaps(qp, x) - heat_deq).abs().max())
+    top2 = torch.topk(heat_deq.flatten(2), 2, dim=2).values.cpu()
+    clear = ((top2[..., 0] - top2[..., 1]) > 2 * heat_err).numpy()
+    xy_err = np.abs(got[..., :2] - want[..., :2]).max(-1)
+    score_err = float(np.abs(got[..., 2] - want[..., 2]).max())
+    print(f"int8 against dequantized float32, {len(boxes)} boxes: not bitwise; keypoints max "
+          f"|diff| {gap:.3e}; heatmaps max |diff| {heat_err:.3e}; {int(clear.sum())} of "
+          f"{clear.size} joints lead by more than twice that, max |diff| among them "
+          f"{float(xy_err[clear].max()) if clear.any() else 0.0:.3e} px; scores {score_err:.3e}")
+    if not (clear.any() and (xy_err[clear] == 0).all() and score_err <= heat_err):
+        raise AssertionError("int8 serving disagrees with the dequantized weights beyond the "
+                             "heatmaps' own difference")
+    return gap
+
+
+def int8_serving(root: str, device: torch.device) -> dict:
+    """Phase 30: hrnet_w32_tpu.yaml's net at full width (random weights from a
+    numpy seed, saved as a port checkpoint) through the serving entry with and
+    without ``--quantize int8``."""
+    net = training_net(device)
+    ckpt = os.path.join(root, "hrnet_w32_random.ckpt")
+    save_checkpoint(ckpt, net)
+    del net
+    torch.cuda.empty_cache()
+    argv = ["--config", RECIPE_YAML, "--ckpt", ckpt, "--batch-size", str(BATCH_SIZE)]
+    float_service, float_bytes = resident_bytes(lambda: serve_entry.build_service(
+        serve_entry.parse_serve_args(argv), batch_size=BATCH_SIZE, device=device))
+    int8_args = serve_entry.parse_serve_args(argv + ["--quantize", "int8"])
+    int8_service, int8_bytes = resident_bytes(lambda: serve_entry.build_service(
+        int8_args, batch_size=BATCH_SIZE, device=device))
+    fp, qp = float_service.predictor, int8_service.predictor
+    qb, fb = quantized_bytes(qp.qstate)
+    n_quantized = sum(isinstance(v, QTensor) for v in qp.qstate.values())
+    print(f"int8 weights: {n_quantized} tensors quantized, {qb:,} B of int8 and scales against "
+          f"{fb:,} B of float32 ({qb / fb:.4f}); resident on the card "
+          f"(torch.cuda.memory_allocated): int8 predictor {int8_bytes:,} B, float32 "
+          f"{float_bytes:,} B ({int8_bytes / float_bytes:.4f})")
+    if not (qb * 3 < fb and qb <= int8_bytes < float_bytes - (fb - qb) // 2):
+        raise AssertionError("the int8 predictor does not hold its weights as int8")
+
+    deq_net = copy.deepcopy(fp.net)
+    deq_net.load_state_dict(dequantize_variables(qp.qstate), strict=True)
+    setting = {k: HRNET_W32[k] for k in ("dataset_setting", "decoder_setting", "normalize_mean",
+                                         "normalize_std", "decoder_name")}
+    deq = TopDownPredictor(deq_net, batch_size=BATCH_SIZE, device=device, **setting)
+    image, requests, payloads, chunks = request_payloads(SEED + 30)
+    for predictor in (fp, qp, deq):
+        predictor(image, requests[0])  # warm-up
+    torch.cuda.synchronize()
+    argmax_shift_decode.launches = 0
+    answers = [qp(image, boxes) for boxes in requests]
+    launches = argmax_shift_decode.launches
+    print(f"int8 serving: decode kernel launches {launches} for requests of "
+          f"{[len(b) for b in requests]} boxes ({chunks} chunks)")
+    if launches != chunks:
+        raise AssertionError(f"{chunks} chunks made {launches} decode launches")
+    gaps = []
+    for boxes, got in zip(requests, answers):
+        check_preds(got, boxes)
+        gaps.append(compare_int8_with_dequantized(qp, deq, image, boxes, got, deq(image, boxes)))
+    print(f"int8 against float32 on the dequantized weights, 1/5/40 boxes: keypoints max "
+          f"|diff| {gaps} (0.0 is bit for bit)")
+    # and one request over HTTP through the entry's service
+    http = HttpService(int8_service)
+    try:
+        over_http = serve_request(http.url, payloads[1], requests[1])
+    finally:
+        http.close()
+    if not bitwise_equal(torch.from_numpy(over_http), torch.from_numpy(answers[1])):
+        raise AssertionError("the int8 service over HTTP answers otherwise than its predictor")
+
+    cpu_qp = TopDownPredictor(copy.deepcopy(deq_net).cpu(), batch_size=BATCH_SIZE,
+                              quantize="int8", device=torch.device("cpu"), **setting)
+    cpu_deq = TopDownPredictor(copy.deepcopy(deq_net).cpu(), batch_size=BATCH_SIZE,
+                               device=torch.device("cpu"), **setting)
+    print("int8 on the card against int8 on the CPU (heatmaps through the dequantized weights, "
+          "which the int8 forward computes with):")
+    compare_with_cpu(deq, cpu_deq, image, requests[1],
+                     answers=(answers[1], cpu_qp(image, requests[1])))
+
+    ms = {}
+    for boxes in requests:
+        runs = {"float32": [], "int8": []}
+        for r in range(REPEATS):
+            order = (("float32", fp), ("int8", qp)) if r % 2 == 0 else (("int8", qp),
+                                                                         ("float32", fp))
+            for name, predictor in order:
+                start = time.perf_counter()
+                predictor(image, boxes)
+                runs[name].append((time.perf_counter() - start) * 1e3)
+        ms[len(boxes)] = {name: statistics.median(v) for name, v in runs.items()}
+        print(f"request {len(boxes)} boxes over {REPEATS} runs each, interleaved: int8 median "
+              f"{ms[len(boxes)]['int8']:.3f} ms (min {min(runs['int8']):.3f}, max "
+              f"{max(runs['int8']):.3f}); float32 median {ms[len(boxes)]['float32']:.3f} ms "
+              f"(min {min(runs['float32']):.3f}, max {max(runs['float32']):.3f})")
+    peaks = {name: request_peak_bytes(p, image, requests[2]) for name, p in (("float32", fp),
+                                                                               ("int8", qp))}
+    print(f"a 40-box request's peak device memory above what the predictor holds: int8 "
+          f"{peaks['int8']:,} B, float32 {peaks['float32']:,} B")
+    # the dequantize alone, as every forward runs it: one multiply per weight
+    dequant_ms = time_ms(lambda: dequantize_variables(qp._forward.quantized), queued=True,
+                         iters=10, repeats=5)
+    print(f"the dequantize of every int8 weight ({n_quantized} tensors, device time per "
+          f"forward): {dequant_ms:.4f} ms; its bound {(qb + fb) / HBM_BYTES_PER_MS:.4f} ms "
+          f"(bytes: int8 and scales read, float32 written)")
+    float_service.close()
+    int8_service.close()
+    return {"launches": launches, "ckpt": ckpt, "quantized_bytes": qb, "float_bytes": fb,
+            "resident_bytes": {"int8": int8_bytes, "float32": float_bytes}, "ms": ms,
+            "peak_bytes": peaks, "dequant_ms": dequant_ms}
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """The host's time per call of ``fn``, the calls issued back to back
+    behind a busy-wait on the card (so that the host never waits on it)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def export_serving(root: str, ckpt: str, tool_recipe: str, tool_ckpt: str,
+                   device: torch.device) -> dict:
+    """Phase 31: hrnet_w32_tpu.yaml's net at full width (phase 30's random
+    weights) exported on the card with a symbolic batch, loaded from the
+    bytes alone, and called at batches it was not traced at; beside it, the
+    export tool with ``--selftest`` in a process of its own on
+    ``tool_recipe`` with ``tool_ckpt``. Both are mostly host work, so they
+    overlap; the tool is waited for before anything here is timed."""
+    out = os.path.join(root, os.path.splitext(os.path.basename(tool_recipe))[0] + ".pt2")
+    tool_start = time.perf_counter()
+    tool = subprocess.Popen(
+        [sys.executable, "-m", "mindpose_tpu_torch.tools.export", "--config", tool_recipe,
+         "--ckpt", tool_ckpt, "--out", out, "--selftest"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        with torch.device("meta"):
+            net = create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
+                                 num_joints=HRNET_W32["num_joints"])
+        state = load_checkpoint(ckpt)["net"]
+        net = net.to_empty(device="cpu")
+        net.load_state_dict(state, strict=True)
+        net = net.to(device).eval()
+        decoder = create_decoder(HRNET_W32["decoder_name"], **HRNET_W32["decoder_setting"])
+        eval_net = create_eval_network(net, decoder, output_raw=True)
+        image_hw = tuple(HRNET_W32["dataset_setting"]["image_size"][::-1])
+        start = time.perf_counter()
+        program = trace_eval_net(eval_net, image_hw)
+        trace_s = time.perf_counter() - start
+        start = time.perf_counter()
+        blob = save_program(program)
+        save_s = time.perf_counter() - start
+        start = time.perf_counter()
+        serve = load_serving_fn(blob)
+        load_s = time.perf_counter() - start
+        tool_log, _ = tool.communicate(timeout=900)
+    finally:
+        if tool.poll() is None:
+            tool.kill()
+            tool.communicate()
+    tool_s = time.perf_counter() - tool_start
+    ops = [str(n.target) for n in program.graph.nodes if "mindpose" in str(n.target)]
+    print(f"export of HRNet-W32 + decode, batch symbolic (traced at 2): torch.export "
+          f"{trace_s:.2f} s, save {save_s:.2f} s, load {load_s:.2f} s (beside the tool's "
+          f"process); artifact {len(blob):,} B; decode nodes {ops}")
+    if ops != ["mindpose.decode_heatmap.default"]:
+        raise AssertionError(f"the program's decode nodes are {ops}")
+    lines = [ln for ln in tool_log.splitlines() if "wrote" in ln or "selftest" in ln
+             or "exporting" in ln]
+    print(f"tools/export.py --selftest on {os.path.basename(tool_recipe)} (its amp_level, bf16 "
+          f"autocast at O1-O3) in a process of its own, {tool_s:.1f} s from its start to its "
+          f"end: exit {tool.returncode}")
+    print("\n".join(lines))
+    if tool.returncode or not any("selftest ok" in ln for ln in lines):
+        print(tool_log[-6000:])
+        raise AssertionError("tools/export.py --selftest failed")
+
+    direct = ServingModule(net, decoder, output_raw=True)
+    rng = np.random.RandomState(SEED + 31)
+    launches = 0
+    for n in (1, 5, BATCH_SIZE):
+        inputs = [torch.from_numpy(a).to(device) for a in (
+            rng.standard_normal((n, 3) + image_hw).astype(np.float32),
+            rng.uniform(100, 500, (n, 2)).astype(np.float32),
+            rng.uniform(0.5, 2.0, (n, 2)).astype(np.float32),
+            rng.uniform(0.5, 1.0, n).astype(np.float32))]
+        serve(*inputs)  # warm-up
+        torch.cuda.synchronize()
+        argmax_shift_decode.launches = 0
+        (preds, boxes), heat = serve(*inputs)
+        torch.cuda.synchronize()
+        call_launches = argmax_shift_decode.launches
+        launches += call_launches
+        with torch.inference_mode():
+            (want, want_boxes), want_heat = direct(*inputs)
+        heat_err = float((heat - want_heat).abs().max())
+        tol = HEATMAP_RTOL * float(want_heat.abs().max())
+        top2 = torch.topk(want_heat.flatten(2), 2, dim=2).values
+        clear = ((top2[..., 0] - top2[..., 1]) > 2 * tol).cpu().numpy()
+        xy_err = (preds[..., :2] - want[..., :2]).abs().amax(-1).cpu().numpy()
+        score_err = float((preds[..., 2] - want[..., 2]).abs().max())
+        same = bitwise_equal(preds, want) and bitwise_equal(boxes, want_boxes)
+        print(f"artifact at batch {n}: {call_launches} decode launch; against the direct forward "
+              f"and decode: heatmaps max |diff| {heat_err:.3e} (tolerance {tol:.3e}), keypoints "
+              f"{'bit for bit' if same else f'max |diff| {float(xy_err.max()):.3e} px'}, "
+              f"{int(clear.sum())} of {clear.size} joints clear of the tolerance")
+        if call_launches != 1:
+            raise AssertionError(f"a call of the artifact made {call_launches} decode launches")
+        if not same and not (heat_err <= tol and (xy_err[clear] == 0).all() and score_err <= tol
+                             and torch.allclose(boxes, want_boxes, rtol=1e-6, atol=0)):
+            raise AssertionError("the artifact disagrees with the direct forward")
+    runs = {"artifact": [], "direct": []}
+    for r in range(REPEATS):
+        for name in (("artifact", "direct") if r % 2 == 0 else ("direct", "artifact")):
+            start = time.perf_counter()
+            with torch.inference_mode():
+                result = serve(*inputs) if name == "artifact" else direct(*inputs)
+            result[0][0].cpu()
+            runs[name].append((time.perf_counter() - start) * 1e3)
+    ms = {name: statistics.median(v) for name, v in runs.items()}
+    print(f"batch {BATCH_SIZE} over {REPEATS} calls each, interleaved, to the keypoints on the "
+          f"host: artifact median {ms['artifact']:.3f} ms, direct {ms['direct']:.3f} ms")
+
+    # the op layer's cost on the host: the decoder's op against the kernel's
+    # launch through ctypes alone, at the served chunk
+    x = want_heat.contiguous()
+    crops = [t.contiguous() for t in inputs[1:]]
+    op_us = host_us_per_call(lambda: decode_heatmap(x, *crops, shift=False, to_original=True,
+                                                    use_udp=False, pixel_std=200.0))
+    raw_us = host_us_per_call(lambda: cuda_decode._decode_heatmap_cuda(
+        x, *crops, False, True, False, 200.0))
+    print(f"decode_heatmap's host time per call: {op_us:.2f} us through the torch.library op, "
+          f"{raw_us:.2f} us calling its CUDA implementation directly (the dispatcher's share "
+          f"{op_us - raw_us:.2f} us)")
+    return {"launches": launches, "trace_s": trace_s, "save_s": save_s, "load_s": load_s,
+            "bytes": len(blob), "ms": ms, "op_us": op_us, "raw_us": raw_us, "tool_s": tool_s}
+
+
+DEMO_IMAGES = 4  # phase 32: frames of phase 12's val split, and a clip of 2 x 4 frames
+
+
+def demos(root: str, data: dict, topdown_ckpt: str, bottomup_ckpt: str,
+          device: torch.device) -> dict:
+    """Phase 32: tools/demo.py top-down (hrnet_w32_tpu.yaml, whole image as the
+    box) and bottom-up (higher_hrnet_w32_tpu.yaml) on frames of phase 12's
+    val split, and tools/demo_video.py on a clip that cv2 writes from them,
+    with checkpoints that earlier phases wrote."""
+    image_dir = os.path.join(root, "demo_in")
+    os.makedirs(image_dir, exist_ok=True)
+    names = sorted(os.listdir(data["val"][0]))[:DEMO_IMAGES]
+    frames = []
+    for name in names:
+        frame = cv2.imread(os.path.join(data["val"][0], name))
+        cv2.imwrite(os.path.join(image_dir, os.path.splitext(name)[0] + ".png"), frame)
+        frames.append(frame)
+    out = {}
+    for label, recipe, ckpt in (("top-down", RECIPE_YAML, topdown_ckpt),
+                                ("bottom-up", HIGHER_YAML, bottomup_ckpt)):
+        out_dir = os.path.join(root, f"demo_out_{label}")
+        argmax_shift_decode.launches = 0
+        cuda_grouping.match_by_tag_batch.launches = 0
+        start = time.perf_counter()
+        demo_tool.main(["--config", recipe, "--ckpt", ckpt, "--image-dir", image_dir,
+                        "--output-dir", out_dir])
+        seconds = time.perf_counter() - start
+        written = sorted(os.listdir(out_dir))
+        out[label] = {"launches": argmax_shift_decode.launches, "seconds": seconds,
+                      "grouping_launches": cuda_grouping.match_by_tag_batch.launches}
+        print(f"tools/demo.py {label}: {len(written)} images written in {seconds:.2f} s; decode "
+              f"kernel launches {out[label]['launches']}, grouping kernel launches "
+              f"{out[label]['grouping_launches']}")
+        want = (DEMO_IMAGES, 0) if label == "top-down" else (0, DEMO_IMAGES)
+        if len(written) != DEMO_IMAGES or (out[label]["launches"],
+                                           out[label]["grouping_launches"]) != want:
+            raise AssertionError(f"tools/demo.py {label} wrote {written} with launches "
+                                 f"{out[label]}")
+    h, w = frames[0].shape[:2]
+    clip, video_out = os.path.join(root, "demo_clip.mp4"), os.path.join(root, "demo_video.mp4")
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (w, h))
+    for frame in frames + frames[::-1]:
+        writer.write(cv2.resize(frame, (w, h)))
+    writer.release()
+    argmax_shift_decode.launches = 0
+    start = time.perf_counter()
+    demo_video_tool.main(["--config", RECIPE_YAML, "--ckpt", topdown_ckpt, "--video", clip,
+                          "--output", video_out])
+    seconds = time.perf_counter() - start
+    cap = cv2.VideoCapture(video_out)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    out["video"] = {"launches": argmax_shift_decode.launches, "seconds": seconds, "frames": n}
+    print(f"tools/demo_video.py top-down, One-Euro smoothing on: {n} frames written in "
+          f"{seconds:.2f} s; decode kernel launches {out['video']['launches']}")
+    if n != 2 * DEMO_IMAGES or out["video"]["launches"] != n:
+        raise AssertionError(f"tools/demo_video.py: {out['video']}")
+    return {"launches": out["top-down"]["launches"] + out["video"]["launches"],
+            "grouping_launches": out["bottom-up"]["grouping_launches"], "runs": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -4770,6 +5155,16 @@ def main() -> int:
         remat_step(device)
         torch.cuda.empty_cache()
         lap("29")
+        int8 = int8_serving(root, device)
+        torch.cuda.empty_cache()
+        lap("30")
+        exported = export_serving(root, int8["ckpt"], SB_YAML, plain["ckpt"], device)
+        torch.cuda.empty_cache()
+        lap("31")
+        demoed = demos(root, entry["data"], os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
+                       bu_eval["ckpt"], device)
+        torch.cuda.empty_cache()
+        lap("32")
     check_no_processes_left()
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
                                       ("launches", "eval_launches", "serve_launches")},
@@ -4797,14 +5192,17 @@ def main() -> int:
         "replaces": "mindpose_tpu/ops/pallas/decode.py:27",
         # serving's launches, evaluation's (phases 8 and 14), the training
         # entry's callbacks' (phases 12 and 13: one per eval batch), the DARK
-        # evaluation's (phase 14), the serving entry's (phase 15) and
-        # ViTPose's (phases 20 and 21: callbacks, the eval entry, serving)
+        # evaluation's (phase 14), the serving entry's (phase 15),
+        # ViTPose's (phases 20 and 21: callbacks, the eval entry, serving),
+        # the later phases' below, and int8 serving's, the artifact's and the
+        # demos' (phases 30-32)
         "launches": (served["launches"] + evaluated["launches"] + entry["launches"]
                      + trained["launches"] + plain["launches"] + plain_eval["launches"]
                      + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]
                      + sum(sum(r.values()) for r in vit_launches.values())
                      + sum(mpii_launches.values()) + input_modes["launches"]
-                     + ddp["launches"] + distilled["launches"]),
+                     + ddp["launches"] + distilled["launches"] + int8["launches"]
+                     + exported["launches"] + demoed["launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
@@ -4818,6 +5216,12 @@ def main() -> int:
         "fsdp_entry_launches": fsdp["launches"],
         # phase 28: the distillation run's callback (1 per eval batch)
         "distill_launches": distilled["launches"],
+        # phase 30: int8 serving (1 per 32-crop chunk); phase 31: the loaded
+        # artifact (1 per call, batches 1, 5 and 32); phase 32: the top-down
+        # demo (1 per image) and the video demo (1 per frame)
+        "int8_launches": int8["launches"],
+        "export_launches": exported["launches"],
+        "demo_launches": demoed["launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],
@@ -4875,11 +5279,14 @@ def main() -> int:
         "replaces": "mindpose_tpu/ops/grouping.py:109",
         # bottom-up evaluation (phase 17: one per batch, the fixture's and the
         # recipe's), serving (phase 18: one per request) and the train entry's
-        # callbacks (phase 19: one per eval batch)
-        "launches": bu_eval["launches"] + bu_served["launches"] + bu_trained["launches"],
+        # callbacks (phase 19: one per eval batch), and the bottom-up demo
+        # (phase 32: one per image)
+        "launches": (bu_eval["launches"] + bu_served["launches"] + bu_trained["launches"]
+                     + demoed["grouping_launches"]),
         "eval_launches": bu_eval["launches"],
         "serve_launches": bu_served["launches"],
         "train_eval_launches": bu_trained["launches"],
+        "demo_launches": demoed["grouping_launches"],
         "sets_checked": grouped["sets"],
         "max_abs_err": grouped["max_abs_err"],
         # per batch of 32 images at the recipe's settings (L=1, rounded norm),

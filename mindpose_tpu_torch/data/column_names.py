@@ -1,7 +1,7 @@
 """Column names of the batches the loader yields.
 
-Copy of the top-down and bottom-up entries of
-``mindpose_tpu/data/column_names.py`` (:18, :21-36): the names are the
+Copy of the top-down, bottom-up and image-folder entries of
+``mindpose_tpu/data/column_names.py`` (:18, :21-38): the names are the
 contract between the loader and its consumers. Train: the train step's
 positional inputs, in order (image, heatmap target, target weight; for
 bottom-up, with the mask and the tag indices). Val: what the inferencer
@@ -15,6 +15,9 @@ FINAL_COLUMN_MAP = {
     },
     "bottomup": {
         "train": "image target mask tag_ind".split(),
+        "val": "image mask center scale image_file image_shape".split(),
+    },
+    "imagefolder_bottomup": {
         "val": "image mask center scale image_file image_shape".split(),
     },
 }

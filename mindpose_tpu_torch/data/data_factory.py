@@ -2,14 +2,15 @@
 
 Counterpart of ``mindpose_tpu/data/data_factory.py:21-138``, with the same
 arguments: the top-down and bottom-up train and val pipelines (train:
-shuffled per epoch from ``seed``, the last partial batch dropped), with the
+shuffled per epoch from ``seed``, the last partial batch dropped) and the
+image folder's (``imagefolder_bottomup``, val only), with the
 JAX package's batch rule for bottom-up evaluation (:93-118), and the
 loader options of ``device_pipeline: full`` (``image_bucket``,
 ``decode_cache_mb``, ``frame_grouped_shuffle``, ``patch_grouped_batching``)
 and the rank's shard (``device_num``, ``rank_id``) passed through.
 ``hwc_to_chw`` is accepted and not read, as the JAX package's
-``create_pipeline`` does not read it (batches stay NHWC). An argument the
-port does not support (other methods) raises rather than being ignored.
+``create_pipeline`` does not read it (batches stay NHWC). An unknown method
+raises.
 """
 import logging
 from typing import Any, Dict, List, Optional, Union
@@ -21,10 +22,6 @@ from .loader import DataLoader
 from .transform import topdown_transform as _transforms  # noqa: F401  (registers the transforms)
 
 __all__ = ["create_dataset", "create_pipeline"]
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 def create_dataset(
@@ -86,7 +83,7 @@ def create_pipeline(
     pipeline ships keypoints in place of targets).
     """
     if method not in FINAL_COLUMN_MAP:
-        _refuse(f"method={method!r}", "Queue 1")
+        raise ValueError(f"unknown pipeline method {method!r}; known: {sorted(FINAL_COLUMN_MAP)}")
     bundle = dataset if isinstance(dataset, dict) else {"dataset": dataset, "num_workers": 1}
     if method == "bottomup" and not is_train and batch_size != 1:
         batch_size = _bottomup_val_batch(transforms, config, batch_size)

@@ -8,6 +8,9 @@ each box's center/scale and warp matrix in numpy; the device does the rest:
 the crop (a bilinear warp by gather, ``ops/image.affine_warp``, in place of
 the JAX predictor's cv2.warpAffine), normalization, the forward pass and the
 decode, whose argmax+shift is the hand-written kernel on a CUDA device.
+With ``quantize="int8"`` the device keeps the conv and dense weights as int8
+with float32 scales and dequantizes them inside every forward
+(``models/quantize.py``).
 
 ``BottomUpPredictor``: ``predictor(image) -> (preds [P, K, 3 + L], scores
 [P])``, every person in the image, no boxes given: the host rescales and
@@ -27,6 +30,7 @@ from ..models.model_factory import (
     create_eval_network,
     create_network_from_config,
 )
+from ..models.quantize import quantize_variables, quantized_eval_apply
 from ..ops.image import affine_warp, normalize_image
 
 __all__ = ["TopDownPredictor", "BottomUpPredictor"]
@@ -57,7 +61,9 @@ class TopDownPredictor:
 
     Args:
         net: the port's ``Net``, with its weights loaded; it is moved to
-            ``device`` and put in eval mode.
+            ``device`` and put in eval mode. With ``quantize="int8"`` its
+            quantized weights are replaced by tensors on the meta device:
+            the predictor serves its int8 copies of them (``qstate``).
         dataset_setting: the config's dataset_setting dict (image_size,
             heatmap_size, pixel_std, scale_padding, ...).
         decoder_setting: decoder kwargs (use_udp, shift_coordinate, ...).
@@ -65,8 +71,12 @@ class TopDownPredictor:
             many. A partial chunk is not padded: the JAX predictor pads it so
             that XLA never recompiles, and eval-mode rows are independent, so
             padding would change nothing here but the work done.
-        quantize: only "" (float32); "int8" is refused (not ported yet),
-            any other value is an error, as in the JAX predictor.
+        quantize: "" (float32 weights) or "int8": the net's conv and dense
+            weights are quantized on the host (``models/quantize.py``, the
+            JAX package's rule), only the int8 tensors and their scales
+            are kept on ``device``, and every forward dequantizes them, as
+            the JAX predictor's jit does. Any other value is an error, as
+            in the JAX predictor.
         device: where crop, forward and decode run. Default: the current
             CUDA device; without CUDA the default raises, and a caller who
             wants the CPU passes ``device="cpu"``.
@@ -89,10 +99,7 @@ class TopDownPredictor:
         quantize: str = "",
         device: Optional[torch.device] = None,
     ) -> None:
-        if quantize == "int8":
-            raise NotImplementedError(
-                "int8 weights are not ported (ROADMAP.md, Queue 1, the rest: int8)")
-        if quantize:
+        if quantize not in ("", "int8"):
             raise ValueError(f"unknown quantize mode: {quantize!r}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -106,7 +113,14 @@ class TopDownPredictor:
         decoder_setting = dict(decoder_setting or {})
         self.use_udp = bool(decoder_setting.get("use_udp", False))
         decoder = create_decoder(decoder_name, **decoder_setting)
+        self.qstate = None
+        if quantize == "int8":
+            self.qstate = quantize_variables(
+                {k: v.detach().cpu() for k, v in net.state_dict().items()}, net)
         self._eval_net = create_eval_network(net.to(self.device), decoder, output_raw=False)
+        self._forward = self._eval_net
+        if self.qstate is not None:
+            self._forward = quantized_eval_apply(self._eval_net, self.qstate)
 
     @classmethod
     def from_config(cls, args: Any, net_state: Mapping[str, torch.Tensor],
@@ -133,7 +147,9 @@ class TopDownPredictor:
 
     @property
     def net(self) -> torch.nn.Module:
-        """The served net (eval mode, on ``self.device``)."""
+        """The served net (eval mode, on ``self.device``; with int8 weights
+        its quantized parameters lie on the meta device, and ``qstate``
+        holds them)."""
         return self._eval_net.net
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -190,7 +206,7 @@ class TopDownPredictor:
         preds = []
         for i in range(0, m, self.batch_size):
             chunk = slice(i, min(i + self.batch_size, m))
-            preds.append(self._eval_net(x[chunk], centers[chunk], scales[chunk], scores[chunk])[0])
+            preds.append(self._forward(x[chunk], centers[chunk], scales[chunk], scores[chunk])[0])
         return torch.cat(preds).cpu().numpy()
 
 

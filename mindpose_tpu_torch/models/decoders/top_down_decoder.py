@@ -22,9 +22,19 @@ from .decoder import Decoder
 
 
 @functools.cache
-def _blur_kernel(kernel_size: int, device: torch.device) -> torch.Tensor:
-    """The refinement's Gaussian on ``device``, uploaded once per size and device."""
+def _uploaded_blur_kernel(kernel_size: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(gaussian_kernel_2d(kernel_size)).to(device)
+
+
+def _blur_kernel(kernel_size: int, device: torch.device) -> torch.Tensor:
+    """The refinement's Gaussian on ``device``, uploaded once per size and device.
+
+    Under ``torch.export`` it is made anew, and becomes a constant of the
+    exported program: a tensor made while tracing must not outlive the trace.
+    """
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(gaussian_kernel_2d(kernel_size)).to(device)
+    return _uploaded_blur_kernel(kernel_size, device)
 
 
 @register("decoder", extra_name="topdown_heatmap")

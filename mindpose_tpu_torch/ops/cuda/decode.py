@@ -1,4 +1,4 @@
-"""Heatmap decode: the Hopper kernel and its plain versions.
+"""Heatmap decode: the Hopper kernel and its plain versions, as two PyTorch ops.
 
 Replaces the TPU kernel ``mindpose_tpu/ops/pallas/decode.py:argmax_shift_decode``
 (body ``_decode_kernel``). The kernel is ``csrc/decode.cu``, built by nvcc at
@@ -10,10 +10,17 @@ Two wrappers launch it:
 - ``decode_heatmap``: the whole top-down decoder, those coordinates mapped
   back to the original frame, with the boxes row: one launch per chunk.
 
-Each dispatches on the heatmap's device: a CPU tensor goes to its plain
-PyTorch version; a CUDA tensor launches the kernel, or raises. There is no
-fallback from the kernel to the plain version. ``argmax_shift_decode.launches``
-counts the kernel's launches through either wrapper.
+Each wrapper checks its inputs and calls a ``torch.library`` custom op
+(``mindpose::argmax_shift_decode``, ``mindpose::decode_heatmap``), so that
+``torch.export`` captures the decode as one node of the exported program
+(``engine/export.py``). Each op has a fake implementation (the output
+shapes, for tracing with a symbolic batch), a CPU implementation, which is
+the plain PyTorch version, and a CUDA implementation, which launches the
+kernel or raises. There is no fallback from the kernel to the plain
+version. Importing this module registers the ops, and a loaded exported
+program needs them registered. ``argmax_shift_decode.launches`` counts the
+kernel's launches through either op, from eager code and from an exported
+program alike.
 """
 import ctypes
 import functools
@@ -165,6 +172,66 @@ def _launch(
     argmax_shift_decode.launches += 1
 
 
+@torch.library.custom_op("mindpose::argmax_shift_decode", mutates_args=(),
+                         device_types="cpu")
+def _argmax_shift_decode_op(heatmap: torch.Tensor, shift: bool) -> Tuple[torch.Tensor,
+                                                                          torch.Tensor]:
+    return argmax_shift_decode_plain(heatmap, shift)
+
+
+@_argmax_shift_decode_op.register_kernel("cuda")
+def _argmax_shift_decode_cuda(heatmap: torch.Tensor,
+                              shift: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, k = heatmap.shape[:2]
+    coords = torch.empty((n, k, 2), dtype=torch.float32, device=heatmap.device)
+    maxvals = torch.empty((n, k), dtype=torch.float32, device=heatmap.device)
+    if n * k > 0:
+        _launch(heatmap, _SHIFT if shift else 0, coords, 2, maxvals.data_ptr(), 1)
+    return coords, maxvals
+
+
+@_argmax_shift_decode_op.register_fake
+def _argmax_shift_decode_fake(heatmap: torch.Tensor,
+                              shift: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, k = heatmap.shape[:2]
+    return heatmap.new_empty((n, k, 2)), heatmap.new_empty((n, k))
+
+
+@torch.library.custom_op("mindpose::decode_heatmap", mutates_args=(), device_types="cpu")
+def _decode_heatmap_op(heatmap: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
+                       score: torch.Tensor, shift: bool, to_original: bool, use_udp: bool,
+                       pixel_std: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return decode_heatmap_plain(heatmap, center, scale, score, shift=shift,
+                                to_original=to_original, use_udp=use_udp, pixel_std=pixel_std)
+
+
+@_decode_heatmap_op.register_kernel("cuda")
+def _decode_heatmap_cuda(heatmap: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
+                         score: torch.Tensor, shift: bool, to_original: bool, use_udp: bool,
+                         pixel_std: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, k = heatmap.shape[:2]
+    if k == 0 and n > 0:
+        raise ValueError("the decode kernel writes each crop's boxes row from its first joint, "
+                         "and the heatmap has no joints")
+    preds = torch.empty((n, k, 3), dtype=torch.float32, device=heatmap.device)
+    boxes = torch.empty((n, 6), dtype=torch.float32, device=heatmap.device)
+    if n > 0:
+        flags = (_SHIFT if shift else 0) | (_TO_ORIGINAL if to_original else 0) | (
+            _USE_UDP if use_udp else 0)
+        # maxvals go to preds[..., 2], 8 bytes after each row's x
+        _launch(heatmap, flags, preds, 3, preds.data_ptr() + 8, 3, (center, scale, score),
+                boxes, float(pixel_std))
+    return preds, boxes
+
+
+@_decode_heatmap_op.register_fake
+def _decode_heatmap_fake(heatmap: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
+                         score: torch.Tensor, shift: bool, to_original: bool, use_udp: bool,
+                         pixel_std: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, k = heatmap.shape[:2]
+    return heatmap.new_empty((n, k, 3)), heatmap.new_empty((n, 6))
+
+
 def argmax_shift_decode(
     heatmap: torch.Tensor, shift: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -175,14 +242,7 @@ def argmax_shift_decode(
     the kernel's launches.
     """
     _check_heatmap(heatmap)
-    if heatmap.device.type == "cpu":
-        return argmax_shift_decode_plain(heatmap, shift)
-    n, k = heatmap.shape[:2]
-    coords = torch.empty((n, k, 2), dtype=torch.float32, device=heatmap.device)
-    maxvals = torch.empty((n, k), dtype=torch.float32, device=heatmap.device)
-    if n * k > 0:
-        _launch(heatmap, _SHIFT if shift else 0, coords, 2, maxvals.data_ptr(), 1)
-    return coords, maxvals
+    return torch.ops.mindpose.argmax_shift_decode(heatmap, shift)
 
 
 def decode_heatmap(
@@ -204,7 +264,7 @@ def decode_heatmap(
     [N, 6] (cx, cy, sx, sy, area, score), as ``decode_heatmap_plain``.
     """
     _check_heatmap(heatmap)
-    n, k = heatmap.shape[:2]
+    n = heatmap.shape[0]
     for name, t, shape in (("center", center, (n, 2)), ("scale", scale, (n, 2)),
                            ("score", score, (n,))):
         if t.device != heatmap.device:
@@ -215,21 +275,8 @@ def decode_heatmap(
     for name, t in (("heatmap", heatmap), ("center", center), ("scale", scale), ("score", score)):
         if not t.is_contiguous():
             raise ValueError(f"the decode needs a contiguous {name}")
-    if heatmap.device.type == "cpu":
-        return decode_heatmap_plain(heatmap, center, scale, score, shift=shift,
-                                    to_original=to_original, use_udp=use_udp, pixel_std=pixel_std)
-    if k == 0 and n > 0:
-        raise ValueError("the decode kernel writes each crop's boxes row from its first joint, "
-                         "and the heatmap has no joints")
-    preds = torch.empty((n, k, 3), dtype=torch.float32, device=heatmap.device)
-    boxes = torch.empty((n, 6), dtype=torch.float32, device=heatmap.device)
-    if n > 0:
-        flags = (_SHIFT if shift else 0) | (_TO_ORIGINAL if to_original else 0) | (
-            _USE_UDP if use_udp else 0)
-        # maxvals go to preds[..., 2], 8 bytes after each row's x
-        _launch(heatmap, flags, preds, 3, preds.data_ptr() + 8, 3, (center, scale, score),
-                boxes, float(pixel_std))
-    return preds, boxes
+    return torch.ops.mindpose.decode_heatmap(heatmap, center, scale, score, shift, to_original,
+                                             use_udp, float(pixel_std))
 
 
 argmax_shift_decode.launches = 0

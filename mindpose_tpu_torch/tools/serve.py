@@ -12,14 +12,15 @@ checkpoint is the port's own (the training entry's ``*_last.ckpt``,
 says so in a warning.
 
 It serves on the current CUDA device unless ``--device`` says otherwise, and
-raises without CUDA; it never falls back to the CPU. Refused:
-``--quantize int8`` (ROADMAP.md, the rest: int8), and any ``--quantize``
-with a bottom-up config, as the JAX tool refuses it.
+raises without CUDA; it never falls back to the CPU. ``--quantize int8``
+serves a top-down net with int8 weights (``TopDownPredictor``'s
+``quantize``); any ``--quantize`` with a bottom-up config is refused, as the
+JAX tool refuses it.
 
 Usage:
     python3 -m mindpose_tpu_torch.tools.serve --config configs/simple_baseline/resnet50_tpu.yaml \\
         --ckpt ckpt/resnet50_tpu_last.ckpt [--host 127.0.0.1] [--port 8080] [--batch-size 32] \\
-        [--device cpu]
+        [--quantize int8] [--device cpu]
     python3 -m mindpose_tpu_torch.tools.serve \\
         --config configs/higher_hrnet/higher_hrnet_w32_tpu.yaml --ckpt <file>
 """
@@ -50,9 +51,6 @@ def build_service(args: Any, batch_size: int = 32,
     if mode == "bottomup" and quantize:
         raise ValueError("--quantize is implemented for the top-down predictor only; "
                          "refusing to silently serve full-precision bottom-up weights")
-    if quantize == "int8":
-        raise NotImplementedError(
-            "--quantize int8 is not ported (ROADMAP.md, Queue 1, the rest: int8)")
     ckpt = getattr(args, "ckpt", None)
     if ckpt:
         # the net's structure alone picks a flax file's mapping
@@ -81,7 +79,7 @@ def parse_serve_args(argv: Optional[Sequence[str]] = None) -> Config:
         {"names": ["--batch-size"], "type": int, "default": 32,
          "help": "boxes per forward pass (top-down)"},
         {"names": ["--quantize"], "type": str, "default": "",
-         "help": "weight quantization: '' only ('int8' is not ported)"},
+         "help": "weight quantization: '' (float32) or 'int8' (top-down)"},
         {"names": ["--device"], "default": None,
          "help": "where the model runs (default: the current CUDA device)"},
     ])

@@ -431,3 +431,62 @@ def test_fused_decode_of_a_cpu_heatmap_makes_no_launch():
                    pixel_std=200.0)
     create_decoder("topdown_heatmap")(hm, center, scale, score)
     assert argmax_shift_decode.launches == before
+
+
+# ------------------------------------------------- the torch.library ops
+
+
+@pytest.mark.parametrize("shift", [False, True])
+def test_the_ops_are_the_plain_versions_on_the_cpu(shift):
+    """The wrappers call ``mindpose::argmax_shift_decode`` and
+    ``mindpose::decode_heatmap``; on a CPU tensor each is its plain version,
+    bit for bit, with no launch counted; each op has a CUDA kernel
+    registered (the decode kernel's launch) and a fake one (shapes)."""
+    hm, center, scale, score = (torch.from_numpy(a) for a in _decoder_inputs())
+    before = argmax_shift_decode.launches
+    for got, want in ((torch.ops.mindpose.argmax_shift_decode(hm, shift),
+                       argmax_shift_decode_plain(hm, shift)),
+                      (torch.ops.mindpose.decode_heatmap(hm, center, scale, score, shift, True,
+                                                         False, 200.0),
+                       decode_heatmap_plain(hm, center, scale, score, shift=shift,
+                                            to_original=True, use_udp=False, pixel_std=200.0))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert argmax_shift_decode.launches == before
+    for op in ("mindpose::argmax_shift_decode", "mindpose::decode_heatmap"):
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(op, key), (op, key)
+    with torch.device("meta"):
+        coords, maxvals = torch.ops.mindpose.argmax_shift_decode(torch.empty(5, 3, 8, 6), shift)
+    assert coords.shape == (5, 3, 2) and maxvals.shape == (5, 3)
+
+
+class _Decode(torch.nn.Module):
+    def __init__(self, setting):
+        super().__init__()
+        self.decoder = create_decoder("topdown_heatmap", **setting)
+
+    def forward(self, heatmap, center, scale, score):
+        return self.decoder(heatmap, center, scale, score)
+
+
+@pytest.mark.parametrize("setting", [{"shift_coordinate": True}, DARK_SETTINGS[0]],
+                         ids=["fused", "dark"])
+def test_the_decoder_traces_with_a_symbolic_batch(setting):
+    """``torch.export`` captures the decoder as one op node (the DARK path:
+    the argmax op, then the refinement as plain operations) with a symbolic
+    batch traced at 2; the program at batches 1 and 6 is the eager decoder,
+    bit for bit."""
+    hm, center, scale, score = (torch.from_numpy(a) for a in _decoder_inputs())
+    b = torch.export.Dim("b", min=1)
+    program = torch.export.export(_Decode(setting), (hm[:2], center[:2], scale[:2], score[:2]),
+                                  dynamic_shapes=({0: b}, {0: b}, {0: b}, {0: b}))
+    ops = [str(n.target) for n in program.graph.nodes if "mindpose" in str(n.target)]
+    assert ops == (["mindpose.argmax_shift_decode.default"] if "dark_udp_refine" in setting
+                   else ["mindpose.decode_heatmap.default"])
+    module = program.module()
+    for n in (1, 6):
+        got = module(hm[:n], center[:n], scale[:n], score[:n])
+        want = _Decode(setting)(hm[:n], center[:n], scale[:n], score[:n])
+        for g, w in zip(got, want):
+            assert g.shape[0] == n and torch.equal(g, w)

@@ -300,9 +300,15 @@ def test_pipeline_refuses_what_it_does_not_support(tiny):
         assert shard.num_samples == len(whole) // 2 and shard.rank_id == 1
     ds = create_dataset(img_root, ann, is_train=False, config=DATASET_SETTING,
                         use_gt_bbox_for_val=True)
-    with pytest.raises(NotImplementedError):
-        create_pipeline(ds, VAL_TRANSFORMS, is_train=False, method="imagefolder_bottomup",
+    # every method of the JAX package is ported (imagefolder_bottomup: its
+    # own test is tests/test_torch_demo.py); an unknown one raises
+    with pytest.raises(ValueError, match="unknown pipeline method"):
+        create_pipeline(ds, VAL_TRANSFORMS, is_train=False, method="imagefolder_topdown",
                         config=DATASET_SETTING)
+    folder = create_pipeline(ds, VAL_TRANSFORMS, is_train=False, method="imagefolder_bottomup",
+                             config=DATASET_SETTING)
+    assert folder.final_columns == ["image", "mask", "center", "scale", "image_file",
+                                    "image_shape"]
     # accepted: device_pipeline: full's loader options, and hwc_to_chw, which
     # the JAX package's create_pipeline does not read either (batches stay NHWC)
     plain = next(iter(create_pipeline(ds, VAL_TRANSFORMS, is_train=False,

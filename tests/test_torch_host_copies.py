@@ -10,7 +10,9 @@ regression target transforms and MPII's distance metrics
 (``topdown_affine_matrix`` with its source patch, the deferred flip, the
 matrices' composition and mirror, ``DecodedFrameCache``), the backbone
 converter's host side (``utils/ms_ckpt.py``, ``normalize_source_keys``) and
-``utils/download.py`` live in the port as copies (the bottom-up
+``utils/download.py``, and the demos' ``utils/smoothing.py`` (the One-Euro
+filter) and ``tools/skeleton.py`` (``tools/common/skeleton.py``) live in
+the port as copies (the bottom-up
 train transforms' own test is tests/test_torch_bottomup_train_data.py);
 these tests pin each copy to its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
@@ -50,6 +52,7 @@ from mindpose_tpu.ops.heatmap import gaussian_kernel_2d as jax_gaussian_kernel_2
 from mindpose_tpu.utils import download as jax_download
 from mindpose_tpu.utils import keypoint_metrics as jax_metrics
 from mindpose_tpu.utils import ms_ckpt as jax_ms_ckpt
+from mindpose_tpu.utils import smoothing as jax_smoothing
 from mindpose_tpu.utils.match import match_by_tag as jax_match_by_tag
 from mindpose_tpu_torch.data.loader import DecodedFrameCache
 from mindpose_tpu_torch.data.transform import utils
@@ -64,7 +67,8 @@ from mindpose_tpu_torch.data.transform.topdown_transform import (
 )
 from mindpose_tpu_torch.models.convert_source import normalize_source_keys
 from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
-from mindpose_tpu_torch.utils import download, keypoint_metrics, ms_ckpt
+from mindpose_tpu_torch.tools import skeleton
+from mindpose_tpu_torch.utils import download, keypoint_metrics, ms_ckpt, smoothing
 from mindpose_tpu_torch.utils.match import match_by_tag
 from tests.fixtures.grouping_sets import ORDER, candidate_sets
 from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
@@ -480,3 +484,31 @@ def test_download_helpers(tmp_path):
         assert port_files == jax_files and port_files
     with pytest.raises(ValueError, match="Unsupported archive"):
         download.DownLoad().extract_archive(str(tmp_path / "a.txt"))
+
+
+@pytest.mark.parametrize("shape", [(17, 2), (3, 17, 2)])
+def test_one_euro_filter(shape):
+    rng = np.random.RandomState(12)
+    port = smoothing.OneEuroFilter(freq=25.0, min_cutoff=0.5, beta=0.05)
+    jax = jax_smoothing.OneEuroFilter(freq=25.0, min_cutoff=0.5, beta=0.05)
+    track = np.cumsum(rng.normal(0, 3, (12,) + shape), axis=0)
+    for i, frame in enumerate(track):
+        dt = 0.07 if i % 5 == 4 else None  # an irregular frame now and then
+        np.testing.assert_array_equal(port(frame, dt), jax(frame, dt))
+        if i == 7:  # a scene cut, then a new person count
+            port.reset()
+            jax.reset()
+    np.testing.assert_array_equal(port(track[0][:5]), jax(track[0][:5]))
+    with pytest.raises(ValueError, match="freq"):
+        smoothing.OneEuroFilter(freq=0)
+
+
+def test_resolve_skeleton(monkeypatch):
+    monkeypatch.syspath_prepend(os.path.join(ROOT, "tools"))
+    from common import skeleton as jax_skeleton
+
+    assert skeleton.COCO_SKELETON == jax_skeleton.COCO_SKELETON
+    for setting, joints in (({}, 17), ({}, 16), ({"skeleton": [[0, 1], [2, 15], [3, 20]]}, 16),
+                            (None, 17), ({"skeleton": [[-1, 2], [4, 5]]}, 14)):
+        args = type("Args", (), {"dataset_setting": setting, "num_joints": joints})
+        assert skeleton.resolve_skeleton(args) == jax_skeleton.resolve_skeleton(args)

@@ -1,4 +1,5 @@
-"""The port stands alone: no module of it imports JAX, flax, optax, msgpack or mindpose_tpu.
+"""The port stands alone: no module of it imports JAX, flax, optax, msgpack or mindpose_tpu,
+nor the JAX package's CLI helpers (``tools/common``, imported as ``common`` or ``tools``).
 
 It also holds the port's registry apart from the JAX package's, and keeps
 the serving path free of the evaluation path's host libraries (cv2, yaml).
@@ -12,7 +13,7 @@ import pytest
 from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mindpose_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mindpose_tpu", "common", "tools")
 
 
 def _port_files():

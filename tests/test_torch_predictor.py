@@ -25,6 +25,7 @@ from mindpose_tpu.data.transform.topdown_transform import TopDownAffine, TopDown
 from mindpose_tpu.engine.predictor import TopDownPredictor as JaxTopDownPredictor
 from mindpose_tpu.models.decoders.top_down_decoder import TopDownHeatMapDecoder as JaxDecoder
 from mindpose_tpu.models.networks import EvalNet as JaxEvalNet
+from mindpose_tpu.models.quantize import quantize_variables, quantized_eval_apply
 from mindpose_tpu.ops.image import affine_warp as jax_affine_warp
 from mindpose_tpu.ops.image import normalize_image as jax_normalize_image
 from mindpose_tpu_torch.engine import TopDownPredictor
@@ -53,7 +54,9 @@ def _request():
     return image, boxes
 
 
-def _jax_composition(jax_net, variables, image, boxes, decoder_setting):
+def _jax_composition(jax_net, variables, image, boxes, decoder_setting, quantize=False):
+    """JAX's crop, normalize and ``EvalNet.apply``; with ``quantize``, the
+    apply of ``quantized_eval_apply`` over ``quantize_variables``'s int8."""
     use_udp = decoder_setting.get("use_udp", False)
     to_cs = TopDownBoxToCenterScale(is_train=False, config=SETTING)
     affine = TopDownAffine(is_train=False, config=SETTING, use_udp=use_udp)
@@ -67,8 +70,11 @@ def _jax_composition(jax_net, variables, image, boxes, decoder_setting):
     crops = jax_affine_warp(jnp.asarray(images), jnp.asarray(np.stack(mats), jnp.float32), (256, 192))
     crops = jax_normalize_image(crops, np.array(MEAN), np.array(STD))
     eval_net = JaxEvalNet(jax_net, JaxDecoder(**decoder_setting), output_raw=True)
-    (preds, _), heat = eval_net.apply(variables, crops, jnp.asarray(np.stack(centers)),
-                                      jnp.asarray(np.stack(scales)), jnp.ones(len(boxes)))
+    apply = lambda *inputs: eval_net.apply(variables, *inputs)  # noqa: E731
+    if quantize:
+        apply = quantized_eval_apply(eval_net, quantize_variables(variables))
+    (preds, _), heat = apply(crops, jnp.asarray(np.stack(centers)),
+                             jnp.asarray(np.stack(scales)), jnp.ones(len(boxes)))
     return np.asarray(preds), np.asarray(heat).transpose(0, 3, 1, 2)  # heat -> NCHW
 
 

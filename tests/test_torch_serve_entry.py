@@ -12,8 +12,10 @@ as the JAX package's flax msgpack file:
   file: keypoints within test_torch_predictor.py's tolerances for the cv2
   crop (JAX) against the gather warp (the port): a median distance under
   0.1 px, scores within half their mean;
-- the refusals (``--quantize`` with a bottom-up config, as the JAX tool
-  refuses it; int8), the CPU only on request, the seeded weights without
+- ``--quantize int8``: the service answers as an int8 ``TopDownPredictor``
+  built by hand on the same weights, bit for bit;
+- the refusal of ``--quantize`` with a bottom-up config, as the JAX tool
+  refuses it, the CPU only on request, the seeded weights without
   ``--ckpt``, and the CLI's flags. Bottom-up serving itself is
   tests/test_torch_bottomup_serve.py's.
 """
@@ -34,6 +36,7 @@ from mindpose_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from mindpose_tpu_torch.engine import TopDownPredictor, build_http_server
 from mindpose_tpu_torch.models import create_network_from_config
 from mindpose_tpu_torch.models.convert import convert_net_variables
+from mindpose_tpu_torch.models.quantize import quantized_bytes
 from mindpose_tpu_torch.tools import serve
 from mindpose_tpu_torch.utils.checkpoint import save_checkpoint
 from tests.test_torch_simple_baseline import full  # noqa: F401  (ResNet-50 flax variables)
@@ -160,17 +163,35 @@ def test_service_matches_the_jax_serve_composition(ckpts, monkeypatch):
 
 @pytest.mark.parametrize("case,error,item", [
     ("bottomup quantized", ValueError, "top-down predictor only"),
-    ("int8", NotImplementedError, "the rest: int8"),
 ])
 def test_refusals_name_their_roadmap_item(ckpts, case, error, item):
-    if case == "bottomup quantized":
-        args = serve.parse_serve_args(["--config", BOTTOM_UP, "--device", "cpu",
-                                       "--quantize", "int8"])
-        assert args.pipeline_method == "bottomup"
-    else:
-        args = _args("--ckpt", ckpts[0], "--quantize", "int8")
+    # bottom-up with --quantize stays refused, as the JAX tool refuses it;
+    # int8 top-down serving is ported (the test below)
+    args = serve.parse_serve_args(["--config", BOTTOM_UP, "--device", "cpu",
+                                   "--quantize", "int8"])
+    assert args.pipeline_method == "bottomup"
     with pytest.raises(error, match=item):
         serve.build_service(args, device="cpu")
+
+
+def test_int8_service_answers_as_the_int8_predictor_built_by_hand(ckpts):
+    port_path, _, state = ckpts
+    args = _args("--ckpt", port_path, "--quantize", "int8", "--batch-size", "2")
+    service = serve.build_service(args, batch_size=args.batch_size, device=args.device)
+    qstate = service.predictor.qstate
+    assert qstate is not None and quantized_bytes(qstate)[0] * 3 < quantized_bytes(qstate)[1]
+    image, boxes = _request()
+    got = _serve_and_post(service, {"image_b64": _png(image), "boxes": boxes.tolist()})
+    args = _args()
+    with torch.device("meta"):
+        net = create_network_from_config(args)
+    net = net.to_empty(device="cpu")
+    net.load_state_dict(state, strict=True)
+    want = TopDownPredictor(net, args.dataset_setting, args.decoder_setting, args.normalize_mean,
+                            args.normalize_std, batch_size=2, quantize="int8",
+                            device="cpu")(image, boxes)
+    assert got.shape == (3, 17, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_unknown_quantize_mode_is_an_error(ckpts):
