@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat, int8 serving, the serving export, the demos) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat, int8 serving, the serving export, the demos, the visualisation tools, the native COCO library) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -10,7 +10,9 @@ It imports nothing of JAX or of the JAX package, and exits nonzero, printing
 no result, when there is no CUDA device or when any phase fails:
 
 1. the GPU's name and power limit (nvidia-smi);
-2. build every kernel of the path from csrc/ (nvcc, sm_90a);
+2. build every kernel of the path from csrc/ (nvcc, sm_90a) and the native
+   COCO library (``csrc/coco_native.cpp``, g++), all started together, with
+   the g++ seconds;
 3. the decode kernel, through both its wrappers, against their plain
    PyTorch versions on the GPU, bitwise, on random heatmaps at the path's
    shapes (also from an unaligned base) and on planted cases, shift off and
@@ -36,7 +38,7 @@ no result, when there is no CUDA device or when any phase fails:
 8. evaluation through the eval entry (``tools/eval.evaluate``): the
    serving net's weights saved as a port checkpoint and loaded back bit for
    bit, then evaluated with the recipe's settings (O2, batch 128, GT boxes,
-   OKS-NMS) on synthetic COCO from ``tools/make_synthetic_coco.py`` (168
+   OKS-NMS) on synthetic COCO from ``mindpose_tpu_torch/tools/make_synthetic_coco.py`` (168
    frames, 672 crops), TTA off (a first pass and 2 warm ones, with the
    warm rates' spread) and on: records, batches, inferencer and evaluator
    times, crops/s, one decode launch per batch, the 10 COCO stats; the
@@ -47,7 +49,7 @@ no result, when there is no CUDA device or when any phase fails:
    and the first 32 crops on the GPU against the CPU at O0, TTA off and on;
 9. the train step of hrnet_w32_tpu.yaml (adamw, warmup multi-step schedule,
    O2) on HRNet-W32 at full width, batch 128 of synthetic crops: 3 warm-up
-   and 20 timed steps, img/s, step times, peak memory, finite losses;
+   and 10 timed steps, img/s, step times, peak memory, finite losses;
 10. the net learning one fixed batch with its joints painted in, over 30
     steps at constant lr: the loss falls below a fraction of its first value
     and of an all-zero prediction's, and the backbone moves;
@@ -57,7 +59,7 @@ no result, when there is no CUDA device or when any phase fails:
 12. training through the train entry (``tools/train.train``) on
     hrnet_w32_tpu.yaml as parsed from the file (full-width HRNet-W32, O2,
     batch 128, adamw, host targets, evaluating every ``val_interval`` epochs) on
-    synthetic COCO from ``tools/make_synthetic_coco.py``; the overrides are
+    synthetic COCO from ``mindpose_tpu_torch/tools/make_synthetic_coco.py``; the overrides are
     the data paths, ``num_epochs``, ``warmup``, ``val_interval`` and
     ``ckpt_save_dir``. First the train loader alone with 8 threads and with
     the process pool (crops/s); then per epoch the img/s with the loader
@@ -88,7 +90,7 @@ no result, when there is no CUDA device or when any phase fails:
     ``build_service`` behind ``build_http_server`` on 127.0.0.1 at an
     ephemeral port): ``GET /healthz``, ``POST /predict`` with 1, 5 and 40
     boxes over real HTTP, one decode launch per 32-crop chunk, latency over
-    20 runs each; the 5-box answer against the same service on the CPU;
+    10 runs each; the 5-box answer against the same service on the CPU;
     then resnet101_tpu.yaml and resnet152_tpu.yaml with random weights from
     a numpy seed through the same entry, a 40-box request each; every
     server shut down and no thread of the phase left;
@@ -109,12 +111,12 @@ no result, when there is no CUDA device or when any phase fails:
     package's with the grouping kernel and with the host Hungarian; then
     higher_hrnet_w32_tpu.yaml at full width (random weights from a numpy
     seed, O2, batch 1 as the yaml's non-square max_image_size gives it) on
-    32 frames of ``tools/make_synthetic_coco.py``: images/s, one grouping
+    32 frames of ``mindpose_tpu_torch/tools/make_synthetic_coco.py``: images/s, one grouping
     launch per batch, and the split (loader alone, forward, decode,
     grouping, host post-processing, evaluator);
 18. the same net through the serving entry in bottom-up mode over HTTP on
     127.0.0.1: a 640x480 PNG (served at 832x832), one grouping launch per
-    request, latency over 20 requests beside the service's ``latency_ms``,
+    request, latency over 10 requests beside the service's ``latency_ms``,
     the device operations of one request (torch.profiler); the fixture's
     service on the card against the CPU (the kernel against the plain
     matcher): the same persons, keypoints within 1e-3 px, scores within
@@ -126,7 +128,7 @@ no result, when there is no CUDA device or when any phase fails:
     statistics within 1e-8; float32 at O0 as phase 11 holds it); (b)
     higher_hrnet_w32_tpu.yaml as parsed through the train entry (full
     width, O2, batch 32, adam, host targets, 8 loader threads, random
-    weights) on synthetic COCO, 3 epochs of 5 steps, evaluating twice on 16
+    weights) on synthetic COCO, 2 epochs of 5 steps, evaluating after each on 16
     frames: per epoch img/s, the step median, the wait on the loader, the
     loss vector and the AP, the peak memory, the allocator's calls, and
     one warm step under torch.profiler (its device busy time against its
@@ -182,7 +184,7 @@ no result, when there is no CUDA device or when any phase fails:
     dim=1)`` and the bound; configs/mpii/hrnet_w32_mpii_tpu.yaml as parsed
     (HRNet-W32 at 256x256, 16 joints, O2, batch 128, ``topdown_keypoint``)
     through the train entry on synthetic MPII frames (tests/fixtures/mpii.py,
-    converted by tools/convert_mpii.py), 2 epochs of 10 steps, evaluating
+    converted by the port's tools/convert_mpii.py), 2 epochs of 5 steps, evaluating
     after the last (PCKh and EPE, one decode launch per eval batch); the last
     checkpoint through the eval entry (the callback's PCKh and EPE, one launch
     per batch) and a 40-box request through the serving entry (16 joints, one
@@ -222,13 +224,13 @@ no result, when there is no CUDA device or when any phase fails:
     over the card) on hrnet_w32_tpu.yaml as parsed, phase 12's data, 3
     epochs of 10 steps, evaluating after the last: finite, falling losses,
     AP above 0, one decode launch per val batch, all-reduces issued in the
-    profiled steps; epoch 3's img/s beside phase 12's without DDP,
+    profiled step; epochs 2-3's img/s beside phase 12's without DDP,
     and per step the all-reduces issued, the nccl kernels' device time and
-    DDP's device-to-device copies (torch.profiler, epoch 2's first step);
+    DDP's device-to-device copies (torch.profiler, epoch 1's last step);
 27. FSDP on vitpose_h_tpu.yaml (ViT-H/16 + the deconv head, 632M
     parameters): (a) the net at full width, cut to 4 of its 32 encoder
     blocks, sharded over two ranks on the one card over gloo (fresh
-    interpreters with a timeout), float64, 8 crops a rank, 2
+    interpreters with a timeout, started beside 26 (a)'s), float64, 8 crops a rank, 2
     steps of the recipe's adamw with layer decay, against one process on
     the 16 (the head's BatchNorm takes the global batch's statistics under
     FSDP): each step's loss within 1e-12, the first step's reduced
@@ -237,12 +239,14 @@ no result, when there is no CUDA device or when any phase fails:
     beside the whole ones; (b) the train
     entry under ``python3 -m torch.distributed.run --nproc_per_node=1``
     (nccl, world size 1, the net sharded over a mesh of one) on the yaml as
-    parsed (batch 32 in 4 microbatches, O2) and phase 21's data, 2 epochs,
+    parsed (batch 32 in 4 microbatches, O2) and phase 21's data, 1 epoch,
     rank 0's callback evaluating its unsharded copy: finite losses, one
     decode launch per val batch, the rank's bytes, the copy's and peak
     memory; then the
     last checkpoint, gathered from the shards, through the eval entry (the
-    callback's stats) and the serving entry, which load it strictly;
+    callback's stats) and the serving entry, which load it strictly. One
+    torchrun process runs 26 (b)'s training and then 27 (b)'s, in one
+    process group;
 28. distillation: hrnet_w32_tpu.yaml as the student of an HRNet-W48
     teacher (torch's initialisation, BatchNorm statistics from one batch,
     written as a port checkpoint) through the
@@ -281,12 +285,30 @@ no result, when there is no CUDA device or when any phase fails:
     the whole frame as the box) and bottom-up (phase 17's checkpoint) on 4
     frames of phase 12's val split, then ``tools/demo_video.py`` on an 8-frame
     clip that cv2 writes from them: the files written, one decode launch
-    per frame top-down, one grouping launch per image bottom-up.
+    per frame top-down, one grouping launch per image bottom-up;
+33. the last host modules: (a) the visualisation tools on 2 samples each,
+    on the card: ``tools/visual_gt_heatmap.py`` (hrnet_w32_tpu.yaml's train
+    loader on phase 12's data), ``visual_pred_heatmap_topdown.py`` (phase
+    12's last checkpoint; one decode launch per sample, keypoints on the
+    heatmap) and ``visual_pred_heatmap_ae.py`` (phase 17's checkpoint; one
+    grouping launch per sample); (b) phase 17's checkpoint through the eval
+    entry on 8 frames of phase 12's val split with ``bottomup_resize`` as
+    the val transform (512x704 inputs: sides multiples of 64, not square;
+    batch 1), one grouping launch per frame, its 10 stats and AP; (c)
+    hrnet_w32_tpu.yaml as parsed through the train entry with
+    ``topdown_photometric_distortion`` after its first train transform, 3
+    steps on 192 synthetic frames, evaluating after them: finite losses,
+    the transform on every trained record, one decode launch per val batch;
+    (d) phase 8's first pass's evaluator again on its results with the
+    native COCO library on and off: the seconds of each, beside the card's
+    name and power limit, the stats within 1e-9.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 32.
+started is still there after phase 33. After each group of phases it
+prints ``time: phases ... took N s``, and at the end the whole run's
+seconds by its own clock.
 
 The line before the last is the GPU's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -338,6 +360,7 @@ from mindpose_tpu_torch.engine import (
     PoseService,
     TopDownPredictor,
     build_http_server,
+    create_evaluator,
     create_inferencer,
     load_serving_fn,
 )
@@ -355,7 +378,7 @@ from mindpose_tpu_torch.models import (
 )
 from mindpose_tpu_torch.models.backbones.vit import ViT
 from mindpose_tpu_torch.models.quantize import QTensor, dequantize_variables, quantized_bytes
-from mindpose_tpu_torch.ops.cuda.build import load_library
+from mindpose_tpu_torch.ops.cuda.build import load_host_library, load_library
 from mindpose_tpu_torch.ops.image import affine_warp
 from mindpose_tpu_torch.ops.cuda.conv_chain import (
     _launch as conv_chain_launch,
@@ -391,7 +414,12 @@ from mindpose_tpu_torch.tools import demo as demo_tool
 from mindpose_tpu_torch.tools import demo_video as demo_video_tool
 from mindpose_tpu_torch.tools import serve as serve_entry
 from mindpose_tpu_torch.tools import eval as eval_entry
+from mindpose_tpu_torch.tools import make_synthetic_coco
 from mindpose_tpu_torch.tools import train as train_entry
+from mindpose_tpu_torch.tools import visual_gt_heatmap as visual_gt_tool
+from mindpose_tpu_torch.tools import visual_pred_heatmap_ae as visual_ae_tool
+from mindpose_tpu_torch.tools import visual_pred_heatmap_topdown as visual_topdown_tool
+from mindpose_tpu_torch.utils import native
 from mindpose_tpu_torch.tools.eval import evaluate
 from mindpose_tpu_torch.utils.match import match_by_tag
 from mindpose_tpu_torch.utils.checkpoint import (
@@ -492,7 +520,7 @@ SEED = 0
 # value, not bitwise (float32 against float64 on the CPU differs by ~1e-6 of it
 # for a 2-block-per-branch HRNet-W32)
 HEATMAP_RTOL = 2e-5
-REPEATS = 20  # timed runs of each request
+REPEATS = 10  # timed runs of each request
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
 MAX_SMEM_PER_BLOCK = 232448  # Hopper, 227 KB
 KERNEL_SOURCES = ("decode", "conv_chain", "grouping")
@@ -504,7 +532,7 @@ COLD_HEATMAPS = 16  # heatmaps the cold-L2 timing rotates over (> 50 MB at 32 cr
 PLAIN_ITERS = 20  # queued calls per timing of a plain composition (tens of kernels each)
 PROBE_ITERS = 5  # chains per timing in the probe (each is 1-100 ms)
 TRAIN_WARMUP_STEPS = 3
-TRAIN_TIMED_STEPS = 20
+TRAIN_TIMED_STEPS = 10
 LOSS_FALL_STEPS = 30
 MARK_SIZE = 11  # pixels a side of a joint's mark in phase 10's crops
 # Phase 10's bounds after 30 steps, set from an exploratory run on the H100:
@@ -532,7 +560,7 @@ TRAIN_GRAD_FACTOR = 2.0
 # million times below the float32 gradient's error, so a fault in any one
 # tensor of the GPU's backward down to 1e-8 of its scale shows.
 TRAIN_F64_RTOL = 1e-8
-# Phase 8: synthetic COCO val frames (tools/make_synthetic_coco.py) with 4
+# Phase 8: synthetic COCO val frames (mindpose_tpu_torch/tools/make_synthetic_coco.py) with 4
 # persons each, 672 crops: 5 full batches of 128 and a ragged one of 32,
 # so that a pass lasts seconds and its rate can be compared across passes
 EVAL_IMAGES = 168
@@ -627,9 +655,9 @@ BU_GRAD_FLOOR = 1e-4
 BU_TRAIN_IMAGES = 160
 BU_TRAIN_PEOPLE = 3
 BU_TRAIN_VAL_IMAGES = 16
-BU_TRAIN_EPOCHS = 3
+BU_TRAIN_EPOCHS = 2
 BU_TRAIN_WARMUP = 5
-BU_TRAIN_VAL_INTERVAL = 2
+BU_TRAIN_VAL_INTERVAL = 1  # an evaluation after each epoch: two in all
 BU_TARGET_ATOL = 1e-6
 # the callback's last persons against the eval entry's on its last
 # checkpoint: keypoints (x, y, score, tags) and scores
@@ -661,7 +689,7 @@ VIT_SMALL_WARMUP = 2
 # FAMILY_EPOCHS epochs of 10 steps, evaluating after the last (hflip TTA on,
 # as the yamls set it), then FAMILY_DEVICE_EPOCHS with ``device_pipeline:
 # true`` and no evaluation; phase 24 trains hrnet_w32_mpii_tpu.yaml on
-# synthetic MPII frames (tests/fixtures/mpii.py; 1,280 records, 10 steps of
+# synthetic MPII frames (tests/fixtures/mpii.py; 640 records, 5 steps of
 # 128 per epoch; 192 val crops, 2 eval batches)
 SIMCC_YAML = os.path.join(CONFIGS, "simcc", "resnet50_simcc_tpu.yaml")
 RLE_YAML = os.path.join(CONFIGS, "rle", "resnet50_rle_tpu.yaml")
@@ -673,7 +701,7 @@ FAMILY_DEVICE_EPOCHS = 2
 # another order, a few ulps of each label (the regression targets divide
 # alike on both: bit for bit)
 SIMCC_TARGET_RTOL = 2e-6
-MPII_TRAIN_IMAGES = 640
+MPII_TRAIN_IMAGES = 320
 MPII_VAL_IMAGES = 96
 MPII_PEOPLE = 2
 MPII_EPOCHS = 2
@@ -704,7 +732,7 @@ DDP_RANK_BATCH = 16
 DDP_STEPS = 3
 DDP_TIMEOUT_S = 600  # each of the phase's process groups
 DDP_STATS_RTOL = 1e-4  # the running statistics against the formula, of each tensor's largest
-DDP_EPOCHS = 3  # (b): epoch 2's steps are the profiled ones, epoch 3's the rate's
+DDP_EPOCHS = 3  # (b): epoch 1's last step is the profiled one, epochs 2-3 the rate's
 DDP_PROFILED_STEPS = 1  # host and device activity: ~12 s for a step of HRNet-W32 at 128
 # phase 27: FSDP on vitpose_h_tpu.yaml (ViT-H/16 + the deconv head, 632M
 # parameters). (a) at full width, FSDP_DEPTH blocks deep, two ranks on this
@@ -715,7 +743,9 @@ FSDP_WORLD = 2
 FSDP_DEPTH = 4  # (a): encoder blocks of ViT-H's 32, at full width
 FSDP_RANK_BATCH = 8
 FSDP_STEPS = 2
-FSDP_EPOCHS = 2
+FSDP_EPOCHS = 1
+FSDP_OPTIONS = (f"num_epochs={FSDP_EPOCHS}", f"warmup={VIT_SMALL_WARMUP}",
+                f"val_interval={FSDP_EPOCHS}", "save_best=False")
 FSDP_TIMEOUT_S = 600
 # phase 27 (a) runs in float64: in float32, cuDNN's weight gradient of the
 # head's transposed conv summed over 8 + 8 crops lay up to 6.25e-4 of its
@@ -894,6 +924,22 @@ def cycling(fn, inputs):
     return lambda: fn(next(it))
 
 
+def trace_events(prof) -> list:
+    """(name, on the device, start us, end us) of each event of a finished
+    torch.profiler trace of a train step, read from its raw events: the
+    events that ``prof.events()`` gives, without building their Python tree
+    (seconds for a train step's 100,000 events; 10.7 s for 168,640 CPU
+    events on an 8-core host, against 0.23 s for the raw ones)."""
+    from torch.autograd.profiler_util import _filter_name
+
+    cuda = torch.autograd.DeviceType.CUDA
+    # the events the parser of prof.events() leaves out, left out alike
+    return [(e.name(), e.device_type() == cuda, e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if not (_filter_name(e.name()) or e.is_hidden_event())]
+
+
 def device_ops(fn) -> list:
     """Names of the device operations (kernels, copies) of one call of ``fn``,
     from torch.profiler: the second of two calls in one trace, 10 ms apart.
@@ -1000,11 +1046,15 @@ def time_decode(device: torch.device) -> dict:
 
 
 def build_kernels() -> None:
-    """Phase 2: one nvcc per source, all started together; print each ptxas report."""
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    """Phase 2: one nvcc per source and g++ for the native COCO library, all
+    started together; print each ptxas report and the g++ seconds."""
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        host = pool.submit(load_host_library, native.SOURCE)
         for built in pool.map(load_library, KERNEL_SOURCES):
             print(f"built {built.path.name} in {built.build_seconds:.2f} s")
             print(built.log.strip())
+        built = host.result()
+        print(f"built {built.path.name} (g++, host) in {built.build_seconds:.2f} s")
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -1333,17 +1383,12 @@ def compare_with_cpu(predictor: TopDownPredictor, cpu_predictor: TopDownPredicto
 
 def write_synthetic_coco(root: str, train_images: int = 0, val_images: int = EVAL_IMAGES,
                          people: int = EVAL_PEOPLE) -> dict:
-    """tools/make_synthetic_coco.py's splits under ``root`` (person layout):
+    """The splits of the port's ``mindpose_tpu_torch/tools/make_synthetic_coco.py`` under ``root``
+    (person layout), written in this process:
     {"train": (image root, annotation file), "val": (...)}."""
-    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                          "make_synthetic_coco.py")
-    out = subprocess.run(
-        [sys.executable, script, "--out", root, "--train-images", str(train_images),
-         "--val-images", str(val_images), "--people", str(people), "--layout", "person"],
-        capture_output=True, text=True, timeout=300)
-    if out.returncode:
-        raise RuntimeError(f"make_synthetic_coco.py failed:\n{out.stdout}\n{out.stderr}")
-    print("\n".join(out.stdout.strip().splitlines()[-2 if train_images else -1:]))
+    for split, images, seed in (("train", train_images, 0), ("val", val_images, 1)):
+        make_synthetic_coco.generate_split(os.path.join(root, split), images, seed=seed,
+                                           people_per_img=people, layout="person")
     return {split: (os.path.join(root, split, "images"),
                     os.path.join(root, split, "annotations.json")) for split in ("train", "val")}
 
@@ -1542,7 +1587,25 @@ def evaluation(net: nn.Module, device: torch.device) -> dict:
                              result_path=os.path.join(root, "result.json")))
         tta_args = Config(**dict(vars(args), eval_setting=dict(
             args.eval_setting, hflip_tta=True, shift_heatmap=True)))
-        runs = [run_eval(args, device, "recipe O2, TTA off, first pass")]
+        kept = {}
+        make_evaluator = eval_entry.create_evaluator
+
+        def keeping_evaluator(*a, **kw):  # the first pass's results, for phase 33 (d)
+            evaluator = make_evaluator(*a, **kw)
+
+            def call(outputs):
+                kept.setdefault("outputs", copy.deepcopy(outputs))
+                return evaluator(outputs)
+
+            return call
+
+        eval_entry.create_evaluator = keeping_evaluator
+        try:
+            runs = [run_eval(args, device, "recipe O2, TTA off, first pass")]
+        finally:
+            eval_entry.create_evaluator = make_evaluator
+        with open(val_label) as f:
+            kept.update(annotations=json.load(f), args=args, eval_s=runs[0]["eval_s"])
         warm = [run_eval(args, device, f"recipe O2, TTA off, warm pass {i + 1}")
                 for i in range(EVAL_WARM_REPEATS)]
         rates = sorted(r["records"] / r["infer_s"] for r in warm)
@@ -1555,7 +1618,7 @@ def evaluation(net: nn.Module, device: torch.device) -> dict:
         times = time_eval_batch(net, args, device)
         compare_eval_with_cpu(net, args, device, "O0")
     return {"launches": sum(r["launches"] for r in runs),
-            "batches": sum(r["batches"] for r in runs), **times}
+            "batches": sum(r["batches"] for r in runs), "evaluator_inputs": kept, **times}
 
 
 def hrnet_w32_net() -> nn.Module:
@@ -1978,7 +2041,8 @@ def train_through_entry(root: str, phase9: dict, device: torch.device) -> dict:
 
 def entry_epochs(label: str, epochs: list) -> float:
     """Print each epoch of a run of the train entry; returns the img/s of
-    epochs 2 on (the first includes cuDNN's autotuning)."""
+    epochs 2 on (the first includes cuDNN's autotuning), or of a run's only
+    epoch."""
     for e in epochs:
         # COCO's AP, or every metric of another evaluator (MPII's PCKh and EPE)
         shown = {k: v for k, v in e["metrics"].items() if k == "AP"} or e["metrics"]
@@ -1988,19 +2052,24 @@ def entry_epochs(label: str, epochs: list) -> float:
               f"{e['step_median_s'] * 1e3:.1f} ms; wait on next(batches) median "
               f"{e['wait_median_s'] * 1e3:.1f} ms, {e['wait_total_s']:.2f} s in all over "
               f"{e['steps']} steps{ap}")
-    warm = epochs[1:]
+    warm = epochs[1:] or epochs
     return sum(e["images"] for e in warm) / sum(e["images"] / e["images_per_sec"] for e in warm)
+
+
+def entry_argv(recipe: str, data: dict, ckpt_dir: str, *options: str) -> list:
+    """The train entry's command line for ``recipe`` with the data paths and
+    ``ckpt_save_dir`` of this run and ``options``."""
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    return ["--config", recipe, "--cfg-options", f"train_root={train_root}",
+            f"train_label={train_label}", f"val_root={val_root}", f"val_label={val_label}",
+            f"ckpt_save_dir={ckpt_dir}", *options]
 
 
 def recipe_args(recipe: str, data: dict, ckpt_dir: str, device: torch.device,
                 *options: str) -> Config:
-    """A recipe as the train entry parses it, with the data paths and
-    ``ckpt_save_dir`` of this run and ``options``."""
-    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
-    return train_entry.parse_train_args(
-        ["--config", recipe, "--device", str(device), "--cfg-options",
-         f"train_root={train_root}", f"train_label={train_label}", f"val_root={val_root}",
-         f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}", *options])
+    """A recipe as the train entry parses it on ``device`` (``entry_argv``)."""
+    return train_entry.parse_train_args([*entry_argv(recipe, data, ckpt_dir, *options),
+                                         "--device", str(device)])
 
 
 def train_recipe(args: Config, label: str) -> dict:
@@ -2719,7 +2788,7 @@ def bottomup_evaluation(root: str, device: torch.device) -> dict:
     (b) higher_hrnet_w32_tpu.yaml at full width, with random weights from a
     numpy seed written as a port checkpoint, at O2 and batch 1 (the yaml's
     non-square max_image_size) on ``BU_EVAL_IMAGES`` frames of
-    tools/make_synthetic_coco.py: images/s, one grouping launch per batch,
+    mindpose_tpu_torch/tools/make_synthetic_coco.py: images/s, one grouping launch per batch,
     and the split of ``time_bottomup_batches``.
     """
     register_port_backbone()
@@ -3017,18 +3086,18 @@ class _TracedStep:
             torch.cuda.synchronize()
         self.events["on"] = False
         self.prof.__exit__(None, None, None)
-        events = self.prof.events()
-        cut = next(e.time_range.start for e in events if e.name == mark) - 5000
-        ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.time_range.start >= cut and e.name != mark]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in ops)
+        events = trace_events(self.prof)
+        cut = next(start for name, _, start, _ in events if name == mark) - 5000
+        ops = [(name, start, end) for name, on_device, start, end in events
+               if on_device and start >= cut and name != mark]
+        spans = sorted((start, end) for _, start, end in ops)
         busy, reach = 0.0, float("-inf")
         for begin, end in spans:  # the union of the operations' intervals
             busy += max(0.0, end - max(begin, reach))
             reach = max(reach, end)
         by_name = {}
-        for e in ops:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        for name, start, end in ops:
+            by_name[name] = by_name.get(name, 0.0) + (end - start)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         start, end = self.events.get("targets", (None, None))
         self.out.update(
@@ -3921,19 +3990,19 @@ def input_modes_training(root: str, data: dict, device: torch.device) -> dict:
                            f"warmup={INPUT_WARMUP}", f"val_interval={INPUT_EPOCHS}", *options)
         run = train_recipe(args, f"input mode {mode}")
         epochs = run["result"]["epochs"]
-        last = epochs[-1]  # epoch 3: no profiler in any mode
+        last = epochs[-1]  # the last epoch: no profiler in any mode
         cache = run["result"]["decode_cache"]
         run.update(
             batch_bytes=sum(e["batch_bytes"] for e in epochs[1:]) / sum(e["steps"]
                                                                         for e in epochs[1:]),
-            epoch3_images_per_sec=last["images_per_sec"],
-            epoch3_step_median_ms=last["step_median_s"] * 1e3,
-            epoch3_wait_per_step_ms=last["wait_total_s"] / last["steps"] * 1e3,
+            last_images_per_sec=last["images_per_sec"],
+            last_step_median_ms=last["step_median_s"] * 1e3,
+            last_wait_per_step_ms=last["wait_total_s"] / last["steps"] * 1e3,
             cache_hit_rate=cache["hits"] / (cache["hits"] + cache["misses"]) if cache else None,
             decode_cache=cache)
         print(f"input mode {mode}: {run['batch_bytes']:.0f} B handed to the step per batch; "
-              f"epoch 3 {run['epoch3_images_per_sec']:.1f} img/s, step median "
-              f"{run['epoch3_step_median_ms']:.1f} ms, wait {run['epoch3_wait_per_step_ms']:.1f} "
+              f"epoch {len(epochs)} {run['last_images_per_sec']:.1f} img/s, step median "
+              f"{run['last_step_median_ms']:.1f} ms, wait {run['last_wait_per_step_ms']:.1f} "
               f"ms per step; decode cache {cache} (hit rate {run['cache_hit_rate']}); AP "
               f"{run['stats'].get('AP')}; decode launches {run['launches']}")
         if not (run["evaluations"] == 1 and run["stats"]["AP"] > 0
@@ -4110,7 +4179,7 @@ def ddp_on_one_card(root: str, device: torch.device) -> dict:
 
 class _ProfiledStep:
     """The train entry's step with calls ``first`` to ``first + DDP_PROFILED_STEPS
-    - 1`` (from 0) under torch.profiler: per step, the all-reduces issued
+    - 1`` (from 0; the last of epoch 1) under torch.profiler: per step, the all-reduces issued
     (host ranges whose name holds ``all_reduce``), the nccl kernels' device
     time and count (a group of one rank may launch none) and the
     device-to-device copies' (DDP's gradient buckets) go to ``out``."""
@@ -4134,30 +4203,29 @@ class _ProfiledStep:
         if call == self.first + DDP_PROFILED_STEPS - 1:
             torch.cuda.synchronize()
             self.prof.__exit__(None, None, None)
-            events = self.prof.events()
-            ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-            issued = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                      and "all_reduce" in e.name.lower()]
-            nccl = [e for e in ops if "nccl" in e.name.lower()]
-            copies = [e for e in ops if "dtod" in e.name.lower().replace(" ", "")]
+            events = trace_events(self.prof)
+            ops = [e for e in events if e[1]]
+            issued = [e for e in events if not e[1] and "all_reduce" in e[0].lower()]
+            nccl = [e for e in ops if "nccl" in e[0].lower()]
+            copies = [e for e in ops if "dtod" in e[0].lower().replace(" ", "")]
 
             def per_step_ms(evs):
-                return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / DDP_PROFILED_STEPS
+                return sum(end - start for _, _, start, end in evs) / 1e3 / DDP_PROFILED_STEPS
 
             self.out.update(
                 all_reduces=len(issued) / DDP_PROFILED_STEPS,
-                all_reduce_names=sorted({e.name for e in issued}),
+                all_reduce_names=sorted({e[0] for e in issued}),
                 nccl_ms=per_step_ms(nccl), nccl_kernels=len(nccl) / DDP_PROFILED_STEPS,
-                nccl_names=sorted({e.name for e in nccl}),
+                nccl_names=sorted({e[0] for e in nccl}),
                 dtod_ms=per_step_ms(copies), dtod_copies=len(copies) / DDP_PROFILED_STEPS,
                 data_parallel=isinstance(self.step.module, nn.parallel.DistributedDataParallel))
         return loss
 
 
 def torchrun_entry(out_dir: str, argv: list) -> None:
-    """Phase 26 (b), the process torchrun starts: the train entry's
+    """Phase 26 (b), in the process torchrun starts: the train entry's
     ``train`` on ``argv`` (its process group from torchrun's variables),
-    the decode kernel's launches counted and epoch 2's first steps
+    the decode kernel's launches counted and epoch 1's last steps
     profiled; writes ``entry.json``."""
     args = train_entry.parse_train_args(argv)
     profiled = {}
@@ -4165,7 +4233,8 @@ def torchrun_entry(out_dir: str, argv: list) -> None:
     steps_per_epoch = {}
 
     def build_train_step(*a, **kw):
-        return _ProfiledStep(build_step(*a, **kw), steps_per_epoch["n"], profiled)
+        return _ProfiledStep(build_step(*a, **kw), steps_per_epoch["n"] - DDP_PROFILED_STEPS,
+                             profiled)
 
     pipeline = train_entry.create_pipeline
 
@@ -4189,33 +4258,64 @@ def torchrun_entry(out_dir: str, argv: list) -> None:
               "profiled": profiled}
     with open(os.path.join(out_dir, "entry.json"), "w") as f:
         json.dump(record, f, default=float)
+
+
+def torchrun_entries(jobs_path: str) -> None:
+    """Phases 26 (b) and 27 (b), the one process torchrun starts for both:
+    the DDP run (``torchrun_entry``), then the FSDP run
+    (``torchrun_fsdp_entry``) in the same process group, as ``jobs_path``
+    (JSON) gives their directories and command lines."""
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    torchrun_entry(jobs["ddp"]["dir"], jobs["ddp"]["argv"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torchrun_fsdp_entry(jobs["fsdp"]["dir"], jobs["fsdp"]["argv"])
     dist.destroy_process_group()
 
 
-def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict) -> dict:
-    """Phase 26 (b): hrnet_w32_tpu.yaml as parsed through the train entry
-    under ``python3 -m torch.distributed.run --nproc_per_node=1`` (nccl,
-    world size 1, DDP over the one card), on phase 12's data, 3 epochs of 10
-    steps, evaluating after the last, as phase 25 trains its input modes.
-    It holds finite, falling losses, AP above 0 and one decode launch per
-    val batch, and that the profiled steps issued all-reduces; it prints the
-    img/s of epoch 3 beside phase 12's host targets without DDP, and per step the all-reduces issued, the nccl kernels' device time
-    (none ran in a group of one rank on the H100: 0.0000 ms) and DDP's
-    device-to-device copies (torch.profiler, epoch 2's first step)."""
-    ckpt_dir = os.path.join(root, "ddp_entry")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
-    argv = ["--config", RECIPE_YAML, "--cfg-options", f"train_root={train_root}",
-            f"train_label={train_label}", f"val_root={val_root}", f"val_label={val_label}",
-            f"ckpt_save_dir={ckpt_dir}", f"num_epochs={DDP_EPOCHS}", f"warmup={INPUT_WARMUP}",
-            f"val_interval={DDP_EPOCHS}"]
+def launch_entries(root: str, data: dict, vit_data: dict) -> float:
+    """Phases 26 (b) and 27 (b): one ``python3 -m torch.distributed.run
+    --nproc_per_node=1`` (nccl, world size 1) whose process trains
+    hrnet_w32_tpu.yaml through DDP on phase 12's data, then
+    vitpose_h_tpu.yaml sharded on phase 21's data (``torchrun_entries``);
+    ``ddp_entry`` and ``fsdp_entry`` read what it wrote. Returns its seconds
+    with the start."""
+    jobs = {"ddp": {"dir": os.path.join(root, "ddp_entry"), "argv": entry_argv(
+                RECIPE_YAML, data, os.path.join(root, "ddp_entry"), f"num_epochs={DDP_EPOCHS}",
+                f"warmup={INPUT_WARMUP}", f"val_interval={DDP_EPOCHS}")},
+            "fsdp": {"dir": os.path.join(root, "fsdp_entry"), "argv": entry_argv(
+                VITPOSE_YAML["h"], vit_data, os.path.join(root, "fsdp_entry"),
+                *FSDP_OPTIONS)}}
+    for job in jobs.values():
+        os.makedirs(job["dir"], exist_ok=True)
+    jobs_path = os.path.join(root, "torchrun_jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
     start = time.perf_counter()
     run_processes([[sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
                     "--master_addr=127.0.0.1", f"--master_port={free_port()}",
-                    os.path.abspath(__file__), "--torchrun-entry", ckpt_dir, "--", *argv]],
-                  [os.path.join(ckpt_dir, "torchrun.log")], DDP_TIMEOUT_S, "phase 26 (b)")
-    entry_s = time.perf_counter() - start
-    with open(os.path.join(ckpt_dir, "entry.json")) as f:
+                    os.path.abspath(__file__), "--torchrun-entries", jobs_path]],
+                  [os.path.join(root, "torchrun.log")], DDP_TIMEOUT_S + FSDP_TIMEOUT_S,
+                  "phases 26 (b) and 27 (b)")
+    seconds = time.perf_counter() - start
+    print(f"torchrun (one process: the DDP run, then the FSDP run): {seconds:.1f} s with the "
+          f"start")
+    return seconds
+
+
+def ddp_entry(root: str, device: torch.device, phase12: dict) -> dict:
+    """Phase 26 (b): hrnet_w32_tpu.yaml as parsed through the train entry
+    under ``python3 -m torch.distributed.run --nproc_per_node=1`` (nccl,
+    world size 1, DDP over the one card; ``launch_entries``), on phase 12's
+    data, ``DDP_EPOCHS`` epochs of 10 steps, evaluating after the last.
+    It holds finite, falling losses, AP above 0 and one decode launch per
+    val batch, and that the profiled step issued all-reduces; it prints the
+    img/s of epochs 2-3 beside phase 12's host targets without DDP, and per
+    step the all-reduces issued, the nccl kernels' device time (none ran in
+    a group of one rank on the H100: 0.0000 ms) and DDP's device-to-device
+    copies (torch.profiler, epoch 1's last step)."""
+    with open(os.path.join(root, "ddp_entry", "entry.json")) as f:
         run = json.load(f)
     epochs = run["epochs"]
     rate = entry_epochs("DDP entry (torchrun, 1 rank, nccl)", epochs)
@@ -4226,16 +4326,17 @@ def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict) -> dic
     val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // HRNET_W32["batch_size"])
     prof = run["profiled"]
     print(f"DDP entry (torchrun --nproc_per_node=1, backend {run['backend']}, world "
-          f"{run['world']}, cuda:{run['device']}): epoch 3 {last['images_per_sec']:.1f} img/s "
+          f"{run['world']}, cuda:{run['device']}): epoch {len(epochs)} "
+          f"{last['images_per_sec']:.1f} img/s "
           f"(step median {last['step_median_s'] * 1e3:.1f} ms, wait "
-          f"{last['wait_total_s'] / last['steps'] * 1e3:.1f} ms a step), epochs 2-3 "
+          f"{last['wait_total_s'] / last['steps'] * 1e3:.1f} ms a step), epochs 2-{len(epochs)} "
           f"{rate:.1f}; without DDP: phase 12's epochs 2-{ENTRY_EPOCHS} "
-          f"{phase12['images_per_sec']:.1f}; per step of epoch 2 (torch.profiler, "
+          f"{phase12['images_per_sec']:.1f}; per step of epoch 1's last (torch.profiler, "
           f"{DDP_PROFILED_STEPS} step(s)): {prof['all_reduces']:.1f} all-reduces issued "
           f"({prof['all_reduce_names']}), nccl kernels {prof['nccl_ms']:.4f} ms of device time "
           f"({prof['nccl_kernels']:.1f} kernels: {prof['nccl_names']}), device-to-device copies "
           f"{prof['dtod_ms']:.4f} ms ({prof['dtod_copies']:.1f}); AP {ap:.6f}; losses {losses}; "
-          f"decode kernel launches {run['launches']}; {entry_s:.1f} s with the start")
+          f"decode kernel launches {run['launches']}")
     if not (run["backend"] == "nccl" and run["world"] == 1 and prof["data_parallel"]):
         raise AssertionError("phase 26 (b): the entry did not train through DDP over nccl")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
@@ -4246,10 +4347,9 @@ def ddp_entry(root: str, data: dict, device: torch.device, phase12: dict) -> dic
     if not prof["all_reduces"] >= 1:
         raise AssertionError("phase 26 (b): the profiled steps issued no all-reduce")
     return {"launches": run["launches"], "images_per_sec": rate,
-            "epoch3_images_per_sec": last["images_per_sec"], "ap": ap,
+            "last_images_per_sec": last["images_per_sec"], "ap": ap,
             "all_reduces_per_step": prof["all_reduces"], "nccl_ms_per_step": prof["nccl_ms"],
-            "nccl_kernels_per_step": prof["nccl_kernels"], "dtod_ms_per_step": prof["dtod_ms"],
-            "seconds": entry_s}
+            "nccl_kernels_per_step": prof["nccl_kernels"], "dtod_ms_per_step": prof["dtod_ms"]}
 
 
 def vitpose_h_args(device: torch.device) -> Config:
@@ -4348,7 +4448,20 @@ def fsdp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
-def fsdp_on_one_card(root: str, device: torch.device) -> dict:
+def start_fsdp_ranks(root: str, pool: ThreadPoolExecutor) -> dict:
+    """Phase 27 (a)'s two rank processes (``fsdp_rank``), started on ``pool``
+    beside phase 26 (a)'s, which they need nothing from."""
+    out_dir = os.path.join(root, "fsdp_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    commands = [[sys.executable, os.path.abspath(__file__), "--fsdp-rank", str(rank),
+                 str(FSDP_WORLD), str(port), out_dir] for rank in range(FSDP_WORLD)]
+    logs = [os.path.join(out_dir, f"rank{rank}.log") for rank in range(FSDP_WORLD)]
+    return {"out_dir": out_dir, "start": time.perf_counter(),
+            "future": pool.submit(run_processes, commands, logs, FSDP_TIMEOUT_S, "phase 27 (a)")}
+
+
+def fsdp_on_one_card(device: torch.device, ranks: dict) -> dict:
     """Phase 27 (a): ViT-H at full width, cut to ``FSDP_DEPTH`` blocks,
     sharded over two ranks on the one card over gloo (``fsdp_rank``),
     against one process on the whole batch, ``FSDP_STEPS`` steps of the
@@ -4363,29 +4476,22 @@ def fsdp_on_one_card(root: str, device: torch.device) -> dict:
     layer decay), and the first step's gradients, put together from the
     ranks' shards, within ``FSDP_GRAD_RTOL`` of each tensor's largest
     (float64 sums in another order). Each rank's parameters and AdamW
-    moments are printed beside the whole ones."""
-    out_dir = os.path.join(root, "fsdp_ranks")
-    os.makedirs(out_dir, exist_ok=True)
-    port = free_port()
-    commands = [[sys.executable, os.path.abspath(__file__), "--fsdp-rank", str(rank),
-                 str(FSDP_WORLD), str(port), out_dir] for rank in range(FSDP_WORLD)]
-    logs = [os.path.join(out_dir, f"rank{rank}.log") for rank in range(FSDP_WORLD)]
+    moments are printed beside the whole ones. ``ranks`` are the rank
+    processes ``start_fsdp_ranks`` started, during phase 26 (a)."""
+    out_dir = ranks["out_dir"]
     args = vitpose_h_args(device)
-    start = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        ranks = pool.submit(run_processes, commands, logs, FSDP_TIMEOUT_S, "phase 27 (a)")
-        # meanwhile the one process, on the same card
-        net, optimizer, step = vitpose_h_step(args, accum_steps=1)
-        image, keypoints = vit_batch(FSDP_WORLD * FSDP_RANK_BATCH, device)
-        losses, grads = [], None
-        for _ in range(FSDP_STEPS):
-            losses.append(step(image, keypoints).cpu())
-            if grads is None:
-                grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
-        whole = {"params": local_bytes(net.parameters()),
-                 "moments": local_bytes(moments(optimizer))}
-        ranks.result()
-    seconds = time.perf_counter() - start
+    # the one process, on the same card
+    net, optimizer, step = vitpose_h_step(args, accum_steps=1)
+    image, keypoints = vit_batch(FSDP_WORLD * FSDP_RANK_BATCH, device)
+    losses, grads = [], None
+    for _ in range(FSDP_STEPS):
+        losses.append(step(image, keypoints).cpu())
+        if grads is None:
+            grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+    whole = {"params": local_bytes(net.parameters()),
+             "moments": local_bytes(moments(optimizer))}
+    ranks["future"].result()
+    seconds = time.perf_counter() - ranks["start"]
     got = [torch.load(os.path.join(out_dir, f"fsdp_rank{r}.pt")) for r in range(FSDP_WORLD)]
     grad_err, worst_name, equal = 0.0, "", True
     for n, g in grads.items():
@@ -4415,7 +4521,7 @@ def fsdp_on_one_card(root: str, device: torch.device) -> dict:
           f"(tolerance {FSDP_LOSS_RTOL}); the first step's reduced gradients against the one "
           f"process's {grad_err:.3e} of each tensor's largest at worst ({worst_name}; "
           f"tolerance {FSDP_GRAD_RTOL}; bitwise equal: {equal}); {seconds:.1f} s for the ranks "
-          f"and the one process")
+          f"(beside phase 26 (a)'s) and the one process")
     for g in got:
         if not (g["params"][0] * FSDP_WORLD <= g["params"][1] + 2**20
                 and g["moments"][0] * FSDP_WORLD <= g["moments"][1] + 2**21):
@@ -4429,7 +4535,7 @@ def fsdp_on_one_card(root: str, device: torch.device) -> dict:
 
 
 def torchrun_fsdp_entry(out_dir: str, argv: list) -> None:
-    """Phase 27 (b), the process torchrun starts: the train entry's ``train``
+    """Phase 27 (b), in the process torchrun starts: the train entry's ``train``
     on ``argv`` (its process group from torchrun's variables), the decode
     kernel's launches counted, the sharded net's and its optimizer's local
     bytes and the bytes of rank 0's unsharded eval copy recorded; writes
@@ -4471,52 +4577,37 @@ def torchrun_fsdp_entry(out_dir: str, argv: list) -> None:
               "peak": torch.cuda.max_memory_allocated()}
     with open(os.path.join(out_dir, "entry.json"), "w") as f:
         json.dump(record, f, default=float)
-    dist.destroy_process_group()
 
 
 def fsdp_entry(root: str, data: dict, device: torch.device) -> dict:
     """Phase 27 (b): vitpose_h_tpu.yaml as parsed (``parallel_mode: fsdp``,
     batch 32 in 4 microbatches, O2, layer decay 0.8) through the train entry
     under ``python3 -m torch.distributed.run --nproc_per_node=1`` (nccl,
-    world size 1: the net sharded over a mesh of one), on phase 21's data,
-    ``FSDP_EPOCHS`` epochs, evaluating after the last through rank 0's
-    unsharded copy. It holds: nccl, world 1, the net sharded, finite losses,
-    one decode launch per val batch; then the last checkpoint, gathered from
-    the shards, through the eval and serving entries
-    (``check_recipe_checkpoint``), which load it strictly into unsharded
-    nets."""
+    world size 1: the net sharded over a mesh of one; ``launch_entries``),
+    on phase 21's data, ``FSDP_EPOCHS`` epoch(s), evaluating after the last
+    through rank 0's unsharded copy. It holds: nccl, world 1, the net
+    sharded, finite losses, one decode launch per val batch; then the last
+    checkpoint, gathered from the shards, through the eval and serving
+    entries (``check_recipe_checkpoint``), which load it strictly into
+    unsharded nets."""
     name = "vitpose_h_tpu"
     ckpt_dir = os.path.join(root, "fsdp_entry")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
-    options = [f"train_root={train_root}", f"train_label={train_label}",
-               f"val_root={val_root}", f"val_label={val_label}", f"ckpt_save_dir={ckpt_dir}",
-               f"num_epochs={FSDP_EPOCHS}", f"warmup={VIT_SMALL_WARMUP}",
-               f"val_interval={FSDP_EPOCHS}", "save_best=False"]
-    argv = ["--config", VITPOSE_YAML["h"], "--cfg-options", *options]
-    start = time.perf_counter()
-    run_processes([[sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
-                    "--master_addr=127.0.0.1", f"--master_port={free_port()}",
-                    os.path.abspath(__file__), "--torchrun-fsdp-entry", ckpt_dir, "--", *argv]],
-                  [os.path.join(ckpt_dir, "torchrun.log")], FSDP_TIMEOUT_S, "phase 27 (b)")
-    entry_s = time.perf_counter() - start
     with open(os.path.join(ckpt_dir, "entry.json")) as f:
         run = json.load(f)
     epochs = run["epochs"]
     rate = entry_epochs(f"{name} FSDP entry (torchrun, 1 rank, nccl)", epochs)
     losses = [e["loss"] for e in epochs]
     evals = [e for e in epochs if e["metrics"]]
-    args = recipe_args(VITPOSE_YAML["h"], data, ckpt_dir, device, *options[5:])
+    args = recipe_args(VITPOSE_YAML["h"], data, ckpt_dir, device, *FSDP_OPTIONS)
     val_batches = -(-VIT_SMALL_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
     print(f"{name} FSDP entry (torchrun --nproc_per_node=1, backend {run['backend']}, world "
-          f"{run['world']}, mesh {run['mesh']}, sharded {run['sharded']}): epoch 2 "
+          f"{run['world']}, mesh {run['mesh']}, sharded {run['sharded']}): epoch {len(epochs)} "
           f"{rate:.1f} img/s, step median {epochs[-1]['step_median_s'] * 1e3:.1f} ms; "
           f"parameters {run['params'][0]} of {run['params'][1]} B, AdamW moments "
           f"{run['moments'][0]} of {run['moments'][1]} B on the rank, and its unsharded "
           f"eval copy's parameters and buffers {run['eval_copy'][0]} B; peak "
           f"torch.cuda.max_memory_allocated {run['peak']} B ({run['peak'] / 2**30:.2f} GiB); "
-          f"losses {losses}; decode kernel launches {run['launches']}; {entry_s:.1f} s with "
-          f"the start")
+          f"losses {losses}; decode kernel launches {run['launches']}")
     if not (run["backend"] == "nccl" and run["world"] == 1 and run["sharded"]):
         raise AssertionError("phase 27 (b): the entry did not train sharded over nccl")
     if not np.isfinite(losses).all():
@@ -4529,7 +4620,7 @@ def fsdp_entry(root: str, data: dict, device: torch.device) -> dict:
                                       os.path.join(ckpt_dir, f"{name}_last.ckpt"), stats,
                                       val_batches, root, device)
     return {"launches": run["launches"], **checked, "images_per_sec": rate,
-            "peak_bytes": run["peak"], "seconds": entry_s}
+            "peak_bytes": run["peak"]}
 
 
 def distill_training(root: str, data: dict, device: torch.device) -> dict:
@@ -5037,6 +5128,184 @@ def demos(root: str, data: dict, topdown_ckpt: str, bottomup_ckpt: str,
             "grouping_launches": out["bottom-up"]["grouping_launches"], "runs": out}
 
 
+VISUAL_SAMPLES = 2  # phase 33 (a): samples of each visualisation tool
+RESIZE_EVAL_IMAGES = 8  # phase 33 (b): frames of phase 12's val split, batch 1
+RESIZE_SIZE = 512  # bottomup_resize's short side (its default): 512x704 for 360x480 frames
+PHOTOMETRIC_TRAIN_IMAGES = 192  # phase 33 (c): 384 records, 3 steps of 128
+PHOTOMETRIC_VAL_IMAGES = 16
+NATIVE_STATS_ATOL = 1e-9  # the stats with the native library on against off
+
+
+def visual_tools(root: str, data: dict, topdown_ckpt: str, bottomup_ckpt: str) -> dict:
+    """Phase 33 (a): the three visualisation tools on VISUAL_SAMPLES samples
+    each: ground truth (hrnet_w32_tpu.yaml's train loader on phase 12's data,
+    no net), top-down predictions (phase 12's last checkpoint: one decode
+    launch per sample) and AE predictions (higher_hrnet_w32_tpu.yaml, phase
+    17's checkpoint: one grouping launch per sample), on the current card."""
+    (train_root, train_label), (val_root, val_label) = data["train"], data["val"]
+    paths = [f"train_root={train_root}", f"train_label={train_label}",
+             f"val_root={val_root}", f"val_label={val_label}"]
+    out = {}
+    for label, tool, recipe, ckpt in (
+            ("gt", visual_gt_tool, RECIPE_YAML, None),
+            ("topdown", visual_topdown_tool, RECIPE_YAML, topdown_ckpt),
+            ("ae", visual_ae_tool, HIGHER_YAML, bottomup_ckpt)):
+        out_dir = os.path.join(root, f"visual_{label}")
+        argmax_shift_decode.launches = 0
+        cuda_grouping.match_by_tag_batch.launches = 0
+        start = time.perf_counter()
+        results = tool.main(["--config", recipe, *(["--ckpt", ckpt] if ckpt else []),
+                             "--num-samples", str(VISUAL_SAMPLES), "--output-dir", out_dir,
+                             "--cfg-options", *paths])
+        seconds = time.perf_counter() - start
+        written = sorted(os.listdir(out_dir))
+        out[label] = {"launches": argmax_shift_decode.launches, "seconds": seconds,
+                      "grouping_launches": cuda_grouping.match_by_tag_batch.launches}
+        print(f"visual {label}: {len(written)} images written in {seconds:.2f} s; decode kernel "
+              f"launches {out[label]['launches']}, grouping kernel launches "
+              f"{out[label]['grouping_launches']}")
+        want = {"gt": (0, 0), "topdown": (VISUAL_SAMPLES, 0), "ae": (0, VISUAL_SAMPLES)}[label]
+        if len(written) != VISUAL_SAMPLES or (out[label]["launches"],
+                                              out[label]["grouping_launches"]) != want:
+            raise AssertionError(f"visual {label} wrote {written} with launches {out[label]}")
+        for path in written:
+            image = cv2.imread(os.path.join(out_dir, path))
+            if image is None or image.size == 0:
+                raise AssertionError(f"visual {label}: {path} is not an image")
+        if label == "topdown":
+            for r in results:
+                ok = r["preds"].shape == (HRNET_W32["num_joints"], 3) and np.isfinite(
+                    r["preds"]).all() and (r["preds"][:, :2] >= 0).all() and (
+                    r["preds"][:, 0] < HRNET_W32["dataset_setting"]["heatmap_size"][0]).all()
+                if not ok:
+                    raise AssertionError(f"visual topdown: keypoints off the heatmap {r['preds']}")
+    return out
+
+
+def resize_evaluation(root: str, data: dict, ckpt: str, device: torch.device) -> dict:
+    """Phase 33 (b): phase 17's checkpoint (higher_hrnet_w32_tpu.yaml at full
+    width) through the eval entry on RESIZE_EVAL_IMAGES frames of phase 12's
+    val split, with ``bottomup_resize`` as the val transform: inputs whose
+    sides are multiples of 64 and not square, batch 1 (the batch rule), one
+    grouping launch per frame."""
+    val_root, val_label = data["val"]
+    with open(val_label) as f:
+        coco = json.load(f)
+    kept = {im["id"] for im in coco["images"][:RESIZE_EVAL_IMAGES]}
+    subset = dict(coco, images=[im for im in coco["images"] if im["id"] in kept],
+                  annotations=[a for a in coco["annotations"] if a["image_id"] in kept])
+    label = os.path.join(root, "resize_val.json")
+    with open(label, "w") as f:
+        json.dump(subset, f)
+    args = parse_args(["--config", HIGHER_YAML, "--ckpt", ckpt, "--cfg-options",
+                       f"val_root={val_root}", f"val_label={label}",
+                       f"val_transforms=[{{'bottomup_resize': {{'size': {RESIZE_SIZE}}}}}]",
+                       f"result_path={os.path.join(root, 'resize_result.json')}"])
+    timings = {}
+    cuda_grouping.match_by_tag_batch.launches = 0
+    start = time.perf_counter()
+    stats = evaluate(args, device=device, timings=timings)
+    seconds = time.perf_counter() - start
+    launches = cuda_grouping.match_by_tag_batch.launches
+    loader = create_pipeline(create_dataset(val_root, label, dataset_format=args.dataset_format,
+                                            is_train=False, config=args.dataset_setting),
+                             args.val_transforms, method="bottomup", batch_size=args.batch_size,
+                             is_train=False, config=args.dataset_setting)
+    shape = next(iter(loader))["image"].shape
+    print(f"bottom-up eval with bottomup_resize (size {RESIZE_SIZE}): {timings['records']} "
+          f"images in {timings['batches']} batches of input {shape[1]}x{shape[2]}, "
+          f"{seconds:.2f} s; grouping kernel launches {launches}; AP "
+          f"{float(stats['AP']):.6f}; stats {json.dumps({k: float(v) for k, v in stats.items()})}")
+    values = np.array([float(v) for v in stats.values()])
+    if len(values) != 10 or not (np.isfinite(values) & (values >= -1) & (values <= 1)).all():
+        raise AssertionError(f"phase 33 (b): malformed COCO stats {stats}")
+    if not (launches == timings["batches"] == timings["records"] == RESIZE_EVAL_IMAGES):
+        raise AssertionError(f"phase 33 (b): {launches} grouping launches for "
+                             f"{timings['batches']} batches of {RESIZE_EVAL_IMAGES} frames")
+    if shape[1] % 64 or shape[2] % 64 or shape[1] == shape[2]:
+        raise AssertionError(f"phase 33 (b): bottomup_resize gave {shape}")
+    return {"launches": launches, "ap": float(stats["AP"]), "seconds": seconds}
+
+
+def photometric_training(root: str, device: torch.device) -> dict:
+    """Phase 33 (c): hrnet_w32_tpu.yaml as parsed (full width, O2, batch 128)
+    through the train entry with ``topdown_photometric_distortion`` after
+    its first train transform, one epoch of 3 steps on synthetic COCO,
+    evaluating after it: finite losses, the transform applied to every
+    trained record, one decode launch per val batch."""
+    data = write_synthetic_coco(os.path.join(root, "photometric"), PHOTOMETRIC_TRAIN_IMAGES,
+                                PHOTOMETRIC_VAL_IMAGES, ENTRY_PEOPLE)
+    transforms = [HRNET_W32["train_transforms"][0], "topdown_photometric_distortion",
+                  *HRNET_W32["train_transforms"][1:]]
+    args = recipe_args(RECIPE_YAML, data, os.path.join(root, "photometric_ckpt"), device,
+                       "num_epochs=1", "warmup=1",
+                       "val_interval=1", f"train_transforms={transforms!r}")
+    distortion = entrypoint("transform", "topdown_photometric_distortion")
+    calls = []
+    transform = distortion.transform
+
+    def counted(self, state):
+        calls.append(1)
+        return transform(self, state)
+
+    distortion.transform = counted
+    argmax_shift_decode.launches = 0
+    start = time.perf_counter()
+    try:
+        result = train_entry.train(args)
+    finally:
+        distortion.transform = transform
+    seconds = time.perf_counter() - start
+    (epoch,) = result["epochs"]
+    launches = argmax_shift_decode.launches
+    val_batches = -(-PHOTOMETRIC_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    print(f"hrnet_w32_tpu with topdown_photometric_distortion: {epoch['steps']} steps, loss "
+          f"{epoch['loss']:.6g}, {epoch['images_per_sec']:.1f} img/s, AP "
+          f"{float(epoch['metrics']['AP']):.6f}; the transform ran on {len(calls)} records; "
+          f"decode kernel launches {launches}; {seconds:.1f} s")
+    if not (epoch["steps"] == PHOTOMETRIC_TRAIN_IMAGES * ENTRY_PEOPLE // args.batch_size
+            and np.isfinite(epoch["loss"])):
+        raise AssertionError(f"phase 33 (c): {epoch['steps']} steps, loss {epoch['loss']}")
+    if len(calls) < epoch["images"] or launches != val_batches:
+        raise AssertionError(f"phase 33 (c): the transform ran {len(calls)} times for "
+                             f"{epoch['images']} records; {launches} decode launches")
+    return {"launches": launches, "seconds": seconds, "steps": epoch["steps"]}
+
+
+def native_evaluator(root: str, phase8: dict, gpu: str) -> dict:
+    """Phase 33 (d): phase 8's first pass's evaluator (its records, OKS-NMS
+    and COCOeval) again on the same results, with the native COCO library on
+    and then off (``set_native_enabled``): the host seconds of each and the
+    stats, within NATIVE_STATS_ATOL of each other."""
+    kept = phase8["evaluator_inputs"]
+    label = os.path.join(root, "phase8_val.json")
+    with open(label, "w") as f:
+        json.dump(kept["annotations"], f)
+    args = kept["args"]
+    seconds, stats = {}, {}
+    try:
+        for on in (True, False):
+            native.set_native_enabled(on)
+            evaluator = create_evaluator(
+                label, name=args.eval_method, metric=args.eval_metric,
+                config=args.eval_setting, dataset_config=args.dataset_setting,
+                num_joints=args.num_joints,
+                result_path=os.path.join(root, f"phase8_native_{on}.json"))
+            start = time.perf_counter()
+            stats[on] = evaluator(copy.deepcopy(kept["outputs"]))
+            seconds[on] = time.perf_counter() - start
+    finally:
+        native.set_native_enabled(True)
+    worst = max(abs(float(stats[True][k]) - float(stats[False][k])) for k in stats[True])
+    print(f"evaluator on phase 8's first pass ({len(kept['outputs'])} records): native library "
+          f"on {seconds[True]:.3f} s, off {seconds[False]:.3f} s "
+          f"({seconds[False] / seconds[True]:.2f}x); phase 8's own {kept['eval_s']:.3f} s; stats "
+          f"max |diff| {worst:.2e} (tolerance {NATIVE_STATS_ATOL}); {gpu}")
+    if worst > NATIVE_STATS_ATOL:
+        raise AssertionError("phase 33 (d): the stats with the native library on and off differ")
+    return {"on_s": seconds[True], "off_s": seconds[False]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5087,8 +5356,9 @@ def main() -> int:
     lap("4-5")
 
     check_conv_chain(device)
+    lap("6")
     probed = drive_probe(device)
-    lap("6-7")
+    lap("7")
 
     evaluated = evaluation(net, device)
     del net
@@ -5096,10 +5366,12 @@ def main() -> int:
     lap("8")
 
     phase9 = train_throughput(device)
+    lap("9")
     check_loss_falls(device)
+    lap("10")
     compare_train_with_cpu(device)
     torch.cuda.empty_cache()
-    lap("9-11")
+    lap("11")
 
     with tempfile.TemporaryDirectory() as root:
         entry = train_through_entry(root, phase9, device)
@@ -5110,45 +5382,57 @@ def main() -> int:
         torch.cuda.empty_cache()
         plain = train_simple_baseline(root, entry["data"], device, SB_YAML)
         torch.cuda.empty_cache()
+        lap("13")
         plain_eval = eval_checkpoint(root, plain, device, dark=False)
         sb_eval = eval_simple_baseline(root, trained, device)
+        lap("14")
         sb_served = serve_simple_baseline(root, trained, device)
         torch.cuda.empty_cache()
-        lap("13-15")
+        lap("15")
         grouped = check_grouping(device)
         lap("16")
         bu_eval = bottomup_evaluation(root, device)
+        lap("17")
         bu_served = serve_bottomup(root, bu_eval["ckpt"], device)
         torch.cuda.empty_cache()
-        lap("17-18")
+        lap("18")
         bu_trained = bottomup_training(root, device)
         torch.cuda.empty_cache()
         lap("19")
         vit = vitpose_training(root, entry["data"], device)
         torch.cuda.empty_cache()
+        lap("20")
         vit_data = write_synthetic_coco(os.path.join(root, "vit_small"), VIT_SMALL_IMAGES,
                                         VIT_SMALL_VAL_IMAGES, ENTRY_PEOPLE)
         vit_recipes = vitpose_recipes(root, vit_data, device)
         torch.cuda.empty_cache()
-        lap("20-21")
+        lap("21")
         simcc = family_training(root, entry["data"], device, SIMCC_YAML)
+        lap("22")
         rle = family_training(root, entry["data"], device, RLE_YAML)
+        lap("23")
         mpii_kernel = mpii_decode(device)
         mpii_run = mpii_training(root, device)
         torch.cuda.empty_cache()
-        lap("22-24")
+        lap("24")
         input_modes = input_modes_training(root, entry["data"], device)
         torch.cuda.empty_cache()
         lap("25")
-        ddp_on_one_card(root, device)
-        torch.cuda.empty_cache()
-        ddp = ddp_entry(root, entry["data"], device, entry)
-        lap("26")
-        fsdp_on_one_card(root, device)
-        torch.cuda.empty_cache()
+        with ThreadPoolExecutor(1) as background:
+            fsdp_ranks = start_fsdp_ranks(root, background)  # beside phase 26 (a)
+            ddp_on_one_card(root, device)
+            torch.cuda.empty_cache()
+            lap("26 (a)")
+            fsdp_on_one_card(device, fsdp_ranks)
+            torch.cuda.empty_cache()
+            lap("27 (a)")
+        launch_entries(root, entry["data"], vit_data)
+        lap("26 (b) and 27 (b): the torchrun process")
+        ddp = ddp_entry(root, device, entry)
+        lap("26 (b)")
         fsdp = fsdp_entry(root, vit_data, device)
         torch.cuda.empty_cache()
-        lap("27")
+        lap("27 (b)")
         distilled = distill_training(root, entry["data"], device)
         torch.cuda.empty_cache()
         lap("28")
@@ -5165,7 +5449,17 @@ def main() -> int:
                        bu_eval["ckpt"], device)
         torch.cuda.empty_cache()
         lap("32")
+        visual = visual_tools(root, entry["data"],
+                              os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
+                              bu_eval["ckpt"])
+        resized = resize_evaluation(root, entry["data"], bu_eval["ckpt"], device)
+        torch.cuda.empty_cache()
+        photometric = photometric_training(root, device)
+        torch.cuda.empty_cache()
+        native_evaluator(root, evaluated, gpu)
+        lap("33")
     check_no_processes_left()
+    print(f"time: the whole run took {time.perf_counter() - clock['start']:.1f} s by its clock")
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
                                       ("launches", "eval_launches", "serve_launches")},
                     **{name: {key: r[key] for key in
@@ -5202,7 +5496,8 @@ def main() -> int:
                      + sum(sum(r.values()) for r in vit_launches.values())
                      + sum(mpii_launches.values()) + input_modes["launches"]
                      + ddp["launches"] + distilled["launches"] + int8["launches"]
-                     + exported["launches"] + demoed["launches"]),
+                     + exported["launches"] + demoed["launches"]
+                     + visual["topdown"]["launches"] + photometric["launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
@@ -5222,6 +5517,10 @@ def main() -> int:
         "int8_launches": int8["launches"],
         "export_launches": exported["launches"],
         "demo_launches": demoed["launches"],
+        # phase 33: the top-down visualisation tool (1 per sample) and the
+        # photometric-distortion run's callback (1 per eval batch)
+        "visual_launches": visual["topdown"]["launches"],
+        "photometric_launches": photometric["launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],
@@ -5282,11 +5581,17 @@ def main() -> int:
         # callbacks (phase 19: one per eval batch), and the bottom-up demo
         # (phase 32: one per image)
         "launches": (bu_eval["launches"] + bu_served["launches"] + bu_trained["launches"]
-                     + demoed["grouping_launches"]),
+                     + demoed["grouping_launches"] + visual["ae"]["grouping_launches"]
+                     + resized["launches"]),
         "eval_launches": bu_eval["launches"],
         "serve_launches": bu_served["launches"],
         "train_eval_launches": bu_trained["launches"],
         "demo_launches": demoed["grouping_launches"],
+        # phase 33: the AE visualisation tool (1 per sample) and the
+        # bottom-up evaluation with bottomup_resize (1 per frame, batch 1)
+        "visual_launches": visual["ae"]["grouping_launches"],
+        "resize_eval_launches": resized["launches"],
+        "resize_eval_ap": resized["ap"],
         "sets_checked": grouped["sets"],
         "max_abs_err": grouped["max_abs_err"],
         # per batch of 32 images at the recipe's settings (L=1, rounded norm),
@@ -5325,15 +5630,12 @@ if __name__ == "__main__":
         rank, world, port = map(int, sys.argv[2:5])
         ddp_rank(rank, world, port, sys.argv[5])
         sys.exit(0)
-    if sys.argv[1:2] == ["--torchrun-entry"]:  # phase 26 (b): the process torchrun starts
-        torchrun_entry(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
+    if sys.argv[1:2] == ["--torchrun-entries"]:  # phases 26 (b), 27 (b): torchrun's process
+        torchrun_entries(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--fsdp-rank"]:  # phase 27 (a): one rank
         rank, world, port = map(int, sys.argv[2:5])
         fsdp_rank(rank, world, port, sys.argv[5])
-        sys.exit(0)
-    if sys.argv[1:2] == ["--torchrun-fsdp-entry"]:  # phase 27 (b): the process torchrun starts
-        torchrun_fsdp_entry(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
         sys.exit(0)
     try:
         code = main()

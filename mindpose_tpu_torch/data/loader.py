@@ -17,8 +17,12 @@ caller runs batch i.
 The pool's processes come from a ``forkserver``, where the JAX loader
 forks its own process: a fork taken after CUDA is initialised, or while the
 producer thread holds a lock, can deadlock. The seeding and the order of
-the records are the JAX loader's. ``DataLoader.close`` ends the pool's
-workers; ``stop_worker_servers`` ends the forkserver and the resource
+the records are the JAX loader's. The workers read the records and
+transforms from a file the loader pickles them to, as the forkserver's
+child reads its arguments only after it imports the main module: sent as
+arguments, a large dataset would start the workers one after another.
+``DataLoader.close`` ends the pool's workers and removes that file;
+``stop_worker_servers`` ends the forkserver and the resource
 tracker that multiprocessing starts beside them, which would otherwise
 outlive the program for a while after it exits.
 
@@ -190,14 +194,21 @@ def _make_record(state: Dict[str, Any], transforms, normalize: bool, mean, std,
     return state
 
 
-# --- the process pool's workers: the dataset and transforms are sent once,
-# by the pool's initializer
+# --- the process pool's workers: the dataset and transforms are read once,
+# by the pool's initializer, from the loader's state file
 _WORKER_STATE: Dict[str, Any] = {}
 
 
-def _process_worker_init(dataset, transforms, normalize, mean, std, seed, decode_cache_mb=0):
+def _process_worker_init(state_path: str) -> None:
+    """A pool worker's start: its records, transforms and settings from the
+    file the loader pickled them to (a few bytes of arguments, so that the
+    forkserver's pipe never blocks the start of the next worker)."""
+    import pickle
+
     from .transform.topdown_transform import _cv2
 
+    with open(state_path, "rb") as f:
+        dataset, transforms, normalize, mean, std, seed, decode_cache_mb = pickle.load(f)
     _WORKER_STATE.update(dataset=dataset, transforms=transforms, normalize=normalize,
                          mean=mean, std=std,
                          cache=DecodedFrameCache(decode_cache_mb) if decode_cache_mb else None)
@@ -279,6 +290,7 @@ class DataLoader:
         self.device_num, self.rank_id = device_num, rank_id
         self._indices = np.arange(len(dataset))[rank_id::device_num]  # this rank's shard
         self._pool = None  # the process pool, made at the first process-mode pass
+        self._state_path = None  # the file the pool's workers read their state from
         # frame-grouped shuffling: each frame's records of the shard, in dataset order
         self._frame_groups: Optional[List[np.ndarray]] = None
         if frame_grouped_shuffle:
@@ -327,28 +339,42 @@ class DataLoader:
             return None
         if self._pool is None:
             import multiprocessing as mp
+            import pickle
+            import tempfile
 
             ctx = mp.get_context("forkserver")
             ctx.set_forkserver_preload(["mindpose_tpu_torch.data"])
-            self._pool = ctx.Pool(
-                processes=self.num_workers,
-                initializer=_process_worker_init,
-                initargs=(self.dataset, self.transforms, self.normalize, self.mean, self.std,
-                          self.seed, self.decode_cache_mb),
-            )
+            # Each worker's arguments go down a pipe that the forkserver's
+            # child reads only after it has imported the main module, so
+            # arguments larger than the pipe would start the workers one
+            # after another; the state goes through a file instead
+            fd, self._state_path = tempfile.mkstemp(prefix="mindpose-loader-", suffix=".pkl")
+            with os.fdopen(fd, "wb") as f:
+                pickle.dump((self.dataset, self.transforms, self.normalize, self.mean, self.std,
+                             self.seed, self.decode_cache_mb), f,
+                            protocol=pickle.HIGHEST_PROTOCOL)
+            self._pool = ctx.Pool(processes=self.num_workers, initializer=_process_worker_init,
+                                  initargs=(self._state_path,))
         return self._pool.map
 
     def close(self) -> None:
-        """Stop the process pool, if there is one."""
+        """Stop the process pool, if there is one, and remove its state file."""
         if self._pool is not None:
             self._pool.terminate()
             self._pool.join()
             self._pool = None
+        self._remove_state()
+
+    def _remove_state(self) -> None:
+        path, self._state_path = getattr(self, "_state_path", None), None
+        if path is not None and os.path.exists(path):
+            os.unlink(path)
 
     def __del__(self):
         pool = getattr(self, "_pool", None)
         if pool is not None:
             pool.terminate()
+        self._remove_state()
 
     @property
     def num_samples(self) -> int:

@@ -3,7 +3,10 @@
 Evaluation and serving: the base ``BottomUpTransform`` (:38),
 ``bottomup_rescale`` (``BottomUpRescale``, :93: fit the image into
 ``max_image_size``, keeping its aspect ratio, with the center and scale that
-map the heatmaps back) and ``bottomup_pad`` (``BottomUpPad``, :436: pad to
+map the heatmaps back), ``bottomup_resize`` (``BottomUpResize``, :130: the
+short side to ``size`` and both sides up to multiples of ``base_length``,
+warped with cv2's INTER_LINEAR, with a mask of ones; no recipe sets it, and
+its inputs need not be square) and ``bottomup_pad`` (``BottomUpPad``, :436: pad to
 ``max_image_size``, with the validity mask). Training:
 ``bottomup_horizontal_random_flip`` (:56), ``bottomup_random_affine``
 (:189: image warped to ``image_size`` with INTER_LINEAR, each level's mask
@@ -15,8 +18,7 @@ with INTER_NEAREST and its keypoints to that level's heatmap),
 padded to ``max_num``). Each draws from the global numpy stream in the JAX
 order (``np.random.randint`` with float bounds included). cv2 is imported
 when a transform first needs it, with the JAX module's 2 threads
-(``topdown_transform._cv2``). ``bottomup_resize`` waits (no recipe sets
-it). tests/test_torch_host_copies.py and
+(``topdown_transform._cv2``). tests/test_torch_host_copies.py and
 tests/test_torch_bottomup_train_data.py hold each copy equal to its
 original.
 """
@@ -42,6 +44,7 @@ __all__ = [
     "BottomUpGenerateTarget",
     "BottomUpGenerateTagInd",
     "BottomUpRescale",
+    "BottomUpResize",
     "BottomUpPad",
 ]
 
@@ -134,6 +137,66 @@ class BottomUpRescale(BottomUpTransform):
         scale = np.array([width / pixel_std, height / pixel_std])
         return dict(
             image=image,
+            center=center,
+            scale=scale,
+            image_shape=np.array(target_size),
+        )
+
+
+@register("transform", extra_name="bottomup_resize")
+class BottomUpResize(BottomUpTransform):
+    """Short side to `size`, dims ceiled to base_length."""
+
+    def __init__(
+        self,
+        is_train: bool = True,
+        config: Optional[Dict[str, Any]] = None,
+        size: int = 512,
+        base_length: int = 64,
+    ) -> None:
+        super().__init__(is_train, config)
+        self.size = size
+        self.base_length = base_length
+
+    @staticmethod
+    def _ceil_to_base_length(x, base_length: int) -> int:
+        return int(np.ceil(x / base_length)) * base_length
+
+    def _get_new_size(self, image_size, size, base_length=64, pixel_std=200.0):
+        w, h = image_size
+        min_size = self._ceil_to_base_length(size, base_length)
+        if w < h:
+            target_w = min_size
+            target_h = self._ceil_to_base_length(min_size / w * h, base_length)
+            scale_w = w / pixel_std
+            scale_h = target_h / target_w * w / pixel_std
+        else:
+            target_h = min_size
+            target_w = self._ceil_to_base_length(min_size / h * w, base_length)
+            scale_h = h / pixel_std
+            scale_w = target_w / target_h * h / pixel_std
+        center = np.array([round(w / 2), round(h / 2)])
+        scale = np.array([scale_w, scale_h])
+        return (target_w, target_h), center, scale
+
+    def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        cv2 = _cv2()
+        image = state["image"]
+        height, width = image.shape[:2]
+        target_size, center, scale = self._get_new_size(
+            [width, height],
+            self.size,
+            base_length=self.base_length,
+            pixel_std=self._transform_cfg["pixel_std"],
+        )
+        mat = get_affine_transform(center, scale, 0, target_size)
+        image = cv2.warpAffine(
+            image, np.asarray(mat), target_size, flags=cv2.INTER_LINEAR
+        )
+        mask = np.ones(image.shape[:2], dtype=np.uint8)
+        return dict(
+            image=image,
+            mask=mask,
             center=center,
             scale=scale,
             image_shape=np.array(target_size),

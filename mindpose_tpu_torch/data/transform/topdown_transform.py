@@ -20,7 +20,9 @@ Copies of ``mindpose_tpu/data/transform/topdown_transform.py``:
   SimCC and RLE heads, ``topdown_generate_simcc_target`` (:462: per-axis
   discrete Gaussians over the x and y bins) and
   ``topdown_generate_regression_target`` (:515: coordinates over the input
-  size).
+  size);
+- ``topdown_photometric_distortion`` (:551: brightness, contrast,
+  saturation and hue jitter on the uint8 pixels; no recipe sets it).
 
 Every random draw is made on the global ``np.random`` stream, in the JAX
 package's order, so that with one loader worker and one seed the port's
@@ -56,7 +58,7 @@ __all__ = ["box_to_center_scale", "crop_matrix", "TopDownTransform",
            "TopDownGenerateTarget",
            "TopDownHorizontalRandomFlip", "TopDownHalfBodyTransform",
            "TopDownRandomScaleRotation", "TopDownGenerateSimCCTarget",
-           "TopDownGenerateRegressionTarget"]
+           "TopDownGenerateRegressionTarget", "TopDownPhotometricDistortion"]
 
 _CV2 = []
 
@@ -586,3 +588,73 @@ class TopDownGenerateRegressionTarget(TopDownTransform):
         target = xy / np.array([w, h], dtype=np.float32)
         target *= target_weight[:, None]
         return dict(target=target, target_weight=target_weight)
+
+
+@register("transform", extra_name="topdown_photometric_distortion")
+class TopDownPhotometricDistortion(TopDownTransform):
+    """Random brightness / contrast / saturation / hue jitter (uint8 HWC).
+
+    The SSD-style photometric pipeline, each op applied with probability
+    0.5, contrast randomly ordered before or after saturation/hue. Pixels
+    stay uint8; keypoints and geometry are untouched, so it composes
+    anywhere before ``topdown_affine`` (host path) and with the device
+    pipeline (the warp takes whatever pixels the host hands it).
+    """
+
+    def __init__(
+        self,
+        is_train: bool = True,
+        config: Optional[Dict[str, Any]] = None,
+        brightness_delta: float = 32.0,
+        contrast_range: Tuple[float, float] = (0.5, 1.5),
+        saturation_range: Tuple[float, float] = (0.5, 1.5),
+        hue_delta: float = 18.0,
+    ) -> None:
+        super().__init__(is_train=is_train, config=config)
+        self.brightness_delta = float(brightness_delta)
+        self.contrast_range = tuple(contrast_range)
+        self.saturation_range = tuple(saturation_range)
+        self.hue_delta = float(hue_delta)
+
+    @staticmethod
+    def _clip_u8(image: np.ndarray) -> np.ndarray:
+        return np.clip(image, 0, 255).astype(np.uint8)
+
+    def _contrast(self, image: np.ndarray) -> np.ndarray:
+        if np.random.rand() < 0.5:
+            alpha = np.random.uniform(*self.contrast_range)
+            image = self._clip_u8(image.astype(np.float32) * alpha)
+        return image
+
+    def transform(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        image = state["image"]
+
+        if np.random.rand() < 0.5:
+            delta = np.random.uniform(-self.brightness_delta,
+                                      self.brightness_delta)
+            image = self._clip_u8(image.astype(np.float32) + delta)
+
+        contrast_first = np.random.rand() < 0.5
+        if contrast_first:
+            image = self._contrast(image)
+
+        do_sat = np.random.rand() < 0.5
+        do_hue = np.random.rand() < 0.5
+        if do_sat or do_hue:
+            cv2 = _cv2()
+            hsv = cv2.cvtColor(image, cv2.COLOR_RGB2HSV).astype(np.float32)
+            if do_sat:
+                hsv[..., 1] *= np.random.uniform(*self.saturation_range)
+            if do_hue:
+                # OpenCV uint8 hue wraps at 180
+                hsv[..., 0] = (
+                    hsv[..., 0] + np.random.uniform(-self.hue_delta,
+                                                    self.hue_delta)
+                ) % 180.0
+            hsv[..., 1:] = np.clip(hsv[..., 1:], 0, 255)
+            image = cv2.cvtColor(hsv.astype(np.uint8), cv2.COLOR_HSV2RGB)
+
+        if not contrast_first:
+            image = self._contrast(image)
+
+        return dict(image=image)

@@ -1,1 +1,1 @@
-"""Host utilities of the port: checkpoints and the COCO keypoint metric."""
+"""Host utilities of the port: checkpoints, the COCO keypoint metric and its native library."""

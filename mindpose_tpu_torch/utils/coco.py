@@ -3,8 +3,10 @@
 Copies of ``mindpose_tpu/utils/coco.py``: ``image_id_name_maps``, the
 ``COCO`` index with its pycocotools-named query API and ``loadRes``, and
 the segmentation codecs that the bottom-up training masks read (:37-218):
-RLE (uncompressed and compressed counts; the numpy path of ``decode_rle``,
-not the JAX package's native one, which gives the same bytes) and polygons
+RLE (uncompressed and compressed counts; ``decode_rle`` expands the runs
+in the C++ library, ``csrc/coco_native.cpp`` through ``utils/native.py``, as
+the original does, and in numpy, with the same bytes, only where the caller
+turned the library off with ``MINDPOSE_NATIVE=0``) and polygons
 (``rle_counts_from_poly``, pycocotools' rasterization). tests/
 test_torch_eval_copies.py holds the index equal to its original,
 tests/test_torch_bottomup_train_data.py the codecs.
@@ -51,6 +53,11 @@ def decode_rle(rle: Dict[str, Any]) -> np.ndarray:
     if total != h * w:
         raise ValueError(f"RLE counts sum {total} != h*w {h * w}")
 
+    from .native import decode_rle_native
+
+    native = decode_rle_native(counts, h, w)
+    if native is not None:
+        return native
     # runs alternate 0-run, 1-run, ... in column-major (Fortran) order
     vals = np.zeros(len(counts), dtype=np.uint8)
     vals[1::2] = 1

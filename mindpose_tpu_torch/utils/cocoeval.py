@@ -3,10 +3,10 @@
 Copy of ``mindpose_tpu/utils/cocoeval.py`` (``COCOeval``, ``Params``), the
 pycocotools-free COCO keypoint protocol: OKS matching at IoU thresholds
 0.50:0.05:0.95, areas {all, medium, large}, maxDets=20, 101-point
-interpolated AP. The original first tries a C++ OKS row
-(``csrc/coco_native.cpp`` through ``utils/native.py``); the copy keeps only
-its numpy path, which the original falls back to and which gives the same
-numbers. Method and variable names mirror pycocotools' cocoeval.py
+interpolated AP. ``computeOks`` takes each gt's OKS row from the C++
+library (``csrc/coco_native.cpp`` through ``utils/native.py``), as the
+original does; its numpy loop runs only where the caller turned the library
+off (``MINDPOSE_NATIVE=0``), and gives the same numbers within 1e-9. Method and variable names mirror pycocotools' cocoeval.py
 ((c) Piotr Dollar & Tsung-Yi Lin, BSD-2-Clause). tests/test_torch_eval_copies.py
 holds the copy equal to its original.
 """
@@ -98,9 +98,22 @@ class COCOeval:
         variances = (sigmas * 2) ** 2
         k = len(sigmas)
 
+        from .native import compute_oks_row
+
+        dt_arr = np.ascontiguousarray(
+            [np.asarray(d["keypoints"], np.float64) for d in dts]
+        )
+
         ious = np.zeros((len(dts), len(gts)))
         for j, gt in enumerate(gts):
             g = np.array(gt["keypoints"])
+            native_row = compute_oks_row(
+                g, dt_arr, gt["area"], np.asarray(gt["bbox"], np.float64),
+                variances,
+            )
+            if native_row is not None:
+                ious[:, j] = native_row
+                continue
             xg, yg, vg = g[0::3], g[1::3], g[2::3]
             k1 = np.count_nonzero(vg > 0)
             bb = gt["bbox"]

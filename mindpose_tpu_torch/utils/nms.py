@@ -1,9 +1,11 @@
 """OKS-based NMS over keypoint detections, in numpy: a copy of the JAX package's.
 
 Copy of ``mindpose_tpu/utils/nms.py`` (``oks_iou``, ``oks_nms``,
-``soft_oks_nms``): greedy OKS NMS and soft-NMS with gaussian rescoring. The
-original first tries a C++ pairwise OKS (``csrc/coco_native.cpp``); the copy
-keeps only its numpy path. tests/test_torch_eval_copies.py holds the copy
+``soft_oks_nms``): greedy OKS NMS and soft-NMS with gaussian rescoring.
+``oks_iou`` takes the pairwise OKS from the C++ library
+(``csrc/coco_native.cpp`` through ``utils/native.py``), as the original
+does; its numpy path runs only where the caller turned the library off
+(``MINDPOSE_NATIVE=0``). tests/test_torch_eval_copies.py holds the copy
 equal to its original.
 """
 from typing import Any, Dict, List, Optional
@@ -40,6 +42,11 @@ def oks_iou(
     if d.size == 0:
         return np.zeros(0, dtype=np.float32)
 
+    from .native import oks_iou_pairs
+
+    native = oks_iou_pairs(g, d, a_g, np.asarray(a_d), variances, vis_thr)
+    if native is not None:
+        return native.astype(np.float32)
     xd, yd, vd = d[:, 0::3], d[:, 1::3], d[:, 2::3]
 
     dx = xd - xg[None, :]

@@ -3,7 +3,8 @@
 ``mpii_records`` draws records of MPII's json export (16 joints, MPII's
 center and scale, the head joints 8 and 9 always labeled so that PCKh is
 defined) as ``tests/data/test_mpii_convert.py`` draws them. ``write_split``
-converts them to COCO format with ``tools/convert_mpii.convert`` and paints
+converts them to COCO format with the port's ``tools/convert_mpii.convert``
+(``mindpose_tpu_torch/tools/convert_mpii.py``, a copy of the JAX package's) and paints
 each person's box and labeled joints into frames of the converter's
 estimated size: a joint is a disc whose colour its flip partner shares, as
 the synthetic COCO frames have them. ``chip_smoke.py`` and the port's MPII
@@ -11,18 +12,14 @@ tests train and evaluate configs/mpii/hrnet_w32_mpii_tpu.yaml on it.
 
 Usage: ``write_split(root, num_images, seed, people)`` -> (image_root, annotation_path).
 """
-import importlib.util
 import json
 import os
 
 import cv2
 import numpy as np
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_spec = importlib.util.spec_from_file_location(
-    "convert_mpii", os.path.join(ROOT, "tools", "convert_mpii.py"))
-convert_mpii = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(convert_mpii)
+from mindpose_tpu_torch.tools import convert_mpii
+
 NUM_JOINTS = convert_mpii.MPII_NUM_JOINTS
 TRAIN_SEED, VAL_SEED = 0, 1
 

@@ -5,8 +5,10 @@ top-down evaluator, the ``coco_topdown`` dataset and the val loader are
 copies (the port cannot import the JAX package). On the same inputs
 (tests/helpers.py:make_tiny_coco with make_detection_json, random
 predictions, and tests/cocofixtures.py's realistic eval fixture) each gives
-its original's output bit for bit, with the original's C++ OKS path off;
-with it on, the COCO stats agree to 1e-9.
+its original's output bit for bit, with both packages' C++ OKS paths off;
+with both on (the port builds its own copy of the library), the COCO stats
+and the NMS keep-lists are bit for bit too; the JAX package's C++ path
+against the port's numpy path agrees to 1e-9.
 """
 import json
 import logging
@@ -34,6 +36,7 @@ from mindpose_tpu_torch.engine import create_evaluator
 from mindpose_tpu_torch.engine.factory import _merged
 from mindpose_tpu_torch.utils.coco import COCO, image_id_name_maps
 from mindpose_tpu_torch.utils.cocoeval import COCOeval
+from mindpose_tpu_torch.utils import native as port_native
 from mindpose_tpu_torch.utils.nms import oks_iou, oks_nms, soft_oks_nms
 from tests.cocofixtures import make_realistic_eval_fixture
 from tests.helpers import DATASET_SETTING, make_detection_json, make_tiny_coco
@@ -51,10 +54,20 @@ VAL_TRANSFORMS = ["topdown_box_to_center_scale", "topdown_affine"]
 
 @pytest.fixture
 def numpy_only():
-    """The JAX package's COCOeval and NMS on their numpy path, restored after."""
+    """Both packages' COCOeval and NMS on their numpy paths, restored after."""
     native.set_native_enabled(False)
+    port_native.set_native_enabled(False)
     yield
     native.set_native_enabled(True)
+    port_native.set_native_enabled(True)
+
+
+@pytest.fixture
+def port_numpy_only():
+    """The port's COCOeval and NMS on their numpy path, restored after."""
+    port_native.set_native_enabled(False)
+    yield
+    port_native.set_native_enabled(True)
 
 
 @pytest.fixture(scope="module")
@@ -134,12 +147,66 @@ def test_cocoeval_bitwise_on_the_numpy_path(tiny, numpy_only, source):
     assert port.stats[0] > 0
 
 
-def test_cocoeval_against_the_native_path():
-    """The JAX package with its C++ OKS path on: the stats agree to 1e-9."""
+def test_cocoeval_against_the_native_path(port_numpy_only):
+    """The JAX package with its C++ OKS path on, the port on its numpy path:
+    the stats agree to 1e-9."""
     gt, results = make_realistic_eval_fixture(num_images=12, seed=4)
     port = _coco_stats(COCO, COCOeval, gt, results)
     want = _coco_stats(JaxCOCO, JaxCOCOeval, gt, results)
     np.testing.assert_allclose(port.stats, want.stats, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("source", ["tiny", "realistic", "unlabelled"])
+def test_cocoeval_bitwise_with_both_native_paths(tiny, source):
+    """Both packages' C++ OKS rows on (the port's library built from its copy
+    of the source, with the same flags): the 10 stats and the accumulated
+    arrays bit for bit; "unlabelled" zeroes every other gt's joints, so
+    that their rows take the doubled-box distance."""
+    assert native.native_available() and port_native.native_available()
+    if source == "tiny":
+        with open(tiny[1]) as f:
+            gt = json.load(f)
+        results, sigmas = _predictions(tiny[1]), EVAL_SETTING["sigmas"]
+    else:
+        gt, results = make_realistic_eval_fixture(num_images=12, seed=5)
+        sigmas = None
+        if source == "unlabelled":
+            for a in gt["annotations"][::2]:
+                kp = np.asarray(a["keypoints"], float)
+                kp[2::3] = 0
+                a["keypoints"] = kp.tolist()
+    port = _coco_stats(COCO, COCOeval, gt, results, sigmas)
+    want = _coco_stats(JaxCOCO, JaxCOCOeval, gt, results, sigmas)
+    assert len(port.stats) == 10
+    np.testing.assert_array_equal(port.stats, want.stats)
+    for key in ("precision", "recall", "scores"):
+        np.testing.assert_array_equal(port.eval[key], want.eval[key])
+    assert port.stats[0] > 0
+
+
+def test_oks_nms_keep_lists_bitwise_with_both_native_paths():
+    """Both packages' C++ pairwise OKS on: every keep-list and soft-NMS
+    ranking equal, and the pairwise OKS bit for bit."""
+    assert native.native_available() and port_native.native_available()
+    rng = np.random.RandomState(9)
+    for trial in range(20):
+        n = rng.randint(2, 14)
+        base = rng.uniform(0, 300, (1, 17, 2))
+        kpts = np.concatenate([base + rng.randn(n, 17, 2) * rng.uniform(1, 40),
+                               rng.uniform(0, 1, (n, 17, 1))], axis=-1)
+        db = [{"keypoints": k, "score": float(s), "area": float(a)}
+              for k, s, a in zip(kpts, rng.uniform(0, 1, n), rng.uniform(500, 20000, n))]
+        sigmas = np.asarray(EVAL_SETTING["sigmas"]) if trial % 2 else None
+        vis_thr = 0.2 if trial % 3 == 0 else None
+        flat = kpts.reshape(n, -1)
+        np.testing.assert_array_equal(
+            oks_iou(flat[0], flat[1:], 900.0, np.full(n - 1, 800.0), sigmas, vis_thr),
+            jax_oks_iou(flat[0], flat[1:], 900.0, np.full(n - 1, 800.0), sigmas, vis_thr))
+        for thr in (0.3, 0.9):
+            keep, want = oks_nms(db, thr, sigmas, vis_thr), jax_oks_nms(db, thr, sigmas, vis_thr)
+            assert keep.tolist() == want.tolist() and len(keep) >= 1
+            np.testing.assert_array_equal(soft_oks_nms(db, thr, 5, sigmas, vis_thr),
+                                          jax_soft_oks_nms(db, thr, 5, sigmas, vis_thr))
 
 
 def test_ground_truth_as_predictions_gives_ap_one(tiny):
@@ -415,6 +482,39 @@ def test_bottomup_val_loader_batches_bitwise(tiny, max_size, batch, want_batch):
         for col in want:
             assert got[col].dtype == want[col].dtype and got[col].shape == want[col].shape, col
             np.testing.assert_array_equal(got[col], want[col], err_msg=col)
+
+
+@pytest.mark.parametrize("transforms,max_size,batch,want_batch", [
+    ([{"bottomup_resize": {"size": 64}}], [96, 64], 4, 1),  # no pad: batch 1
+    ([{"bottomup_resize": {"size": 64}}, "bottomup_pad"], [256, 256], 3, 3),
+])
+def test_bottomup_resize_val_loader_batches_bitwise(tiny, transforms, max_size, batch,
+                                                    want_batch):
+    """``bottomup_resize`` (non-square inputs whose sides are multiples of
+    64) alone and before ``bottomup_pad``, and the batch rule, equal to the
+    JAX package's loader's batches."""
+    img_root, ann, _ = tiny
+    setting = dict(BOTTOMUP_SETTING, max_image_size=max_size)
+    port_ds = create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=False,
+                             config=setting)
+    jax_ds = jax_create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=False,
+                                config=setting)
+    port_loader = create_pipeline(port_ds, transforms, method="bottomup", batch_size=batch,
+                                  is_train=False, config=setting, num_workers=2)
+    jax_loader = jax_create_pipeline(jax_ds, transforms, method="bottomup", batch_size=batch,
+                                     is_train=False, config=setting)
+    assert port_loader.batch_size == jax_loader.batch_size == want_batch
+    port_batches, jax_batches = list(port_loader), list(jax_loader)
+    assert len(port_batches) == len(jax_batches) > 0
+    for got, want in zip(port_batches, jax_batches):
+        assert list(got) == list(want)
+        for col in want:
+            assert got[col].dtype == want[col].dtype and got[col].shape == want[col].shape, col
+            np.testing.assert_array_equal(got[col], want[col], err_msg=col)
+    h, w = port_batches[0]["image"].shape[1:3]
+    assert h % 64 == 0 and w % 64 == 0
+    if len(transforms) == 1:
+        assert h != w
 
 
 def test_bottomup_training_is_refused(tiny):

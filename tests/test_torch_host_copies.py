@@ -10,9 +10,12 @@ regression target transforms and MPII's distance metrics
 (``topdown_affine_matrix`` with its source patch, the deferred flip, the
 matrices' composition and mirror, ``DecodedFrameCache``), the backbone
 converter's host side (``utils/ms_ckpt.py``, ``normalize_source_keys``) and
-``utils/download.py``, and the demos' ``utils/smoothing.py`` (the One-Euro
-filter) and ``tools/skeleton.py`` (``tools/common/skeleton.py``) live in
-the port as copies (the bottom-up
+``utils/download.py``, the demos' ``utils/smoothing.py`` (the One-Euro
+filter) and ``tools/skeleton.py`` (``tools/common/skeleton.py``), the two
+transforms no recipe sets (``bottomup_resize``, ``topdown_photometric_distortion``),
+the native COCO library's C++ source (byte for byte), the pod launcher's
+barrier (``prepare_data_rank0``) and the data tools ``make_synthetic_coco``
+and ``convert_mpii`` live in the port as copies (the bottom-up
 train transforms' own test is tests/test_torch_bottomup_train_data.py);
 these tests pin each copy to its original, bit for bit. They also pin chip_smoke.py's config literal to
 configs/hrnet/hrnet_w32_tpu.yaml, so the GPU machine needs no yaml parser.
@@ -25,6 +28,9 @@ import yaml
 
 from mindpose_tpu.data.transform import utils as jax_utils
 from mindpose_tpu.data.transform.bottomup_transform import BottomUpPad as JaxBottomUpPad
+from mindpose_tpu.data.transform.bottomup_transform import (
+    BottomUpResize as JaxBottomUpResize,
+)
 from mindpose_tpu.data.transform.bottomup_transform import (
     BottomUpRescale as JaxBottomUpRescale,
 )
@@ -45,6 +51,9 @@ from mindpose_tpu.data.transform.topdown_transform import (
 from mindpose_tpu.data.transform.topdown_transform import (
     TopDownGenerateSimCCTarget as JaxSimCCTarget,
 )
+from mindpose_tpu.data.transform.topdown_transform import (
+    TopDownPhotometricDistortion as JaxPhotometricDistortion,
+)
 from mindpose_tpu.models.backbones.convert import (
     normalize_source_keys as jax_normalize_source_keys,
 )
@@ -56,18 +65,23 @@ from mindpose_tpu.utils import smoothing as jax_smoothing
 from mindpose_tpu.utils.match import match_by_tag as jax_match_by_tag
 from mindpose_tpu_torch.data.loader import DecodedFrameCache
 from mindpose_tpu_torch.data.transform import utils
-from mindpose_tpu_torch.data.transform.bottomup_transform import BottomUpPad, BottomUpRescale
+from mindpose_tpu_torch.data.transform.bottomup_transform import (
+    BottomUpPad,
+    BottomUpRescale,
+    BottomUpResize,
+)
 from mindpose_tpu_torch.data.transform.topdown_transform import (
     TopDownAffineMatrix,
     TopDownGenerateRegressionTarget,
     TopDownHorizontalRandomFlip,
     TopDownGenerateSimCCTarget,
+    TopDownPhotometricDistortion,
     box_to_center_scale,
     crop_matrix,
 )
 from mindpose_tpu_torch.models.convert_source import normalize_source_keys
 from mindpose_tpu_torch.ops.heatmap import gaussian_kernel_2d
-from mindpose_tpu_torch.tools import skeleton
+from mindpose_tpu_torch.tools import convert_mpii, launch_pod, make_synthetic_coco, skeleton
 from mindpose_tpu_torch.utils import download, keypoint_metrics, ms_ckpt, smoothing
 from mindpose_tpu_torch.utils.match import match_by_tag
 from tests.fixtures.grouping_sets import ORDER, candidate_sets
@@ -281,6 +295,121 @@ def test_bottomup_rescale_and_pad(max_size):
             got, want = np.asarray(state[key]), np.asarray(jax_state[key])
             assert got.dtype == want.dtype and got.shape == want.shape, key
             np.testing.assert_array_equal(got, want, err_msg=key)
+
+
+@pytest.mark.parametrize("size, base_length", [(512, 64), (128, 64), (100, 32)])
+def test_bottomup_resize(size, base_length):
+    """Landscape, portrait, square and odd-sized images: the image (its sides
+    multiples of ``base_length``, not square), mask, center, scale and shape."""
+    rng = np.random.RandomState(13)
+    config = dict(BOTTOMUP, max_image_size=[832, 512])
+    kwargs = dict(is_train=False, config=config, size=size, base_length=base_length)
+    for h, w in ((480, 640), (640, 480), (500, 500), (37, 123), (160, 224)):
+        image = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        got = BottomUpResize(**kwargs).transform({"image": image})
+        want = JaxBottomUpResize(**kwargs).transform({"image": image.copy()})
+        assert sorted(got) == sorted(want)
+        for key in want:
+            g, w_ = np.asarray(got[key]), np.asarray(want[key])
+            assert g.dtype == w_.dtype and g.shape == w_.shape, key
+            np.testing.assert_array_equal(g, w_, err_msg=key)
+        assert got["image"].shape[0] % base_length == got["image"].shape[1] % base_length == 0
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"brightness_delta": 64.0, "contrast_range": (0.2, 2.0),
+                                         "saturation_range": (0.0, 3.0), "hue_delta": 90.0}])
+def test_photometric_distortion_under_the_same_seed(kwargs):
+    """Each of 40 images from the same ``np.random`` state: the same pixels,
+    and the stream left where the original leaves it."""
+    rng = np.random.RandomState(14)
+    port = TopDownPhotometricDistortion(is_train=True, config=SETTING, **kwargs)
+    jax = JaxPhotometricDistortion(is_train=True, config=SETTING, **kwargs)
+    changed = 0
+    for i in range(40):
+        image = rng.randint(0, 256, (int(rng.randint(8, 90)), int(rng.randint(8, 90)), 3),
+                            dtype=np.uint8)
+        np.random.seed(200 + i)
+        want = jax.transform({"image": image.copy()})
+        after = np.random.rand()
+        np.random.seed(200 + i)
+        got = port.transform({"image": image.copy()})
+        assert list(got) == list(want) == ["image"]
+        assert got["image"].dtype == want["image"].dtype == np.uint8
+        np.testing.assert_array_equal(got["image"], want["image"])
+        assert np.random.rand() == after
+        changed += not np.array_equal(got["image"], image)
+    assert changed > 20
+
+
+def test_native_source_is_a_byte_for_byte_copy():
+    with open(os.path.join(ROOT, "csrc", "coco_native.cpp"), "rb") as f:
+        original = f.read()
+    with open(os.path.join(ROOT, "mindpose_tpu_torch", "csrc", "coco_native.cpp"), "rb") as f:
+        assert f.read() == original
+
+
+def _jax_tool(name):
+    """``tools/<name>.py`` of the JAX package, imported from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"jax_tools_{name}",
+                                                  os.path.join(ROOT, "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_prepare_barrier_runs_the_command_once_per_stamp(tmp_path, monkeypatch):
+    """``prepare_data_rank0`` as the original: rank 0 runs the command and
+    writes the command's hash; a matching barrier is not run again; a changed
+    command removes the stale barrier and runs; another rank waits for the
+    stamp and runs nothing."""
+    import hashlib
+    import sys as _sys
+
+    monkeypatch.syspath_prepend(os.path.join(ROOT, "tools"))
+    original = _jax_tool("launch_pod")
+    runs = {}
+    for label, module in (("port", launch_pod), ("jax", original)):
+        work = tmp_path / label
+        work.mkdir()
+        log = work / "log"
+        cmd = f"{_sys.executable} -c \"open(r'{log}', 'a').write('x')\""
+        module.prepare_data_rank0(cmd, str(work), 0)
+        module.prepare_data_rank0(cmd, str(work), 0)  # the barrier matches: not run
+        module.prepare_data_rank0(cmd, str(work), 1)  # the stamp is there: no wait, no run
+        stamp = (work / ".mindpose_data_ready").read_text()
+        module.prepare_data_rank0(cmd + " ", str(work), 0)  # a changed command runs
+        changed = (work / ".mindpose_data_ready").read_text()
+        assert stamp == hashlib.sha256(cmd.encode()).hexdigest()
+        assert changed == hashlib.sha256((cmd + " ").encode()).hexdigest()
+        runs[label] = log.read_text()
+    assert runs["port"] == runs["jax"] == "xx"
+
+
+def test_synthetic_coco_and_mpii_converter_equal_their_originals(tmp_path):
+    original = _jax_tool("make_synthetic_coco")
+    for layout, people in (("grid", 2), ("person", 3)):
+        for label, module in (("port", make_synthetic_coco), ("jax", original)):
+            module.generate_split(str(tmp_path / label / layout), 3, seed=layout == "grid",
+                                  people_per_img=people, layout=layout)
+        port, jax = tmp_path / "port" / layout, tmp_path / "jax" / layout
+        assert (port / "annotations.json").read_bytes() == (jax / "annotations.json").read_bytes()
+        names = sorted(os.listdir(jax / "images"))
+        assert sorted(os.listdir(port / "images")) == names and len(names) == 3
+        for name in names:
+            assert (port / "images" / name).read_bytes() == (jax / "images" / name).read_bytes()
+    mpii = _jax_tool("convert_mpii")
+    assert convert_mpii.MPII_FLIP_PAIRS == mpii.MPII_FLIP_PAIRS
+    assert convert_mpii.MPII_JOINT_NAMES == mpii.MPII_JOINT_NAMES
+    rng = np.random.RandomState(15)
+    records = [{"image": f"{i % 3:09d}.jpg", "center": rng.uniform(100, 400, 2).tolist(),
+                "scale": float(rng.uniform(0.8, 3)),
+                "joints": (rng.uniform(-5, 500, (16, 2)) * (rng.rand(16, 1) > 0.1)).tolist(),
+                "joints_vis": (rng.rand(16) > 0.3).astype(float).tolist()} for i in range(7)]
+    for shift in (True, False):
+        assert convert_mpii.convert(records, apply_center_shift=shift) == mpii.convert(
+            records, apply_center_shift=shift)
 
 
 TARGETS = {"image_size": [48, 64], "heatmap_size": [12, 16], "pixel_std": 200.0,

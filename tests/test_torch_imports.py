@@ -23,7 +23,8 @@ def _port_files():
               os.path.join("tests", "fixtures", "eval_checks.py"),
               os.path.join("tests", "fixtures", "ddp_ranks.py"),
               os.path.join("tests", "fixtures", "grouping_sets.py"),
-              os.path.join("tests", "fixtures", "mpii.py"))]
+              os.path.join("tests", "fixtures", "mpii.py"),
+              os.path.join("tests", "fixtures", "pod_entry.py"))]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "mindpose_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -55,6 +56,25 @@ def test_port_registry_is_its_own():
     assert jax_backbone.__module__.startswith("mindpose_tpu.")
     with pytest.raises(ValueError, match="already registered"):
         register("backbone")(port_backbone)
+
+
+NEW_TOOLS = ("visual_gt_heatmap", "visual_pred_heatmap_topdown", "visual_pred_heatmap_ae",
+             "make_synthetic_coco", "convert_mpii", "prepare_coco", "launch_pod")
+
+
+def test_tools_and_native_library_import_without_jax():
+    """In a fresh interpreter, the visualisation, data and launch tools and
+    the native library's bridge load no JAX module, and build nothing."""
+    modules = [f"mindpose_tpu_torch.tools.{name}" for name in NEW_TOOLS]
+    modules += ["mindpose_tpu_torch.utils.native", "mindpose_tpu_torch.version"]
+    code = ("import sys, importlib; "
+            f"[importlib.import_module(m) for m in {modules!r}]; "
+            "from mindpose_tpu_torch.ops.cuda import build; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'mindpose_tpu')), build.load_host_library.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[] 0", out.stdout + out.stderr
 
 
 def test_serving_path_imports_neither_cv2_nor_yaml():

@@ -2,7 +2,7 @@
 
 - the ``topdown_keypoint`` evaluator (PCK by bbox and PCKh, AUC, EPE, NME;
   on ``utils/keypoint_metrics.py``, pinned by tests/test_torch_host_copies.py)
-  on synthetic MPII records converted by ``tools/convert_mpii.py``: the
+  on synthetic MPII records converted by the port's ``tools/convert_mpii.py``: the
   port's metrics equal the JAX evaluator's within 1e-12, with TTA
   duplicates (the first record wins) and a record whose image has no
   labeled person (skipped), as tests/engine/test_keypoint_evaluator.py has

@@ -9,7 +9,9 @@
 - The loader over tests/fixtures/tiny_coco.py's train split with
   hrnet_w32_tpu.yaml's ``train_transforms``, one worker and one seed gives
   the JAX loader's ``image``, ``target`` and ``target_weight`` bit for bit
-  over 2 epochs (the shuffle changes per epoch).
+  over 2 epochs (the shuffle changes per epoch); so does it with
+  ``topdown_photometric_distortion`` (no recipe sets it) after the first
+  transform, drawing from numpy's global stream as JAX's does.
 - With 3 thread workers and with the process pool the records of each
   epoch come in the same order (the augmentations differ: the workers
   share or seed the random stream otherwise), ``len()`` drops the last
@@ -57,6 +59,8 @@ TRANSFORMS = [
     ("topdown_generate_target", {"sigma": 2.0}),
     ("topdown_generate_target", {"sigma": 1.5, "use_udp": True}),
     ("topdown_generate_target", {"sigma": 2.0, "use_different_joint_weights": True}),
+    ("topdown_photometric_distortion", {}),
+    ("topdown_photometric_distortion", {"brightness_delta": 80.0, "hue_delta": 60.0}),
 ]
 
 
@@ -138,6 +142,28 @@ def test_loader_equals_jax_bitwise_over_two_epochs(train_split):
     assert not np.array_equal(got[0][0]["target_weight"], got[1][0]["target_weight"])
 
 
+def test_loader_with_photometric_distortion_equals_jax_bitwise(train_split):
+    img_root, ann = train_split
+    transforms = [TRAIN_TRANSFORMS[0], "topdown_photometric_distortion", *TRAIN_TRANSFORMS[1:]]
+    kwargs = dict(method="topdown", batch_size=BATCH, is_train=True, config=SETTING,
+                  num_workers=1, seed=SEED)
+    want = _epochs(jax_create_pipeline(
+        jax_create_dataset(img_root, ann, is_train=True, config=SETTING), transforms, **kwargs))
+    got = _epochs(create_pipeline(
+        create_dataset(img_root, ann, is_train=True, config=SETTING), transforms, **kwargs))
+    plain = _epochs(create_pipeline(
+        create_dataset(img_root, ann, is_train=True, config=SETTING), TRAIN_TRANSFORMS, **kwargs),
+        n=1)
+    assert [len(e) for e in got] == [len(e) for e in want] == [4, 4]
+    for e, (got_epoch, want_epoch) in enumerate(zip(got, want)):
+        for b, (g, w) in enumerate(zip(got_epoch, want_epoch)):
+            assert list(g) == list(w) == ["image", "target", "target_weight"]
+            for col in w:
+                assert g[col].dtype == w[col].dtype and g[col].shape == w[col].shape
+                np.testing.assert_array_equal(g[col], w[col], err_msg=f"epoch {e} batch {b} {col}")
+    assert not np.array_equal(got[0][0]["image"], plain[0][0]["image"])  # the jitter acted
+
+
 def _order(loader):
     """Each epoch's records as (image_file, bbox_id), in the order they came."""
     epochs = []
@@ -204,6 +230,35 @@ def test_no_process_outlives_the_closed_pool(tmp_path):
     stop_worker_servers()
     assert len(pids) == 4 and all(isinstance(p, int) for p in pids)
     assert [p for p in pids if os.path.exists(f"/proc/{p}")] == []
+
+
+def test_the_pool_s_workers_read_their_state_from_a_file(tmp_path):
+    """The pool's initializer gets a file's path (a few bytes down the
+    forkserver's pipe, whatever the dataset's size); the workers' batches are
+    the threads' records, and ``close`` removes the file."""
+    import pickle
+
+    img_root, ann = tiny_coco.write_split(str(tmp_path), 6, 5)
+    ds = create_dataset(img_root, ann, is_train=True, config=SETTING)["dataset"]
+    loader = DataLoader(ds, [], ["image", "image_file"], batch_size=4, is_train=True,
+                        num_workers=2, worker_mode="process", seed=SEED)
+    threads = DataLoader(ds, [], ["image", "image_file"], batch_size=4, is_train=True,
+                         num_workers=2, seed=SEED)
+    try:
+        got = list(loader)
+        path = loader._state_path
+        assert os.path.isfile(path) and len(pickle.dumps(loader._pool._initargs)) < 1024
+        with open(path, "rb") as f:
+            assert len(pickle.load(f)[0]) == len(ds) == 12
+    finally:
+        loader.close()
+    del loader
+    stop_worker_servers()
+    assert not os.path.exists(path)
+    want = list(threads)
+    assert [list(b["image_file"]) for b in got] == [list(b["image_file"]) for b in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["image"], w["image"])
 
 
 def test_device_prefetcher_on_the_cpu_hands_over_tensors(train_split):
