@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat, int8 serving, the serving export, the demos, the visualisation tools, the native COCO library) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat, int8 serving, the serving export, the demos, the visualisation tools, the native COCO library, the experiment and ablation tools) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -33,7 +33,7 @@ no result, when there is no CUDA device or when any phase fails:
    equal whatever number of layers a launch fuses; bf16 at depth 1 within
    one ulp;
 7. the conv chain's own entry point, the go/no-go probe
-   (``tools/ablate_conv_chain.py``), at its three bf16 geometries: both
+   (``tools/ablate_pallas_chain.py``), at its three bf16 geometries: both
    device times, and the launch counts on that run, all on the tensor cores;
 8. evaluation through the eval entry (``tools/eval.evaluate``): the
    serving net's weights saved as a port checkpoint and loaded back bit for
@@ -301,12 +301,21 @@ no result, when there is no CUDA device or when any phase fails:
     the transform on every trained record, one decode launch per val batch;
     (d) phase 8's first pass's evaluator again on its results with the
     native COCO library on and off: the seconds of each, beside the card's
-    name and power limit, the stats within 1e-9.
+    name and power limit, the stats within 1e-9;
+34. the 14 experiment and ablation tools' ``main`` (``tools/ablate_accuracy``,
+    ``exp_grouping``, ``exp_warmstart``, ``ablate_step``, ``profile_parts``,
+    ``ablate_bottomup``, ``ablate_bu_backbone``, ``ablate_bu_loss``,
+    ``ablate_conv_chain``, ``ablate_conv_bwd``, ``ablate_conv_layout``,
+    ``ablate_conv_shape``, ``ablate_s2d_head``, ``probe_layout``) at full
+    width and their smallest counts: JAX's report keys, at least one decode
+    launch in ablate_accuracy and one grouping launch in exp_grouping's
+    device arm, exp_warmstart's converted backbone bit for bit equal to the
+    exported one, finite times and no NaN scalar in every ablation row.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 33. After each group of phases it
+started is still there after phase 34. After each group of phases it
 prints ``time: phases ... took N s``, and at the end the whole run's
 seconds by its own clock.
 
@@ -408,7 +417,7 @@ from mindpose_tpu_torch.parallel import (
     shard_net,
 )
 from mindpose_tpu_torch.scheduler import create_lr_scheduler
-from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+from mindpose_tpu_torch.tools import ablate_pallas_chain as probe
 from mindpose_tpu_torch.tools import convert_ckpt
 from mindpose_tpu_torch.tools import demo as demo_tool
 from mindpose_tpu_torch.tools import demo_video as demo_video_tool
@@ -5306,6 +5315,127 @@ def native_evaluator(root: str, phase8: dict, gpu: str) -> dict:
     return {"on_s": seconds[True], "off_s": seconds[False]}
 
 
+EXPERIMENT_TRAIN_IMAGES = 8  # phase 34: frames of 2 persons: 16 records, one step of 16
+EXPERIMENT_VAL_IMAGES = 4
+EXPERIMENT_BATCH = 16
+ABLATION_ITERS = "2"  # phase 34: timed calls after the warm one
+ACCURACY_PROTOCOL = {"train_images", "val_images", "people_per_img", "epochs", "batch_size",
+                     "backbone", "tta", "det_noise", "paired"}
+GROUPING_PROTOCOL = {"train_images", "val_images", "people_per_img", "epochs",
+                     "steps_per_epoch", "batch_size", "model", "hflip_tta", "multiscale_tta",
+                     "refine_missing_joint"}
+
+
+def check_rows(name: str, rows: list) -> None:
+    """An ablation's rows: each with finite positive times and a scalar that is
+    a number (inf where a chain's squared gradient norm overflows float32, as
+    the JAX program's does: C=128 and 256 chains of depth 8 at the tools'
+    weights), never NaN."""
+    if not rows:
+        raise AssertionError(f"{name}: no rows")
+    for row in rows:
+        ms = [v for k, v in row.items() if k == "ms" or k.endswith("_ms")]
+        values = [v for k, v in row.items() if k == "value" or k.endswith("_value")]
+        if not ms or not all(np.isfinite(m) and m > 0 for m in ms) or any(
+                v is not None and np.isnan(v) for v in values):
+            raise AssertionError(f"{name}: a row without a finite time or with a NaN: {row}")
+
+
+def experiment_tools(root: str, gpu: str) -> dict:
+    """Phase 34: the 14 experiment and ablation tools' ``main`` in this process,
+    at full width and their smallest counts, on the current card.
+
+    (a) ablate_accuracy (the plain arm, one seed, one epoch of one step of
+    HRNet-W32 at batch 16, 4 val frames): JAX's report keys and at least one
+    decode launch; (b) exp_grouping (HigherHRNet-W32 at 256, one step, the
+    same checkpoint grouped by the host Hungarian and by the kernel): JAX's
+    keys and at least one grouping launch, all in the device arm; (c)
+    exp_warmstart (one step on domain A, the export to a MindSpore .ckpt, the
+    convert_ckpt CLI in a process of its own, one step from scratch and one
+    from the converted backbone): JAX's keys, and the converted file equal
+    to the exported tensors bit for bit; (d) the eleven ablations and probes
+    at their full shapes with one warm call and two timed calls (probe_layout:
+    100 steps, best of 2): finite times, no NaN scalar. Prints each tool's
+    seconds and rows beside the card's name and power limit."""
+    from mindpose_tpu_torch.models.convert_source import normalize_source_keys
+    from mindpose_tpu_torch.tools import (
+        ablate_accuracy, ablate_bottomup, ablate_bu_backbone, ablate_bu_loss, ablate_conv_bwd,
+        ablate_conv_chain, ablate_conv_layout, ablate_conv_shape, ablate_s2d_head, ablate_step,
+        exp_grouping, exp_warmstart, probe_layout, profile_parts)
+
+    out = {"seconds": {}}
+    small = ["--train-images", str(EXPERIMENT_TRAIN_IMAGES),
+             "--val-images", str(EXPERIMENT_VAL_IMAGES)]
+
+    def timed(name, fn):
+        argmax_shift_decode.launches = 0
+        cuda_grouping.match_by_tag_batch.launches = 0
+        start = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - start
+        launches = (argmax_shift_decode.launches, cuda_grouping.match_by_tag_batch.launches)
+        torch.cuda.empty_cache()
+        print(f"phase 34 {name}: {out['seconds'][name]:.1f} s; decode kernel launches "
+              f"{launches[0]}, grouping kernel launches {launches[1]}")
+        return result, launches
+
+    acc, (out["accuracy_launches"], _) = timed("ablate_accuracy", lambda: ablate_accuracy.main([
+        "--arms", "plain", "--seeds", "0", "--epochs", "1", "--batch-size",
+        str(EXPERIMENT_BATCH), "--people", "2", *small,
+        "--data-root", os.path.join(root, "ablate_accuracy"),
+        "--out", os.path.join(root, "ablate_accuracy.json")]))
+    if (set(acc) != {"protocol", "runs", "summary"} or set(acc["protocol"]) != ACCURACY_PROTOCOL
+            or [r["label"] for r in acc["runs"]] != ["plain"]
+            or not 0.0 <= acc["runs"][0]["AP"] <= 1.0 or out["accuracy_launches"] < 1):
+        raise AssertionError(f"phase 34 (a): {acc} with {out['accuracy_launches']} launches")
+
+    grp, (_, out["grouping_launches"]) = timed("exp_grouping", lambda: exp_grouping.main([
+        "--seeds", "0", "--epochs", "1", "--steps-per-epoch", "1", "--batch-size", "8",
+        "--people", "2", *small, "--data-root", os.path.join(root, "exp_grouping"),
+        "--out", os.path.join(root, "exp_grouping.json")]))
+    if (set(grp) != {"protocol", "runs", "max_abs_delta"}
+            or set(grp["protocol"]) != GROUPING_PROTOCOL or len(grp["runs"]) != 1
+            or out["grouping_launches"] < 1):
+        raise AssertionError(f"phase 34 (b): {grp} with {out['grouping_launches']} launches")
+
+    warm_root = os.path.join(root, "exp_warmstart")
+    warm, (out["warmstart_launches"], _) = timed("exp_warmstart", lambda: exp_warmstart.main([
+        "--epochs", "1", "--pretrain-epochs", "1", "--batch-size", str(EXPERIMENT_BATCH),
+        "--seeds", "0", "--eval-every", "1", *small, "--data-root", warm_root,
+        "--out", os.path.join(root, "exp_warmstart.json")]))
+    stem = os.path.join(warm_root, f"{warm['protocol']['arch']}_domain_a")
+    exported = normalize_source_keys(convert_ckpt.load_source(stem + ".ckpt"))
+    converted = torch.load(stem + ".pth")
+    bitwise = set(exported) == set(converted) and all(
+        np.array_equal(converted[k].numpy(), exported[k]) for k in converted)
+    print(f"phase 34 exp_warmstart: {len(converted)} converted tensors bit for bit equal to "
+          f"the exported ones: {bitwise}")
+    if (set(warm) != {"protocol", "runs", "summary"} or len(warm["runs"]) != 2
+            or not bitwise or out["warmstart_launches"] < 1):
+        raise AssertionError(f"phase 34 (c): {warm['runs']}, bitwise {bitwise}")
+
+    iters = ["--iters", ABLATION_ITERS]
+    ablations = [
+        ("ablate_step", ablate_step, iters), ("profile_parts", profile_parts, iters),
+        ("ablate_bottomup", ablate_bottomup, iters),
+        ("ablate_bu_backbone", ablate_bu_backbone, iters),
+        ("ablate_bu_loss", ablate_bu_loss, iters), ("ablate_conv_chain", ablate_conv_chain, iters),
+        ("ablate_conv_bwd", ablate_conv_bwd, iters),
+        ("ablate_conv_layout", ablate_conv_layout, iters),
+        ("ablate_conv_shape", ablate_conv_shape, iters),
+        ("ablate_s2d_head", ablate_s2d_head, iters),
+        ("probe_layout", probe_layout, ["--reps", ABLATION_ITERS]),
+    ]
+    out["rows"] = {}
+    for name, tool, argv in ablations:
+        rows, _ = timed(name, lambda: tool.main(argv))
+        check_rows(name, rows)
+        out["rows"][name] = rows
+    print(f"phase 34: the ablations' rows above; {gpu}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5458,6 +5588,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         native_evaluator(root, evaluated, gpu)
         lap("33")
+        experiments = experiment_tools(root, gpu)
+        lap("34")
     check_no_processes_left()
     print(f"time: the whole run took {time.perf_counter() - clock['start']:.1f} s by its clock")
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
@@ -5497,7 +5629,8 @@ def main() -> int:
                      + sum(mpii_launches.values()) + input_modes["launches"]
                      + ddp["launches"] + distilled["launches"] + int8["launches"]
                      + exported["launches"] + demoed["launches"]
-                     + visual["topdown"]["launches"] + photometric["launches"]),
+                     + visual["topdown"]["launches"] + photometric["launches"]
+                     + experiments["accuracy_launches"] + experiments["warmstart_launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
@@ -5521,6 +5654,9 @@ def main() -> int:
         # photometric-distortion run's callback (1 per eval batch)
         "visual_launches": visual["topdown"]["launches"],
         "photometric_launches": photometric["launches"],
+        # phase 34: ablate_accuracy's evaluation and exp_warmstart's (1 per eval batch)
+        "experiment_launches": experiments["accuracy_launches"]
+        + experiments["warmstart_launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],
@@ -5582,7 +5718,7 @@ def main() -> int:
         # (phase 32: one per image)
         "launches": (bu_eval["launches"] + bu_served["launches"] + bu_trained["launches"]
                      + demoed["grouping_launches"] + visual["ae"]["grouping_launches"]
-                     + resized["launches"]),
+                     + resized["launches"] + experiments["grouping_launches"]),
         "eval_launches": bu_eval["launches"],
         "serve_launches": bu_served["launches"],
         "train_eval_launches": bu_trained["launches"],
@@ -5591,6 +5727,8 @@ def main() -> int:
         # bottom-up evaluation with bottomup_resize (1 per frame, batch 1)
         "visual_launches": visual["ae"]["grouping_launches"],
         "resize_eval_launches": resized["launches"],
+        # phase 34: exp_grouping's device arm (1 per eval batch)
+        "experiment_launches": experiments["grouping_launches"],
         "resize_eval_ap": resized["ap"],
         "sets_checked": grouped["sets"],
         "max_abs_err": grouped["max_abs_err"],

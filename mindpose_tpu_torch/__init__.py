@@ -12,7 +12,11 @@ evaluates (COCO OKS AP, MPII's PCKh); and serves over HTTP, in float32 or
 with int8 weights, or from a ``torch.export`` artifact. Its command lines
 are ``python3 -m mindpose_tpu_torch.tools.<name>``: train, eval, serve,
 export, demo, demo_video, convert_ckpt, the visualisation tools, the data
-tools and the pod launcher, and the conv-chain probe.
+tools and the pod launcher, the conv-chain probe (``ablate_pallas_chain``),
+and the experiment and ablation tools (``ablate_accuracy``,
+``exp_grouping``, ``exp_warmstart``, ``ablate_step``, ``profile_parts``,
+``ablate_bottomup``, ``ablate_bu_*``, ``ablate_conv_*``,
+``ablate_s2d_head``, ``probe_layout``).
 """
 from . import engine, models  # noqa: F401
 from .engine import PoseService, TopDownPredictor, build_http_server  # noqa: F401

@@ -14,6 +14,14 @@ inferred from the token count (square, else 4:3 portrait). Shapes are not
 checked here: ``tools/convert_ckpt.py --check`` compares them with the
 backbone's, and ``utils/checkpoint.load_pretrained_backbone`` takes what
 matches (resizing a position grid of another size).
+
+``export_backbone_state`` goes the other way, as the JAX package's (:336,
+with ``export_vit_state`` :377): a backbone's ``state_dict`` -> a
+published-style state dict with torch names or MindSpore's (BatchNorm's
+gamma/beta/moving_mean/moving_variance, ``down_sample``, ViTPose's
+``last_norm`` and the LayerNorms' gamma/beta), which
+``write_ms_checkpoint`` writes as a ``.ckpt`` that ``convert_backbone_source``
+carries back bit for bit.
 """
 from typing import Dict, List, Optional, Tuple
 
@@ -23,7 +31,8 @@ from torch import nn
 
 from .backbones.vit import ViT
 
-__all__ = ["normalize_source_keys", "infer_token_grid", "convert_backbone_source"]
+__all__ = ["normalize_source_keys", "infer_token_grid", "convert_backbone_source",
+           "export_backbone_state", "export_vit_state"]
 
 _MS_RENAMES = (
     (".gamma", ".weight"),
@@ -100,3 +109,77 @@ def convert_backbone_source(backbone: nn.Module, source: Dict[str, np.ndarray],
         state[name] = torch.from_numpy(np.ascontiguousarray(value))
     unused = sorted(set(src) - set(state))
     return state, missing, unused
+
+
+# BatchNorm's torch leaves and MindSpore's names for them
+_BN_LEAVES = {"weight": "gamma", "bias": "beta", "running_mean": "moving_mean",
+              "running_var": "moving_variance"}
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def export_backbone_state(arch: str, state: Dict[str, torch.Tensor],
+                          naming: str = "torch") -> Dict[str, np.ndarray]:
+    """A backbone's ``state_dict`` -> {published name: float32 array}, the
+    inverse of ``convert_backbone_source``.
+
+    ``naming`` "torch" keeps the port's names (the official torch ones);
+    "mindspore" renames BatchNorm's leaves (gamma, beta, moving_mean,
+    moving_variance) and ``downsample`` to ``down_sample``, as the JAX
+    package's export does. BatchNorm's ``num_batches_tracked`` is left out
+    (neither flax nor MindSpore keeps one). A ViT (its ``state`` holds a
+    ``pos_embed``) goes through ``export_vit_state``. ``arch`` names the
+    backbone, as the JAX function takes it; the port's names carry the
+    structure, so any HRNet, ResNet or ViT exports."""
+    if naming not in ("torch", "mindspore"):
+        raise ValueError(f"naming must be 'torch' or 'mindspore', got {naming!r}")
+    if "pos_embed" in state:
+        return export_vit_state(arch, state, naming=naming)
+    ms = naming == "mindspore"
+    norms = {k[:-len(".running_mean")] for k in state if k.endswith(".running_mean")}
+    out: Dict[str, np.ndarray] = {}
+    for name, value in state.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        prefix, leaf = name.rsplit(".", 1)
+        if ms:
+            if prefix in norms:
+                leaf = _BN_LEAVES[leaf]
+            prefix = prefix.replace(".downsample.", ".down_sample.")
+        out[f"{prefix}.{leaf}"] = _numpy(value)
+    return out
+
+
+def export_vit_state(arch: str, state: Dict[str, torch.Tensor],
+                     naming: str = "torch") -> Dict[str, np.ndarray]:
+    """A ViT's ``state_dict`` -> torch-style (timm) names, in the JAX
+    package's order: the patch embedding, the position embedding flattened
+    to [1, N, D] (no class token: the port's trunk has none), each block's
+    norms, fused qkv, projection and MLP, then the final norm.
+    ``naming="mindspore"`` gives the LayerNorms gamma/beta and the final
+    norm ViTPose's ``last_norm`` name."""
+    ms = naming == "mindspore"
+    ln_leaves = ("gamma", "beta") if ms else ("weight", "bias")
+    depth = sum(1 for k in state if k.startswith("blocks.") and k.endswith(".norm1.weight"))
+    out: Dict[str, np.ndarray] = {}
+
+    def ln(src_key: str, module: str) -> None:
+        out[f"{src_key}.{ln_leaves[0]}"] = _numpy(state[f"{module}.weight"])
+        out[f"{src_key}.{ln_leaves[1]}"] = _numpy(state[f"{module}.bias"])
+
+    def copy(*names: str) -> None:
+        for name in names:
+            out[name] = _numpy(state[name])
+
+    copy("patch_embed.proj.weight", "patch_embed.proj.bias")
+    pos = _numpy(state["pos_embed"])  # [1, gh, gw, D]
+    out["pos_embed"] = pos.reshape(1, -1, pos.shape[-1])
+    for i in range(depth):
+        ln(f"blocks.{i}.norm1", f"blocks.{i}.norm1")
+        ln(f"blocks.{i}.norm2", f"blocks.{i}.norm2")
+        copy(*(f"blocks.{i}.{m}.{leaf}" for m in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
+               for leaf in ("weight", "bias")))
+    ln("last_norm" if ms else "norm", "norm")
+    return out

@@ -3,7 +3,7 @@
 Replaces the TPU kernel ``mindpose_tpu/ops/pallas/conv_chain.py:fused_conv_chain``
 (body ``_chain_kernel``), a measurement probe of whether keeping a chain of
 C=32 convs on chip beats the library convolutions
-(``tools/ablate_conv_chain.py`` asks the same of this kernel against cuDNN).
+(``tools/ablate_pallas_chain.py`` asks the same of this kernel against cuDNN).
 The kernels are in ``csrc/conv_chain.cu``, built by nvcc at first use and
 bound through ctypes; its source note gives their bounds and design. The
 Pallas version's ``strip`` (rows per MXU block) and its ``H % strip`` check

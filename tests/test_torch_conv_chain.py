@@ -167,7 +167,7 @@ def test_non_contiguous_input_raises():
 
 
 def test_probe_imports_on_the_cpu_and_refuses_to_time_it():
-    from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+    from mindpose_tpu_torch.tools import ablate_pallas_chain as probe
 
     assert probe.DEPTH == 8
     assert [g[1:] for g in probe.GEOMETRIES] == [
@@ -178,7 +178,7 @@ def test_probe_imports_on_the_cpu_and_refuses_to_time_it():
 
 
 def test_probe_bound_is_the_chains_compute():
-    from mindpose_tpu_torch.tools import ablate_conv_chain as probe
+    from mindpose_tpu_torch.tools import ablate_pallas_chain as probe
 
     # depth 8, C=32: 57.98 GFLOP at 989 TFLOP/s; one pass over 25.17 MB each way takes a quarter
     for geometry, want in (((128, 64, 48, 32), 0.0586), ((24, 128, 128, 32), 0.0586),
