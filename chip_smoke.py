@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat, int8 serving, the serving export, the demos, the visualisation tools, the native COCO library, the experiment and ablation tools) once on one CUDA GPU.
+"""Drive the PyTorch port's paths (top-down HRNet-W32, SimpleBaseline, ViTPose, SimCC, RLE and MPII, bottom-up HigherHRNet-W32 inference and training, the training input modes, data-parallel and sharded training, distillation, remat, int8 serving, the serving export, the demos, the visualisation tools, the native COCO library, the experiment, ablation and bench tools) once on one CUDA GPU.
 
 Usage (from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit):
@@ -310,12 +310,22 @@ no result, when there is no CUDA device or when any phase fails:
     width and their smallest counts: JAX's report keys, at least one decode
     launch in ablate_accuracy and one grouping launch in exp_grouping's
     device arm, exp_warmstart's converted backbone bit for bit equal to the
-    exported one, finite times and no NaN scalar in every ablation row.
+    exported one, finite times and no NaN scalar in every ablation row;
+35. the six bench tools (``tools/bench``, ``bench_serve``, ``bench_e2e``,
+    ``bench_variant``, ``bench_bu_variant``, ``budget_table``) at full width:
+    ``bench`` whole at its defaults in a process of its own (its one-line
+    report: value > 0, vs_baseline 1.0, the expected extra keys, no error
+    key, decode launches), the five serving presets at 1, 8 and 32 boxes
+    and hrnet_w32 with int8 weights (p50 <= p90 <= p99; decode launches for
+    the heatmap presets only), bench_e2e's three modes and its bytes-only
+    and loader-only runs (32 records), the variant tools at 2 timed steps
+    (batches 32 and 8), and the budget table (every row within 105% of its
+    eager program's bound and of its least bytes' roofline bound).
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 34. After each group of phases it
+started is still there after phase 35. After each group of phases it
 prints ``time: phases ... took N s``, and at the end the whole run's
 seconds by its own clock.
 
@@ -741,7 +751,9 @@ DDP_RANK_BATCH = 16
 DDP_STEPS = 3
 DDP_TIMEOUT_S = 600  # each of the phase's process groups
 DDP_STATS_RTOL = 1e-4  # the running statistics against the formula, of each tensor's largest
-DDP_EPOCHS = 3  # (b): epoch 1's last step is the profiled one, epochs 2-3 the rate's
+# (b): epoch 1's last step is the profiled one, epochs 2-3 the rate's (at 2
+# epochs the evaluation after step 20 read AP 0)
+DDP_EPOCHS = 3
 DDP_PROFILED_STEPS = 1  # host and device activity: ~12 s for a step of HRNet-W32 at 128
 # phase 27: FSDP on vitpose_h_tpu.yaml (ViT-H/16 + the deconv head, 632M
 # parameters). (a) at full width, FSDP_DEPTH blocks deep, two ranks on this
@@ -768,7 +780,7 @@ DISTILL_TEACHER = "hrnet_w48"
 DISTILL_ALPHA = 0.5
 DISTILL_HEAT_RTOL = 1e-5  # the appended heatmaps against a plain forward, of the largest
 # phase 29: the recipe's step (batch 128, O2) with and without remat
-REMAT_TIMED_STEPS = 5
+REMAT_TIMED_STEPS = 3
 REMAT_RTOL = 1e-3  # loss, gradients, running statistics: of each tensor's largest
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
@@ -5436,6 +5448,135 @@ def experiment_tools(root: str, gpu: str) -> dict:
     return out
 
 
+BENCH_E2E_IMAGES = "4"  # phase 35: 32 records, one batch of 32 an epoch
+BENCH_E2E_BATCH = "32"
+BENCH_ITERS = "2"  # phase 35: timed calls of the serving, variant and budget tools
+VARIANT_BATCH = "32"  # phase 35: bench_variant's batch (its default, 128, is bench's step)
+BU_VARIANT_BATCH = "8"  # bench_bu_variant's (its default, 24, is bench's bottom-up step)
+SERVE_PRESETS = ("resnet50", "hrnet_w32", "vit_b", "simcc", "rle")
+HEATMAP_PRESETS = {"resnet50", "hrnet_w32", "vit_b"}  # decode through the kernel
+# tools/bench.py's extra keys: the JAX benchmark's, without its TPU-only
+# decode_pallas_* arm and its regression guard, with the decode launches
+BENCH_EXTRA = {
+    "train_images_per_sec", "train_images_per_sec_per_chip", "step_time_ms", "batch_per_chip",
+    "n_devices", "decode_p50_ms", "decode_amortized_ms", "decode_amortized_spread_ms",
+    "decode_batch", "decode_kernel_launches", "higher_hrnet_train_images_per_sec_per_chip",
+    "higher_hrnet_step_time_ms", "higher_hrnet_batch_per_chip", "e2e_images_per_sec",
+    "e2e_mode", "e2e_records_per_epoch", "e2e_epoch_rates", "e2e_mb_per_batch",
+    "e2e_wire_mb_per_s", "link_mb_per_s", "link_mb_per_s_pre_post", "e2e_link_utilization"}
+BUDGET_MAX_PCT = 105.0
+
+
+def bench_tools(root: str, gpu: str) -> dict:
+    """Phase 35: the six bench tools on the current card, at full width.
+
+    (a) ``python3 -m mindpose_tpu_torch.tools.bench`` whole, at its defaults,
+    in a process of its own: its last line parses, ``value`` > 0,
+    ``vs_baseline`` 1.0, the extra keys ``BENCH_EXTRA``, no ``*_error`` key,
+    and the decode kernel launched by ``bench_decode``; (b) ``bench_serve``,
+    the five presets at 1, 8 and 32 boxes, 2 timed requests each, float32,
+    then hrnet_w32 with int8 weights: p50 <= p90 <= p99, and decode launches
+    for the heatmap presets only; (c) ``bench_e2e`` in host, encode and full
+    mode (4 frames: one batch of 32 an epoch, 2 epochs), then
+    ``--bytes-only`` over the five modes and ``--loader-only``; (d)
+    ``bench_variant`` (base, s2d; batch 32) and ``bench_bu_variant`` (base,
+    bnfused, remat; batch 8) at 2 timed steps; (e) ``budget_table`` at 2
+    timed calls: every row with FLOPs or bytes, its shares of the eager
+    program's bound and of the shape-derived least bytes' roofline bound in
+    (0, 105], and the least bytes no more than the counted ones. Prints each tool's rows and seconds beside the card's name and
+    power limit."""
+    from mindpose_tpu_torch.tools import (
+        bench_bu_variant, bench_e2e, bench_serve, bench_variant, budget_table)
+
+    out = {"seconds": {}}
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def timed(name, fn):
+        start = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - start
+        torch.cuda.empty_cache()
+        print(f"phase 35 {name}: {out['seconds'][name]:.1f} s")
+        return result
+
+    def run_bench():
+        done = subprocess.run([sys.executable, "-m", "mindpose_tpu_torch.tools.bench"],
+                              capture_output=True, text=True, cwd=here, timeout=600)
+        lines = done.stdout.strip().splitlines()
+        if done.returncode != 0 or not lines:
+            raise AssertionError(f"phase 35 (a): bench exited {done.returncode}:\n"
+                                 f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+        for line in done.stderr.splitlines():  # each part's seconds
+            if "| bench: " in line:
+                print(f"phase 35 {line.split('| ', 1)[1]}")
+        return json.loads(lines[-1])
+
+    report = timed("bench", run_bench)
+    extra = report["extra"]
+    errors = sorted(k for k in extra if k == "error" or k.endswith("_error"))
+    print(f"phase 35 bench: {json.dumps(report)}")
+    if (set(report) != {"metric", "value", "unit", "vs_baseline", "extra"}
+            or not report["value"] > 0 or report["vs_baseline"] != 1.0 or errors
+            or set(extra) != BENCH_EXTRA or extra["decode_kernel_launches"] < 1):
+        raise AssertionError(f"phase 35 (a): {report}")
+    out["bench"] = report
+    out["launches"] = extra["decode_kernel_launches"]
+
+    out["serve"] = {}
+    for name, quantize in [(p, "") for p in SERVE_PRESETS] + [("hrnet_w32", "int8")]:
+        label = f"{name}{'+' + quantize if quantize else ''}"
+        argmax_shift_decode.launches = 0
+        served = timed(f"bench_serve {label}", lambda: bench_serve.main([
+            "--models", name, "--batch-sizes", "1,8,32", "--iters", BENCH_ITERS,
+            *(["--quantize", quantize] if quantize else [])]))
+        rows = served["models"][name]
+        launches = argmax_shift_decode.launches
+        out["launches"] += launches
+        out["serve"][label] = {"rows": rows, "launches": launches}
+        ordered = all(0 < r["p50_ms"] <= r["p90_ms"] <= r["p99_ms"] for r in rows.values())
+        if (served["backend"] != "gpu" or list(rows) != ["batch1", "batch8", "batch32"]
+                or not ordered or (launches > 0) != (name in HEATMAP_PRESETS)):
+            raise AssertionError(f"phase 35 (b) {label}: {served} with {launches} launches")
+        print(f"phase 35 bench_serve {label}: decode kernel launches {launches}")
+
+    e2e_root = os.path.join(root, "bench_e2e")
+    img_root, ann = bench_e2e.make_synth_coco(e2e_root, int(BENCH_E2E_IMAGES))
+    data = ["--data-root", img_root, "--ann", ann, "--batch-size", BENCH_E2E_BATCH]
+    e2e = timed("bench_e2e", lambda: bench_e2e.main([*data, "--epochs", "2"]))
+    sized = timed("bench_e2e --bytes-only", lambda: bench_e2e.main(
+        [*data, "--bytes-only", "--modes", ",".join(bench_e2e.MODES + bench_e2e.BYTES_MODES)]))
+    loaded = timed("bench_e2e --loader-only", lambda: bench_e2e.main(
+        [*data, "--loader-only", "--epochs", "2"]))
+    if (list(e2e["e2e_summary"]) != list(bench_e2e.MODES)
+            or not all(r["e2e_images_per_sec"] > 0 and r["e2e_link_utilization"] > 0
+                       for r in e2e["results"])
+            or len(sized["results"]) != 5 or len(loaded["results"]) != 3):
+        raise AssertionError(f"phase 35 (c): {e2e} {sized} {loaded}")
+    out["e2e"] = {"e2e": e2e["results"], "bytes": sized["results"], "loader": loaded["results"]}
+
+    variants = timed("bench_variant", lambda: bench_variant.main(
+        ["--variants", "base,s2d", "--batch", VARIANT_BATCH, "--iters", BENCH_ITERS]))
+    bu_variants = timed("bench_bu_variant", lambda: bench_bu_variant.main(
+        ["--variants", "base,bnfused,remat", "--batch", BU_VARIANT_BATCH,
+         "--iters", BENCH_ITERS]))
+    check_rows("bench_variant", variants)
+    check_rows("bench_bu_variant", [{"ms": r["higher_hrnet_step_time_ms"]} for r in bu_variants])
+    out["variants"], out["bu_variants"] = variants, bu_variants
+
+    budget = timed("budget_table", lambda: budget_table.main(
+        ["--iters", BENCH_ITERS, "--out", os.path.join(root, "budget.json")]))
+    for row in budget["rows"]:
+        if (not (row["flops"] > 0 or row["bytes"] > 0)
+                or not 0 < row["pct_of_bound"] <= BUDGET_MAX_PCT
+                or not 0 < row["pct_of_min_bound"] <= BUDGET_MAX_PCT
+                or not 0 < row["min_bytes"] <= row["bytes"]):
+            raise AssertionError(f"phase 35 (e): {row}")
+    out["budget"] = budget
+    print(f"phase 35: the bench tools' rows above; budget_table on {budget['gpu']}; {gpu}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5590,6 +5731,8 @@ def main() -> int:
         lap("33")
         experiments = experiment_tools(root, gpu)
         lap("34")
+        benched = bench_tools(root, gpu)
+        lap("35")
     check_no_processes_left()
     print(f"time: the whole run took {time.perf_counter() - clock['start']:.1f} s by its clock")
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
@@ -5630,7 +5773,8 @@ def main() -> int:
                      + ddp["launches"] + distilled["launches"] + int8["launches"]
                      + exported["launches"] + demoed["launches"]
                      + visual["topdown"]["launches"] + photometric["launches"]
-                     + experiments["accuracy_launches"] + experiments["warmstart_launches"]),
+                     + experiments["accuracy_launches"] + experiments["warmstart_launches"]
+                     + benched["launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
@@ -5657,6 +5801,10 @@ def main() -> int:
         # phase 34: ablate_accuracy's evaluation and exp_warmstart's (1 per eval batch)
         "experiment_launches": experiments["accuracy_launches"]
         + experiments["warmstart_launches"],
+        # phase 35: bench_decode in tools/bench.py's process (1 per call:
+        # 1 warm, 50 single, 5 x 100 back to back) and bench_serve's heatmap
+        # presets (1 per request of at most 32 boxes), this phase's own count
+        "bench_tools_launches": benched["launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],

@@ -60,7 +60,9 @@ class StageN(nn.Module):
     """One 3x3 conv + BN + ReLU per branch from the highest-resolution input
     (strided from the previous branch for the lower ones: the transition's
     cost, approximated), then ``n_modules`` exchange units of 4 basic blocks
-    per branch; returns the highest-resolution branch."""
+    per branch; returns the highest-resolution branch. The last unit fuses
+    into that branch alone: its other fusions feed no output, and XLA drops
+    them from the JAX program as dead code."""
 
     def __init__(self, n_modules: int, n_branches: int, channels: Sequence[int]) -> None:
         super().__init__()
@@ -71,8 +73,8 @@ class StageN(nn.Module):
         self.modules_ = nn.Sequential(*[
             HRModule(num_branches=n_branches, block="BASIC", num_blocks=(4,) * n_branches,
                      in_channels=tuple(channels), num_channels=tuple(channels),
-                     multi_scale_output=True)
-            for _ in range(n_modules)])
+                     multi_scale_output=m < n_modules - 1)
+            for m in range(n_modules)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xs = []

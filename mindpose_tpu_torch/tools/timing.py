@@ -11,12 +11,16 @@ clock takes the events' place.
 - ``resolve_device``: the tool's ``--device``, or the current CUDA device;
   without CUDA it raises (no fallback to the CPU);
 - ``device_parser``: an ``argparse`` parser with ``--device``;
+- ``sync``: wait for the device's queued work;
 - ``time_program``: (ms per call, the warm call's scalar);
+- ``gpu_name_and_power``: the card's name and power limit, as ``nvidia-smi``
+  gives them;
 - ``gnorm``: a gradient's squared norm, the JAX tools' ``gnorm``;
 - ``uniform``: numpy's ``rand`` draws as a tensor, as the JAX tools draw
   their inputs, NHWC arrays viewed NCHW in ``torch.channels_last``.
 """
 import argparse
+import subprocess
 import time
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
@@ -25,7 +29,8 @@ import torch
 
 from .visual_pred_heatmap_topdown import resolve_device
 
-__all__ = ["resolve_device", "device_parser", "time_program", "gnorm", "uniform", "nchw"]
+__all__ = ["resolve_device", "device_parser", "gpu_name_and_power", "sync", "time_program",
+           "gnorm", "uniform", "nchw"]
 
 
 def device_parser(description: str) -> argparse.ArgumentParser:
@@ -35,7 +40,20 @@ def device_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-def _sync(device: torch.device) -> None:
+def gpu_name_and_power(device: torch.device) -> str:
+    """The line of ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    for ``device``'s card (by its index); "cpu" on the CPU."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return out[index] if index < len(out) else out[0]
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -50,7 +68,7 @@ def time_program(program: Callable, args: Sequence, iters: int,
     train step, the first call's, which is the one JAX's times again and
     again from the same state)."""
     value = float(program(*args))
-    _sync(device)
+    sync(device)
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

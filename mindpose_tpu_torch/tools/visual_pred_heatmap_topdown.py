@@ -21,7 +21,7 @@ Usage:
 """
 import logging
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ DEVICE_FLAG = {"names": ["--device"], "default": None,
                "help": "where the model runs (default: the current CUDA device)"}
 
 
-def resolve_device(device: Optional[str]) -> torch.device:
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     """``device``, or the current CUDA device; raises without CUDA."""
     if device is not None:
         return torch.device(device)

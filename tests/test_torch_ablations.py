@@ -1,13 +1,13 @@
 """The port's ablation tools against the JAX package's timed programs, on the CPU.
 
 Ten of the JAX tools time their full-size programs when imported, so the
-test never imports them: ``jax_defs`` builds a JAX tool's functions from
-its file's source with ``ast``, taking only the top-level ``def``s and
-classes and the constant assignments, and binds the names they read (the
-net, its variables, the loss, the inputs) to reduced counterparts;
-``jax.numpy`` is seen with ``bfloat16`` read as ``float32``, so that both
-sides compute in float32, and the JAX tools' ``timeit`` is replaced by one
-that keeps what the timed program returned. profile_parts' modules are
+test never imports them: ``tests/fixtures/jax_tools.jax_defs`` builds a JAX
+tool's functions from its file's source with ``ast``, taking only the
+top-level ``def``s and classes and the constant assignments, and binds the
+names they read (the net, its variables, the loss, the inputs) to reduced
+counterparts; ``jax.numpy`` is seen with ``bfloat16`` read as ``float32``,
+so that both sides compute in float32, and the JAX tools' ``timeit`` is
+replaced by one that keeps what the timed program returned. profile_parts' modules are
 classes inside its ``main``; they are taken from there the same way.
 
 Every timed program of every ablation tool returns the same scalar as
@@ -24,10 +24,7 @@ runs on the CPU at a tiny size (``--device cpu``; the shape tables
 shrunk); and each of the 14 tools raises without a card unless given
 ``--device``.
 """
-import ast
 import builtins
-import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 from flax import linen as nn
+from flax.traverse_util import flatten_dict, unflatten_dict
 
 import mindpose_tpu as mp
 from mindpose_tpu.models.backbones.hrnet import HRModule as JaxHRModule
@@ -79,28 +77,14 @@ from mindpose_tpu_torch.tools import (
     profile_parts,
 )
 from tests.fixtures.eval_checks import RECORD, register_port_backbone
+from tests.fixtures.jax_tools import Float64Numpy, Recorder, jax_defs
 from tests.fixtures.torch_threads import torch_threads  # noqa: F401  (autouse)
 from tests.test_torch_bottomup_loss import lift_loss_casts
 from tests.test_torch_hrnet import CFG, build_pair
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-4
 CPU = torch.device("cpu")
 F32 = torch.float32
-
-
-class Float32Numpy:
-    """``jax.numpy`` with ``bfloat16`` read as ``float32``."""
-
-    def __getattr__(self, name):
-        return jnp.float32 if name == "bfloat16" else getattr(jnp, name)
-
-
-class Float64Numpy:
-    """``jax.numpy`` with ``bfloat16`` and ``float32`` read as ``float64``."""
-
-    def __getattr__(self, name):
-        return jnp.float64 if name in ("bfloat16", "float32") else getattr(jnp, name)
 
 
 @pytest.fixture
@@ -118,45 +102,6 @@ def jitted_init(module, x):
 
 def as_float64(tree):
     return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
-
-
-class Recorder:
-    """What each timed program returned, in order."""
-
-    def __init__(self):
-        self.outputs = []
-
-    def timeit(self, f, args, iters=10, fetch=None):
-        self.outputs.append(f(*args))
-        return 1.0  # ms: the tools divide by it
-
-
-def _constant(node: ast.Assign) -> bool:
-    try:
-        ast.literal_eval(node.value)
-        return True
-    except ValueError:
-        return False
-
-
-def jax_defs(name: str, body_of: str = "", numpy_=None, **names) -> dict:
-    """The top-level defs, classes and constant assignments of
-    ``tools/<name>.py`` (or of its function ``body_of``) executed with
-    ``names`` bound and ``jnp`` seen as ``numpy_`` (default: bfloat16 read
-    as float32); nothing else of the file runs."""
-    path = os.path.join(REPO, "tools", f"{name}.py")
-    with open(path) as f:
-        tree = ast.parse(f.read())
-    nodes = tree.body
-    if body_of:
-        nodes = next(n for n in nodes if isinstance(n, ast.FunctionDef) and n.name == body_of).body
-    keep = [n for n in nodes if isinstance(n, (ast.FunctionDef, ast.ClassDef))
-            or (isinstance(n, ast.Assign) and _constant(n))]
-    ns = {"__name__": f"jax_tool_{name}", "jax": jax, "lax": jax.lax,
-          "jnp": numpy_ or Float32Numpy(), "np": np,
-          "os": os, "time": time, "print": lambda *a, **k: None, **names}
-    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
-    return ns
 
 
 def tree_norm(tree) -> float:
@@ -362,8 +307,9 @@ def test_ablate_step_programs_match_jax(step_case, variant):
 
 # ---- profile_parts ----
 
-def _hrmodule_entries(src, mod, n_br, blocks=4):
-    """hrnet_mapping's entries of one exchange unit of basic blocks, all outputs fused."""
+def _hrmodule_entries(src, mod, n_br, blocks=4, n_out=None):
+    """hrnet_mapping's entries of one exchange unit of basic blocks, its fusions
+    into the first ``n_out`` branches (all by default)."""
     entries, g = [], 0
     for b in range(n_br):
         for k in range(blocks):
@@ -371,7 +317,7 @@ def _hrmodule_entries(src, mod, n_br, blocks=4):
                                        downsample=False)
             g += 1
     fc = 0
-    for i in range(n_br):
+    for i in range(n_br if n_out is None else n_out):
         for j in range(n_br):
             if j == i:
                 continue
@@ -388,9 +334,26 @@ def _stage_entries(n_modules, n_branches):
     for i in range(n_branches):
         entries += [("conv", f"transitions.{i}.0", (f"Conv_{i}",)),
                     ("bn", f"transitions.{i}.1", (f"BatchNorm_{i}",))]
-    for m in range(n_modules):
-        entries += _hrmodule_entries(f"modules_.{m}", f"HRModule_{m}", n_branches)
+    for m in range(n_modules):  # the last unit fuses into branch 0 alone
+        entries += _hrmodule_entries(f"modules_.{m}", f"HRModule_{m}", n_branches,
+                                     n_out=1 if m == n_modules - 1 else None)
     return entries
+
+
+def _without_dead_fusions(variables, n_modules, n_branches):
+    """The JAX stage's variables less its last unit's fusions into branches 1
+    and up (Conv_/BatchNorm_ from n_branches - 1 on), which feed no output and
+    which the port's stage does not build."""
+    last = f"HRModule_{n_modules - 1}"
+
+    def dead(path):
+        if len(path) < 2 or path[0] != last or "_" not in path[1]:
+            return False
+        kind, index = path[1].rsplit("_", 1)
+        return kind in ("Conv", "BatchNorm") and int(index) >= n_branches - 1
+
+    return {kind: unflatten_dict({k: v for k, v in flatten_dict(tree).items() if not dead(k)})
+            for kind, tree in variables.items()}
 
 
 W = 4  # profile_parts' width, reduced; stages 3 and 4 at one exchange unit
@@ -452,6 +415,8 @@ def test_profile_parts_programs_match_jax(part):
     want = tree_norm(recording.outputs[0])
     x = jnp.asarray(np.random.RandomState(0).rand(*shape).astype(np.float32))
     variables = jitted_init(module, x)
+    if part.startswith("stage") and part != "stage1":
+        variables = _without_dead_fusions(variables, 1, int(part[-1]))
     port = make_port()
     port.load_state_dict(convert_variables(variables, entries), strict=True)
     _, got = profile_parts.time_fwd_bwd(port, shape, 1, CPU, amp_level="O0")

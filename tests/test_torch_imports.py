@@ -59,12 +59,13 @@ def test_port_registry_is_its_own():
 
 
 NEW_TOOLS = ("visual_gt_heatmap", "visual_pred_heatmap_topdown", "visual_pred_heatmap_ae",
-             "make_synthetic_coco", "convert_mpii", "prepare_coco", "launch_pod")
+             "make_synthetic_coco", "convert_mpii", "prepare_coco", "launch_pod", "bench",
+             "bench_e2e", "bench_serve", "bench_variant", "bench_bu_variant", "budget_table")
 
 
 def test_tools_and_native_library_import_without_jax():
-    """In a fresh interpreter, the visualisation, data and launch tools and
-    the native library's bridge load no JAX module, and build nothing."""
+    """In a fresh interpreter, the visualisation, data, launch and bench tools
+    and the native library's bridge load no JAX module, and build nothing."""
     modules = [f"mindpose_tpu_torch.tools.{name}" for name in NEW_TOOLS]
     modules += ["mindpose_tpu_torch.utils.native", "mindpose_tpu_torch.version"]
     code = ("import sys, importlib; "
