@@ -49,7 +49,7 @@ no result, when there is no CUDA device or when any phase fails:
    and the first 32 crops on the GPU against the CPU at O0, TTA off and on;
 9. the train step of hrnet_w32_tpu.yaml (adamw, warmup multi-step schedule,
    O2) on HRNet-W32 at full width, batch 128 of synthetic crops: 3 warm-up
-   and 10 timed steps, img/s, step times, peak memory, finite losses;
+   and 5 timed steps, img/s, step times, peak memory, finite losses;
 10. the net learning one fixed batch with its joints painted in, over 30
     steps at constant lr: the loss falls below a fraction of its first value
     and of an all-zero prediction's, and the backbone moves;
@@ -96,7 +96,7 @@ no result, when there is no CUDA device or when any phase fails:
     server shut down and no thread of the phase left;
 16. the tag-grouping kernel (``csrc/grouping.cu``, the fixed-capacity
     matcher) against its plain version (``ops/grouping.py``, numpy on the
-    host), groups and valid bitwise equal, on 96 seeded candidate sets
+    host), groups and valid bitwise equal, on 48 seeded candidate sets
     (K=17, M=30; L = 1 and 2; the rounded norm and ``ignore_too_much`` on
     and off; sets that overflow the capacity; tie-heavy sets with tags on a
     grid) and 6 wider ones (the 128- and 256-column bounds); then the step
@@ -221,7 +221,9 @@ no result, when there is no CUDA device or when any phase fails:
     formula of tests/test_torch_ddp.py (the mean of two momentum updates
     against two in sequence); (b) the train entry under ``python3 -m
     torch.distributed.run --nproc_per_node=1`` (nccl, world size 1, DDP
-    over the card) on hrnet_w32_tpu.yaml as parsed, phase 12's data, 3
+    over the card; one process for 26 (b) and 27 (b), run beside phases
+    28-33, whose times it shares the card and cores with) on
+    hrnet_w32_tpu.yaml as parsed, phase 12's data, 3
     epochs of 10 steps, evaluating after the last: finite, falling losses,
     AP above 0, one decode launch per val batch, all-reduces issued in the
     profiled step; epochs 2-3's img/s beside phase 12's without DDP,
@@ -307,25 +309,43 @@ no result, when there is no CUDA device or when any phase fails:
     ``ablate_bottomup``, ``ablate_bu_backbone``, ``ablate_bu_loss``,
     ``ablate_conv_chain``, ``ablate_conv_bwd``, ``ablate_conv_layout``,
     ``ablate_conv_shape``, ``ablate_s2d_head``, ``probe_layout``) at full
-    width and their smallest counts: JAX's report keys, at least one decode
+    width and their smallest counts (one timed call after the warm one; the
+    bottom-up step and loss ablations at batch 8): JAX's report keys, at least one decode
     launch in ablate_accuracy and one grouping launch in exp_grouping's
     device arm, exp_warmstart's converted backbone bit for bit equal to the
     exported one, finite times and no NaN scalar in every ablation row;
 35. the six bench tools (``tools/bench``, ``bench_serve``, ``bench_e2e``,
     ``bench_variant``, ``bench_bu_variant``, ``budget_table``) at full width:
-    ``bench`` whole at its defaults in a process of its own (its one-line
+    ``bench`` whole in a process of its own, its loops cut (its one-line
     report: value > 0, vs_baseline 1.0, the expected extra keys, no error
     key, decode launches), the five serving presets at 1, 8 and 32 boxes
     and hrnet_w32 with int8 weights (p50 <= p90 <= p99; decode launches for
     the heatmap presets only), bench_e2e's three modes and its bytes-only
     and loader-only runs (32 records), the variant tools at 2 timed steps
-    (batches 32 and 8), and the budget table (every row within 105% of its
-    eager program's bound and of its least bytes' roofline bound).
+    (batches 32 and 8; bench_variant's base, bn4 and bnfrozen,
+    bench_bu_variant's base, bnfrozen and remat), and the budget table
+    (every row within 105% of its eager program's bound and of its least
+    bytes' roofline bound);
+36. the JAX package's divergent training knobs on hrnet_w32_tpu.yaml's
+    full-width net: (a) one step at batch 2 (constant lr) on the card against
+    the port on the CPU in float64, as phase 11, with ``bn_grad_stats:
+    frozen``, then with ``frozen_var``, ``bn_stats_frac`` 0.5 and the radial
+    projection: the loss, every gradient and running statistic within
+    ``TRAIN_F64_RTOL``, the update within ``close_update``'s bounds (2 lr
+    an element, 1e-2 lr the mean), and each projected filter's update
+    orthogonal to it (``RADIAL_COS_BOUND``); (b) the yaml through the train
+    entry (batch 128, O2, the knobs of (a)'s second case,
+    ``allow_divergent_knobs: true``), one epoch of phase 12's data
+    evaluating after it: finite losses, every BatchNorm of the backbone in
+    the mode, a ``RadialAdamW``, each step's projected filters orthogonal
+    to their update, one decode launch per val batch; (c) the B128 O2 step's
+    ms of base, frozen, frozen_var, bn4 and the radial AdamW, base first and
+    last, beside the card's name and power limit.
 
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 35. After each group of phases it
+started is still there after phase 36. After each group of phases it
 prints ``time: phases ... took N s``, and at the end the whole run's
 seconds by its own clock.
 
@@ -551,7 +571,7 @@ COLD_HEATMAPS = 16  # heatmaps the cold-L2 timing rotates over (> 50 MB at 32 cr
 PLAIN_ITERS = 20  # queued calls per timing of a plain composition (tens of kernels each)
 PROBE_ITERS = 5  # chains per timing in the probe (each is 1-100 ms)
 TRAIN_WARMUP_STEPS = 3
-TRAIN_TIMED_STEPS = 10
+TRAIN_TIMED_STEPS = 5
 LOSS_FALL_STEPS = 30
 MARK_SIZE = 11  # pixels a side of a joint's mark in phase 10's crops
 # Phase 10's bounds after 30 steps, set from an exploratory run on the H100:
@@ -637,7 +657,7 @@ SB_DEEPER = {arch: os.path.join(CONFIGS, "simple_baseline", f"{arch}_tpu.yaml")
              for arch in ("resnet101", "resnet152")}
 SB_EPOCHS = 4
 HIGHER_YAML = os.path.join(CONFIGS, "higher_hrnet", "higher_hrnet_w32_tpu.yaml")
-GROUPING_SETS = 2  # images of each kind of SETS + TIE_SETS, per tag width and flags (96)
+GROUPING_SETS = 1  # images of each kind of SETS + TIE_SETS, per tag width and flags (48)
 GROUPING_ITERS = 20  # queued launches per timing of the grouping kernel
 GROUPING_FLOOR_STEPS = 200_000  # links of the step-floor probe's chain (~10 ms)
 # (M, group_cap, candidate_sets kwargs): sets that take the grouping
@@ -782,6 +802,22 @@ DISTILL_HEAT_RTOL = 1e-5  # the appended heatmaps against a plain forward, of th
 # phase 29: the recipe's step (batch 128, O2) with and without remat
 REMAT_TIMED_STEPS = 3
 REMAT_RTOL = 1e-3  # loss, gradients, running statistics: of each tensor's largest
+# phase 36: the JAX package's divergent training knobs on hrnet_w32_tpu.yaml's net
+DIVERGENT_BACKBONE = {"bn_grad_stats": "frozen_var", "bn_stats_frac": 0.5}
+# (a): each case's backbone settings and whether the optimizer projects
+DIVERGENT_CASES = {"frozen": ({"bn_grad_stats": "frozen"}, False),
+                   "frozen_var + 0.5 + radial": (DIVERGENT_BACKBONE, True)}
+# (c): the B128 O2 step of each arm; base is timed first and last
+DIVERGENT_VARIANTS = {"base": ({}, False), "frozen": ({"bn_grad_stats": "frozen"}, False),
+                      "frozen_var": ({"bn_grad_stats": "frozen_var"}, False),
+                      "bn4": ({"bn_stats_frac": 0.25}, False), "radial": ({}, True)}
+DIVERGENT_WARMUP_STEPS = 2
+DIVERGENT_TIMED_STEPS = 4
+# (a), (b): the largest |<u, w>| / (|u| |w|) over the output channels of a
+# projected filter, u the update's Adam part, against a float32 update read
+# back from the weights (~1e-5 of rounding); an unprojected update of a
+# 3x3 x C filter sits near 1 / sqrt(9 C), 0.02 at C = 256
+RADIAL_COS_BOUND = 1e-3
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
 
@@ -1642,17 +1678,19 @@ def evaluation(net: nn.Module, device: torch.device) -> dict:
             "batches": sum(r["batches"] for r in runs), "evaluator_inputs": kept, **times}
 
 
-def hrnet_w32_net() -> nn.Module:
-    """Full-width HRNet-W32 + hrnet_head, torch's own initialisation."""
+def hrnet_w32_net(**backbone_args) -> nn.Module:
+    """Full-width HRNet-W32 + hrnet_head, torch's own initialisation;
+    ``backbone_args`` over the yaml's ``backbone_setting`` (phase 36's
+    BatchNorm modes)."""
     return create_network(HRNET_W32["backbone_name"], HRNET_W32["head_name"],
                           num_joints=HRNET_W32["num_joints"],
-                          backbone_args=HRNET_W32["backbone_setting"],
+                          backbone_args={**HRNET_W32["backbone_setting"], **backbone_args},
                           head_args=HRNET_W32["head_setting"])
 
 
-def training_net(device: torch.device) -> nn.Module:
-    """Full-width HRNet-W32 + hrnet_head with ``random_weights_``."""
-    net = hrnet_w32_net()
+def training_net(device: torch.device, **backbone_args) -> nn.Module:
+    """``hrnet_w32_net(**backbone_args)`` with ``random_weights_``."""
+    net = hrnet_w32_net(**backbone_args)
     random_weights_(net, device)
     return net
 
@@ -1693,18 +1731,24 @@ def recipe_net_with_loss(net: nn.Module):
                                      has_extra_inputs=cfg["loss_with_extra_input"])
 
 
-def recipe_step(net: nn.Module, amp_level: str, schedule=None, accum_steps: int = 1):
+def recipe_optimizer(net: nn.Module, **optimizer_setting) -> torch.optim.Optimizer:
+    """hrnet_w32_tpu.yaml's adamw with its decay and grouping over ``net``;
+    ``optimizer_setting`` over the yaml's (phase 36's radial projection)."""
+    cfg = HRNET_W32
+    return create_optimizer(net, cfg["optimizer"], learning_rate=cfg["lr"],
+                            weight_decay=cfg["weight_decay"],
+                            filter_bias_and_bn=cfg["filter_bias_and_bn"],
+                            **{**cfg["optimizer_setting"], **optimizer_setting})
+
+
+def recipe_step(net: nn.Module, amp_level: str, schedule=None, accum_steps: int = 1,
+                **optimizer_setting):
     """hrnet_w32_tpu.yaml's train step over ``net``: the device preprocess,
     joint_mse with target weights, adamw with its decay and grouping.
     Without a schedule the rate is the yaml's ``lr``, constant. Within a
     process group the step is data-parallel (``build_train_step``)."""
-    cfg = HRNET_W32
-    optimizer = create_optimizer(net, cfg["optimizer"], learning_rate=cfg["lr"],
-                                 weight_decay=cfg["weight_decay"],
-                                 filter_bias_and_bn=cfg["filter_bias_and_bn"],
-                                 **cfg["optimizer_setting"])
-    return build_train_step(recipe_net_with_loss(net), optimizer, schedule,
-                            preprocess=recipe_preprocess(), amp_level=amp_level,
+    return build_train_step(recipe_net_with_loss(net), recipe_optimizer(net, **optimizer_setting),
+                            schedule, preprocess=recipe_preprocess(), amp_level=amp_level,
                             accum_steps=accum_steps)
 
 
@@ -5330,7 +5374,8 @@ def native_evaluator(root: str, phase8: dict, gpu: str) -> dict:
 EXPERIMENT_TRAIN_IMAGES = 8  # phase 34: frames of 2 persons: 16 records, one step of 16
 EXPERIMENT_VAL_IMAGES = 4
 EXPERIMENT_BATCH = 16
-ABLATION_ITERS = "2"  # phase 34: timed calls after the warm one
+ABLATION_ITERS = "1"  # phase 34: timed calls after the warm one
+BU_ABLATION_BATCH = "8"  # phase 34: ablate_bottomup's and ablate_bu_loss's batch (default 24)
 ACCURACY_PROTOCOL = {"train_images", "val_images", "people_per_img", "epochs", "batch_size",
                      "backbone", "tta", "det_noise", "paired"}
 GROUPING_PROTOCOL = {"train_images", "val_images", "people_per_img", "epochs",
@@ -5430,9 +5475,10 @@ def experiment_tools(root: str, gpu: str) -> dict:
     iters = ["--iters", ABLATION_ITERS]
     ablations = [
         ("ablate_step", ablate_step, iters), ("profile_parts", profile_parts, iters),
-        ("ablate_bottomup", ablate_bottomup, iters),
+        ("ablate_bottomup", ablate_bottomup, iters + ["--batch", BU_ABLATION_BATCH]),
         ("ablate_bu_backbone", ablate_bu_backbone, iters),
-        ("ablate_bu_loss", ablate_bu_loss, iters), ("ablate_conv_chain", ablate_conv_chain, iters),
+        ("ablate_bu_loss", ablate_bu_loss, iters + ["--batch", BU_ABLATION_BATCH]),
+        ("ablate_conv_chain", ablate_conv_chain, iters),
         ("ablate_conv_bwd", ablate_conv_bwd, iters),
         ("ablate_conv_layout", ablate_conv_layout, iters),
         ("ablate_conv_shape", ablate_conv_shape, iters),
@@ -5451,6 +5497,11 @@ def experiment_tools(root: str, gpu: str) -> dict:
 BENCH_E2E_IMAGES = "4"  # phase 35: 32 records, one batch of 32 an epoch
 BENCH_E2E_BATCH = "32"
 BENCH_ITERS = "2"  # phase 35: timed calls of the serving, variant and budget tools
+# phase 35 (a): tools/bench.py's parts with their loops cut (keyword -> value
+# over each default): the train step's 3 loops of 2 steps (20), the
+# bottom-up step's of 1 (10), e2e 2 epochs (4); the decode at its defaults
+BENCH_CUTS = {"bench_train_step": {"iters": 2}, "bench_bottomup_step": {"iters": 1},
+              "bench_e2e_encode": {"epochs": 2}}
 VARIANT_BATCH = "32"  # phase 35: bench_variant's batch (its default, 128, is bench's step)
 BU_VARIANT_BATCH = "8"  # bench_bu_variant's (its default, 24, is bench's bottom-up step)
 SERVE_PRESETS = ("resnet50", "hrnet_w32", "vit_b", "simcc", "rle")
@@ -5470,8 +5521,8 @@ BUDGET_MAX_PCT = 105.0
 def bench_tools(root: str, gpu: str) -> dict:
     """Phase 35: the six bench tools on the current card, at full width.
 
-    (a) ``python3 -m mindpose_tpu_torch.tools.bench`` whole, at its defaults,
-    in a process of its own: its last line parses, ``value`` > 0,
+    (a) ``tools/bench.py``'s ``main`` whole in a process of its own, its
+    loops cut (``BENCH_CUTS``): its last line parses, ``value`` > 0,
     ``vs_baseline`` 1.0, the extra keys ``BENCH_EXTRA``, no ``*_error`` key,
     and the decode kernel launched by ``bench_decode``; (b) ``bench_serve``,
     the five presets at 1, 8 and 32 boxes, 2 timed requests each, float32,
@@ -5479,8 +5530,8 @@ def bench_tools(root: str, gpu: str) -> dict:
     for the heatmap presets only; (c) ``bench_e2e`` in host, encode and full
     mode (4 frames: one batch of 32 an epoch, 2 epochs), then
     ``--bytes-only`` over the five modes and ``--loader-only``; (d)
-    ``bench_variant`` (base, s2d; batch 32) and ``bench_bu_variant`` (base,
-    bnfused, remat; batch 8) at 2 timed steps; (e) ``budget_table`` at 2
+    ``bench_variant`` (base, bn4, bnfrozen; batch 32) and ``bench_bu_variant``
+    (base, bnfrozen, remat; batch 8) at 2 timed steps; (e) ``budget_table`` at 2
     timed calls: every row with FLOPs or bytes, its shares of the eager
     program's bound and of the shape-derived least bytes' roofline bound in
     (0, 105], and the least bytes no more than the counted ones. Prints each tool's rows and seconds beside the card's name and
@@ -5501,7 +5552,12 @@ def bench_tools(root: str, gpu: str) -> dict:
         return result
 
     def run_bench():
-        done = subprocess.run([sys.executable, "-m", "mindpose_tpu_torch.tools.bench"],
+        code = ("import functools, json; from mindpose_tpu_torch.tools import bench\n"
+                f"for name, kw in json.loads({json.dumps(BENCH_CUTS)!r}).items():\n"
+                "    fn = getattr(bench, name)\n"
+                "    setattr(bench, name, functools.update_wrapper(functools.partial(fn, **kw), fn))\n"
+                "bench.main()\n")
+        done = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True, cwd=here, timeout=600)
         lines = done.stdout.strip().splitlines()
         if done.returncode != 0 or not lines:
@@ -5556,9 +5612,9 @@ def bench_tools(root: str, gpu: str) -> dict:
     out["e2e"] = {"e2e": e2e["results"], "bytes": sized["results"], "loader": loaded["results"]}
 
     variants = timed("bench_variant", lambda: bench_variant.main(
-        ["--variants", "base,s2d", "--batch", VARIANT_BATCH, "--iters", BENCH_ITERS]))
+        ["--variants", "base,bn4,bnfrozen", "--batch", VARIANT_BATCH, "--iters", BENCH_ITERS]))
     bu_variants = timed("bench_bu_variant", lambda: bench_bu_variant.main(
-        ["--variants", "base,bnfused,remat", "--batch", BU_VARIANT_BATCH,
+        ["--variants", "base,bnfrozen,remat", "--batch", BU_VARIANT_BATCH,
          "--iters", BENCH_ITERS]))
     check_rows("bench_variant", variants)
     check_rows("bench_bu_variant", [{"ms": r["higher_hrnet_step_time_ms"]} for r in bu_variants])
@@ -5575,6 +5631,216 @@ def bench_tools(root: str, gpu: str) -> dict:
     out["budget"] = budget
     print(f"phase 35: the bench tools' rows above; budget_table on {budget['gpu']}; {gpu}")
     return out
+
+
+def radial_cosines(optimizer, before: list):
+    """Per projected filter of ``optimizer`` (a ``RadialAdamW``), the largest
+    |<u, w>| / (|u| |w|) over its output channels, u the update's Adam part
+    (the decay taken out) read back from the weights ``before`` the step and
+    now: w_after = w - lr (u + weight_decay w). None where the step's rate
+    is 0 (the schedule's first step), which moves nothing."""
+    out = []
+    groups = [g for g in optimizer.param_groups if g.get("radial_dim") is not None]
+    for group, weights in zip(groups, before):
+        keep = group["radial_dim"]
+        if group["lr"] == 0:
+            continue
+        for p, w in zip(group["params"], weights):
+            w = w.double()
+            u = (w - p.detach().double()) / group["lr"] - group["weight_decay"] * w
+            dims = tuple(d for d in range(w.dim()) if d != keep)
+            dot = (u * w).sum(dims)
+            norms = (u * u).sum(dims).sqrt() * (w * w).sum(dims).sqrt()
+            out.append((dot.abs() / norms.clamp_min(1e-300)).max())
+    return torch.stack(out).cpu() if out else None
+
+
+def projected_weights(optimizer) -> list:
+    """Copies of the projected filters of ``optimizer``, per projected group."""
+    return [[p.detach().clone() for p in g["params"]] for g in optimizer.param_groups
+            if g.get("radial_dim") is not None]
+
+
+def divergent_step_with_cpu(device: torch.device) -> dict:
+    """Phase 36 (a): one step of each ``DIVERGENT_CASES`` on the full-width net
+    at batch ``TRAIN_CPU_BATCH``, float64, constant lr, on the card and on the
+    CPU from the same weights: the loss, gradients and running statistics
+    within ``TRAIN_F64_RTOL`` of each tensor's largest; the parameters after
+    the update within ``close_update``'s bounds (Adam's first update is lr
+    g / (|g| + eps): a gradient within rounding of 0 may move its element up
+    to 2 lr the other way); with the projection, each projected filter's
+    update orthogonal to it on both."""
+    cpu = torch.device("cpu")
+    lr = HRNET_W32["lr"]
+    image, keypoints = train_batch(np.random.RandomState(SEED + 36), TRAIN_CPU_BATCH, cpu)
+    preprocess = recipe_preprocess()
+    out = {}
+    for name, (knobs, radial) in DIVERGENT_CASES.items():
+        gpu_net = training_net(device, **knobs).double()
+        runs = {}
+        for side, net, dev in (("gpu", gpu_net, device), ("cpu", copy.deepcopy(gpu_net).cpu(), cpu)):
+            optimizer = recipe_optimizer(net, radial_projection=radial)
+            step = build_train_step(
+                recipe_net_with_loss(net), optimizer,
+                preprocess=lambda *b: tuple(t.double() for t in preprocess(*b)))
+            start = {k: p.detach().to("cpu", torch.float64, copy=True)
+                     for k, p in net.named_parameters()}
+            before = projected_weights(optimizer)
+            loss = step(image.to(dev), keypoints.to(dev))
+            grads, stats = _grads_and_stats(net)
+            moved = {k: p.detach().double().cpu() - start[k] for k, p in net.named_parameters()}
+            cos = float(radial_cosines(optimizer, before).max()) if radial else 0.0
+            runs[side] = (loss.double().cpu(), grads, stats, moved, cos)
+            del step, optimizer
+        del gpu_net
+        torch.cuda.empty_cache()
+        gpu, cpu_run = runs["gpu"], runs["cpu"]
+        loss_err = float(((gpu[0] - cpu_run[0]).abs() / cpu_run[0].abs()).max())
+        grads = _errors(gpu[1], cpu_run[1])
+        stats = _errors(gpu[2], cpu_run[2])
+        diff = {k: (gpu[3][k] - cpu_run[3][k]).abs() for k in gpu[3]}
+        max_lr = max(float(d.max()) for d in diff.values()) / lr
+        mean_lr = sum(float(d.sum()) for d in diff.values()) / sum(
+            d.numel() for d in diff.values()) / lr
+        # Adam's first step moves each element by about lr
+        step_lr = min(max(float(m.abs().max()) for m in run[3].values()) / lr
+                      for run in (gpu, cpu_run))
+        print(f"phase 36 (a) {name}, float64, batch {TRAIN_CPU_BATCH}, lr {lr}: loss "
+              f"{gpu[0].tolist()} against the CPU's {cpu_run[0].tolist()} ({loss_err:.3e}); "
+              f"{len(grads)} gradients {_summary(grads)}; {len(stats)} running statistics "
+              f"{max(stats.values()):.3e} (bound {TRAIN_F64_RTOL} each); the largest move "
+              f"{step_lr:.4f} lr; the update card-CPU: max {max_lr:.3e} lr, mean "
+              f"{mean_lr:.3e} lr (bounds 2.02, 1e-2)"
+              + (f"; projected filters' largest |cos(u, w)|: card {gpu[4]:.3e}, CPU "
+                 f"{cpu_run[4]:.3e} (bound {RADIAL_COS_BOUND})" if radial else ""))
+        if max(loss_err, max(grads.values()), max(stats.values())) > TRAIN_F64_RTOL:
+            raise AssertionError(f"phase 36 (a) {name}: the card's float64 step disagrees with "
+                                 "the CPU's")
+        if (step_lr < 0.5 or max_lr > 2.02 or mean_lr > 1e-2
+                or max(gpu[4], cpu_run[4]) > RADIAL_COS_BOUND):
+            raise AssertionError(f"phase 36 (a) {name}: the update disagrees or is not "
+                                 "projected")
+        out[name] = {"loss_rel_err": loss_err, "grad_rel_err": max(grads.values()),
+                     "stats_rel_err": max(stats.values()), "update_max_lr": max_lr,
+                     "update_mean_lr": mean_lr, "cos": max(gpu[4], cpu_run[4])}
+    return out
+
+
+def divergent_entry(root: str, data: dict, device: torch.device) -> dict:
+    """Phase 36 (b): hrnet_w32_tpu.yaml through the train entry with
+    ``DIVERGENT_BACKBONE``, the radial projection and ``allow_divergent_knobs:
+    true`` (batch 128, O2), one epoch of phase 12's data, evaluating after it.
+    The entry's net and optimizer are recorded: every BatchNorm of the
+    backbone in the mode, a ``RadialAdamW``, and at each step each projected
+    filter's update orthogonal to it (``radial_cosines``, read by the
+    optimizer's step hooks). Holds finite losses and one decode launch per
+    val batch."""
+    from mindpose_tpu_torch.models.common import BatchNorm2d
+    from mindpose_tpu_torch.optim.optim_factory import RadialAdamW
+
+    ckpt_dir = os.path.join(root, "divergent")
+    args = recipe_args(RECIPE_YAML, data, ckpt_dir, device, "num_epochs=1",
+                       f"warmup={INPUT_WARMUP}", "val_interval=1", "allow_divergent_knobs=True",
+                       f"backbone_setting={DIVERGENT_BACKBONE!r}",
+                       "optimizer_setting={'radial_projection': True}")
+    seen = {"cos": []}
+    make = train_entry.create_optimizer
+
+    def create_optimizer_(*a, **kw):
+        optimizer = make(*a, **kw)
+        seen["optimizer"] = optimizer
+        optimizer.register_step_pre_hook(
+            lambda opt, *_: seen.update(before=projected_weights(opt)))
+        def after(opt, *_):
+            cos = radial_cosines(opt, seen["before"])
+            if cos is not None:
+                seen["cos"].append(cos.max())
+
+        optimizer.register_step_post_hook(after)
+        return optimizer
+
+    train_entry.create_optimizer = create_optimizer_
+    argmax_shift_decode.launches = 0
+    start = time.perf_counter()
+    try:
+        with recording_entry(train_entry) as recorded:
+            result = train_entry.train(args)
+    finally:
+        train_entry.create_optimizer = make
+    seconds = time.perf_counter() - start
+    launches = argmax_shift_decode.launches
+    (epoch,) = result["epochs"]
+    modes = {(m.stats_frac, m.grad_stats) for m in recorded["net"].backbone.modules()
+             if isinstance(m, BatchNorm2d)}
+    cos = float(torch.stack(seen["cos"]).max())
+    projected = sum(len(g["params"]) for g in seen["optimizer"].param_groups
+                    if g.get("radial_dim") is not None)
+    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+    print(f"phase 36 (b) the train entry, {DIVERGENT_BACKBONE}, radial projection, "
+          f"allow_divergent_knobs: {epoch['steps']} steps, {epoch['images_per_sec']:.1f} img/s, "
+          f"step median {epoch['step_median_s'] * 1e3:.1f} ms; loss {epoch['loss']:.6g}; AP "
+          f"{float(epoch['metrics']['AP']):.6f}; backbone BatchNorm modes {sorted(modes)}; "
+          f"{type(seen['optimizer']).__name__} projecting {projected} filters, largest "
+          f"|cos(u, w)| over the {len(seen['cos'])} steps at a rate above 0 {cos:.3e} (bound "
+          f"{RADIAL_COS_BOUND}); "
+          f"decode kernel launches {launches} for {val_batches} val batch(es); {seconds:.1f} s")
+    if not np.isfinite(epoch["loss"]) or modes != {(DIVERGENT_BACKBONE["bn_stats_frac"],
+                                                    DIVERGENT_BACKBONE["bn_grad_stats"])}:
+        raise AssertionError(f"phase 36 (b): loss {epoch['loss']}, BatchNorm modes {modes}")
+    # the schedule's first step has rate 0 and moves nothing
+    if (not isinstance(seen["optimizer"], RadialAdamW) or len(seen["cos"]) != epoch["steps"] - 1
+            or not cos <= RADIAL_COS_BOUND):
+        raise AssertionError(f"phase 36 (b): the updates are not projected ({cos})")
+    if launches != val_batches:
+        raise AssertionError(f"phase 36 (b): {launches} decode launches for {val_batches} val "
+                             f"batch(es)")
+    return {"launches": launches, "cos": cos, "seconds": seconds, "loss": epoch["loss"],
+            "images_per_sec": epoch["images_per_sec"], "projected_filters": projected}
+
+
+def time_divergent_variants(device: torch.device, gpu: str) -> dict:
+    """Phase 36 (c): the recipe's step at batch 128, O2, constant lr, of each
+    ``DIVERGENT_VARIANTS`` arm on a fresh full-width net (base first and
+    last): ``DIVERGENT_WARMUP_STEPS`` warm-up steps, then
+    ``DIVERGENT_TIMED_STEPS`` steps, each timed
+    on the host clock up to a ``torch.cuda.synchronize``; the median ms."""
+    n = HRNET_W32["batch_size"]
+    image, keypoints = train_batch(np.random.RandomState(SEED + 1), n, device)
+    out = {}
+    for name in [*DIVERGENT_VARIANTS, "base"]:
+        knobs, radial = DIVERGENT_VARIANTS[name]
+        net = training_net(device, **knobs)
+        step = recipe_step(net, HRNET_W32["amp_level"], radial_projection=radial)
+        ms = []
+        for _ in range(DIVERGENT_WARMUP_STEPS + DIVERGENT_TIMED_STEPS):
+            start = time.perf_counter()
+            loss = step(image, keypoints)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - start) * 1e3)
+        if not bool(torch.isfinite(loss).all()):
+            raise AssertionError(f"phase 36 (c) {name}: a non-finite loss")
+        timed = ms[DIVERGENT_WARMUP_STEPS:]
+        out.setdefault(name, []).append(statistics.median(timed))
+        print(f"phase 36 (c) {name} ({knobs}, radial projection {radial}): B{n} "
+              f"{HRNET_W32['amp_level']} step median {statistics.median(timed):.3f} ms over "
+              f"{len(timed)} (min {min(timed):.3f}, max {max(timed):.3f}); "
+              f"{n / statistics.median(timed) * 1e3:.1f} img/s")
+        del step, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    base = statistics.mean(out["base"])
+    print("phase 36 (c) against base (mean of its two runs, "
+          + ", ".join(f"{b:.3f}" for b in out["base"]) + " ms): "
+          + "; ".join(f"{k} {v[0]:.3f} ms ({v[0] / base:.3f}x)" for k, v in out.items()
+                      if k != "base") + f"; {gpu}")
+    return out
+
+
+def divergent_knobs(root: str, data: dict, device: torch.device, gpu: str) -> dict:
+    """Phase 36: (a), (b) and (c) of the divergent training knobs."""
+    return {"with_cpu": divergent_step_with_cpu(device),
+            "entry": divergent_entry(root, data, device),
+            "ms": time_divergent_variants(device, gpu)}
 
 
 def main() -> int:
@@ -5697,42 +5963,49 @@ def main() -> int:
             fsdp_on_one_card(device, fsdp_ranks)
             torch.cuda.empty_cache()
             lap("27 (a)")
-        launch_entries(root, entry["data"], vit_data)
-        lap("26 (b) and 27 (b): the torchrun process")
+            # phases 26 (b) and 27 (b)'s torchrun process runs beside phases
+            # 28-33, which share the card and the host's cores with it
+            torchrun = background.submit(launch_entries, root, entry["data"], vit_data)
+            distilled = distill_training(root, entry["data"], device)
+            torch.cuda.empty_cache()
+            lap("28")
+            remat_step(device)
+            torch.cuda.empty_cache()
+            lap("29")
+            int8 = int8_serving(root, device)
+            torch.cuda.empty_cache()
+            lap("30")
+            exported = export_serving(root, int8["ckpt"], SB_YAML, plain["ckpt"], device)
+            torch.cuda.empty_cache()
+            lap("31")
+            demoed = demos(root, entry["data"],
+                           os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
+                           bu_eval["ckpt"], device)
+            torch.cuda.empty_cache()
+            lap("32")
+            visual = visual_tools(root, entry["data"],
+                                  os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
+                                  bu_eval["ckpt"])
+            resized = resize_evaluation(root, entry["data"], bu_eval["ckpt"], device)
+            torch.cuda.empty_cache()
+            photometric = photometric_training(root, device)
+            torch.cuda.empty_cache()
+            native_evaluator(root, evaluated, gpu)
+            lap("33")
+            torchrun.result()
+            lap("26 (b) and 27 (b): the rest of the torchrun process")
         ddp = ddp_entry(root, device, entry)
         lap("26 (b)")
         fsdp = fsdp_entry(root, vit_data, device)
         torch.cuda.empty_cache()
         lap("27 (b)")
-        distilled = distill_training(root, entry["data"], device)
-        torch.cuda.empty_cache()
-        lap("28")
-        remat_step(device)
-        torch.cuda.empty_cache()
-        lap("29")
-        int8 = int8_serving(root, device)
-        torch.cuda.empty_cache()
-        lap("30")
-        exported = export_serving(root, int8["ckpt"], SB_YAML, plain["ckpt"], device)
-        torch.cuda.empty_cache()
-        lap("31")
-        demoed = demos(root, entry["data"], os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
-                       bu_eval["ckpt"], device)
-        torch.cuda.empty_cache()
-        lap("32")
-        visual = visual_tools(root, entry["data"],
-                              os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
-                              bu_eval["ckpt"])
-        resized = resize_evaluation(root, entry["data"], bu_eval["ckpt"], device)
-        torch.cuda.empty_cache()
-        photometric = photometric_training(root, device)
-        torch.cuda.empty_cache()
-        native_evaluator(root, evaluated, gpu)
-        lap("33")
         experiments = experiment_tools(root, gpu)
         lap("34")
         benched = bench_tools(root, gpu)
         lap("35")
+        divergent = divergent_knobs(root, entry["data"], device, gpu)
+        torch.cuda.empty_cache()
+        lap("36")
     check_no_processes_left()
     print(f"time: the whole run took {time.perf_counter() - clock['start']:.1f} s by its clock")
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
@@ -5774,7 +6047,7 @@ def main() -> int:
                      + exported["launches"] + demoed["launches"]
                      + visual["topdown"]["launches"] + photometric["launches"]
                      + experiments["accuracy_launches"] + experiments["warmstart_launches"]
-                     + benched["launches"]),
+                     + benched["launches"] + divergent["entry"]["launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
@@ -5805,6 +6078,9 @@ def main() -> int:
         # 1 warm, 50 single, 5 x 100 back to back) and bench_serve's heatmap
         # presets (1 per request of at most 32 boxes), this phase's own count
         "bench_tools_launches": benched["launches"],
+        # phase 36 (b): the divergent knobs' run through the entry, its
+        # callback's evaluation (1 per eval batch)
+        "divergent_launches": divergent["entry"]["launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],

@@ -4,15 +4,53 @@ Copy of ``mindpose_tpu/config.py``: ``--config recipe.yaml`` merges the YAML
 into a flat namespace, and ``--cfg-options a.b.c=value`` applies dotted-path
 overrides whose values are parsed with ``ast.literal_eval`` (falling back to
 raw strings). yaml is imported when a file is parsed, so the serving path
-never imports it. The JAX package's refusal of divergent training knobs
-stays behind: the port refuses those knobs where they are built. Its
-``--seed`` comes with the training CLI, the only one that reads it.
+never imports it. ``check_divergent_knobs``, the training entry's gate on
+the BatchNorm and optimizer knobs that change training dynamics, is a
+copy too. Its ``--seed`` comes with the training CLI, the only one that
+reads it.
 """
 import argparse
 import ast
 from typing import Any, Dict, List, Optional, Sequence
 
-__all__ = ["parse_args", "parse_yaml", "set_dotted", "Config"]
+__all__ = ["parse_args", "parse_yaml", "set_dotted", "Config", "check_divergent_knobs"]
+
+
+def check_divergent_knobs(args: Any) -> None:
+    """Refuse documented-divergent training knobs unless explicitly allowed.
+
+    ``bn_grad_stats != "exact"`` and ``radial_projection`` change training
+    dynamics vs the reference recipe (docs/divergences.md #10, #12; the
+    frozen-BN ablation in docs/performance.md diverged after ~15 epochs).
+    They exist for experiments only, so the trainer rejects them unless the
+    config sets ``allow_divergent_knobs: true``, in which case it warns.
+    """
+    import logging
+
+    knobs = []
+    backbone_setting = getattr(args, "backbone_setting", None) or {}
+    grad_stats = backbone_setting.get("bn_grad_stats", "exact")
+    # "fused" is exact BN numerics with a hand-written backward — not divergent
+    if grad_stats not in ("exact", "fused"):
+        knobs.append(f"backbone_setting.bn_grad_stats={grad_stats!r}")
+    optimizer_setting = getattr(args, "optimizer_setting", None) or {}
+    if optimizer_setting.get("radial_projection"):
+        knobs.append("optimizer_setting.radial_projection=True")
+    if not knobs:
+        return
+    if not getattr(args, "allow_divergent_knobs", False):
+        raise SystemExit(
+            "Divergent training knobs set: "
+            + ", ".join(knobs)
+            + ". These alter training dynamics vs the reference recipe "
+            "(see docs/divergences.md). Set allow_divergent_knobs=true "
+            "to proceed anyway."
+        )
+    for knob in knobs:
+        logging.warning(
+            "divergent knob enabled: %s — training dynamics will differ "
+            "from the reference recipe (docs/divergences.md)", knob
+        )
 
 
 def _literal(value: str) -> Any:

@@ -16,13 +16,13 @@ recompute here runs the forward a second time, so it runs under
 ``frozen_statistics`` and the statistics update once, with the values they
 take without remat.
 
-The JAX package's other TPU knobs are checked once, in ``_hrnet``: the
-space-to-depth rewrites (``stem_s2d``, ``branch0_s2d``) and
-``bn_grad_stats: fused`` (exact BN with a hand-written backward) change no
-result, so they are accepted and build plain BN here; subsampled BN
-statistics (``bn_stats_frac < 1``) and frozen-statistic gradients
-(``frozen``, ``frozen_var``) were measured to diverge
-(docs/performance.md:103-122) and are refused.
+The JAX package's space-to-depth rewrites (``stem_s2d``, ``branch0_s2d``)
+change no result, so they are accepted and build the plain layers here.
+``bn_stats_frac`` and ``bn_grad_stats`` set every BatchNorm of the backbone
+to the JAX package's mode (``common.BatchNorm2d``): ``fused`` is exact BN;
+a fraction below 1, ``frozen`` and ``frozen_var`` take the subsampled
+path. JAX's s2d stem (``ParityGroupBatchNorm``) folds its parity groups into
+the reduction, so its statistics are the plain stem's.
 """
 import contextlib
 import copy
@@ -35,11 +35,11 @@ from torch.utils.checkpoint import checkpoint
 from ...register import register
 from ..common import (
     BatchNorm2d,
-    check_bn_settings,
     conv1x1,
     conv3x3,
     frozen_statistics,
     resize_nearest,
+    set_batch_norm_mode,
 )
 from .backbone import Backbone
 from .resnet import BasicBlock, Bottleneck
@@ -144,7 +144,8 @@ class HRNet(Backbone):
     """HRNet backbone; returns the highest-resolution (stride-4) NCHW feature.
 
     ``stage_cfg`` is the stage dict of ``w_cfg`` (or a reduced one in the
-    same form); ``remat`` recomputes every exchange unit in the backward.
+    same form); ``remat`` recomputes every exchange unit in the backward;
+    ``bn_stats_frac`` and ``bn_grad_stats`` are every BatchNorm's mode.
     """
 
     def __init__(
@@ -152,6 +153,8 @@ class HRNet(Backbone):
         stage_cfg: Dict[str, Dict[str, Any]],
         in_channels: int = 3,
         remat: bool = False,
+        bn_stats_frac: float = 1.0,
+        bn_grad_stats: str = "exact",
     ) -> None:
         super().__init__()
         self.stage_cfg = copy.deepcopy(stage_cfg)
@@ -189,6 +192,7 @@ class HRNet(Backbone):
                 ))
             setattr(self, stage_name, nn.Sequential(*modules))
             pre_channels = cur_channels
+        set_batch_norm_mode(self, bn_stats_frac, bn_grad_stats)
 
     @property
     def out_channels(self) -> int:
@@ -268,8 +272,9 @@ def _hrnet(width: int, in_channels: int, kwargs: Dict[str, Any]) -> HRNet:
     unknown = sorted(set(kwargs) - set(_KNOBS))
     if unknown:
         raise TypeError(f"unknown HRNet settings: {unknown}")
-    check_bn_settings(kwargs.get("bn_grad_stats", "exact"), kwargs.get("bn_stats_frac", 1.0))
-    return HRNet(w_cfg(width), in_channels=in_channels, remat=bool(kwargs.get("remat", False)))
+    return HRNet(w_cfg(width), in_channels=in_channels, remat=bool(kwargs.get("remat", False)),
+                 bn_stats_frac=float(kwargs.get("bn_stats_frac", 1.0)),
+                 bn_grad_stats=str(kwargs.get("bn_grad_stats", "exact")))
 
 
 @register("backbone")

@@ -9,8 +9,8 @@ submodules carry torchvision's names (conv1, bn1, layer1.0.conv1, ...,
 layer1.0.downsample.0), so torchvision checkpoints and the JAX package's
 ``export_backbone_state(..., naming="torch")`` load with ``strict=True``.
 
-The JAX package's BatchNorm knobs are checked as HRNet's are
-(``common.check_bn_settings``); ``pretrained`` and ``ckpt_url`` are accepted
+``bn_stats_frac`` and ``bn_grad_stats`` set every BatchNorm's mode, as in
+HRNet (``common.BatchNorm2d``); ``pretrained`` and ``ckpt_url`` are accepted
 and ignored, as in the JAX package: the train entry loads the file
 (``utils/checkpoint.load_pretrained_backbone``).
 """
@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ...register import register
-from ..common import BatchNorm2d, check_bn_settings, conv1x1, conv3x3, he_normal_
+from ..common import BatchNorm2d, conv1x1, conv3x3, he_normal_, set_batch_norm_mode
 from .backbone import Backbone
 
 __all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet50", "resnet101", "resnet152"]
@@ -98,7 +98,8 @@ class ResNet(Backbone):
 
     STAGE_CHANNELS = (64, 128, 256, 512)
 
-    def __init__(self, block_counts: Sequence[int] = (3, 4, 6, 3), in_channels: int = 3) -> None:
+    def __init__(self, block_counts: Sequence[int] = (3, 4, 6, 3), in_channels: int = 3,
+                 bn_stats_frac: float = 1.0, bn_grad_stats: str = "exact") -> None:
         super().__init__()
         self.block_counts = tuple(int(c) for c in block_counts)
         self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
@@ -113,6 +114,7 @@ class ResNet(Backbone):
                 blocks.append(Bottleneck(width, channels, stride, downsample=i == 0))
                 width = channels * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
+        set_batch_norm_mode(self, bn_stats_frac, bn_grad_stats)
 
     @property
     def out_channels(self) -> int:
@@ -127,8 +129,9 @@ def _resnet(block_counts: Sequence[int], in_channels: int, kwargs: Any) -> ResNe
     unknown = sorted(set(kwargs) - {"bn_stats_frac", "bn_grad_stats"})
     if unknown:
         raise TypeError(f"unknown ResNet settings: {unknown}")
-    check_bn_settings(kwargs.get("bn_grad_stats", "exact"), kwargs.get("bn_stats_frac", 1.0))
-    return ResNet(block_counts, in_channels=in_channels)
+    return ResNet(block_counts, in_channels=in_channels,
+                  bn_stats_frac=float(kwargs.get("bn_stats_frac", 1.0)),
+                  bn_grad_stats=str(kwargs.get("bn_grad_stats", "exact")))
 
 
 @register("backbone")

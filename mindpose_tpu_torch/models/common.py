@@ -1,9 +1,9 @@
 """Shared building blocks for the port's models (NCHW, float32).
 
 Counterpart of mindpose_tpu/models/common.py. ``BatchNorm2d`` stands for
-its ``batch_norm``; the JAX package's TPU-only BatchNorm knobs are checked
-once, where a backbone or head is built from its settings
-(``check_bn_settings``).
+its ``batch_norm`` in every mode (``bn_grad_stats``, ``bn_stats_frac``),
+which a backbone or head sets on all of its BatchNorms once built
+(``set_batch_norm_mode``).
 """
 import contextlib
 import math
@@ -17,6 +17,7 @@ __all__ = [
     "BatchNorm2d",
     "check_bn_settings",
     "frozen_statistics",
+    "set_batch_norm_mode",
     "conv1x1",
     "conv3x3",
     "dense",
@@ -71,56 +72,122 @@ def conv1x1(in_channels: int, out_channels: int, stride: int = 1) -> nn.Conv2d:
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's semantics: eps 1e-5, running = 0.9 * running + 0.1 * batch.
 
-    Eval mode is torch's. Train mode follows flax ``nn.BatchNorm`` with a
-    compute dtype: the statistics E[x], E[x^2] - E[x]^2 (the biased
-    variance, where torch would use the unbiased one; clamped at 0) and the
-    normalization are taken in ``x.dtype`` promoted to at least float32
-    (float64 stays float64), and only the output is cast back to
-    ``x.dtype``. bf16 statistics would lose a channel's variance whenever it
-    is small against its mean. The running statistics keep their own dtype.
-    (Flax momentum 0.9 is torch momentum 0.1.)
+    Eval mode is torch's. Train mode follows the JAX package's
+    ``batch_norm`` (``mindpose_tpu/models/common.py:56-92``), which picks the module by
+    ``grad_stats`` and ``stats_frac``:
+
+    - ``"exact"`` with ``stats_frac >= 1``, and ``"fused"`` at any fraction
+      (exact BN with a hand-written backward there; the fraction is
+      ignored): flax ``nn.BatchNorm`` with a compute dtype. The statistics
+      E[x], E[x^2] - E[x]^2 (the biased variance, where torch would use the
+      unbiased one; clamped at 0) and the normalization are taken in
+      ``x.dtype`` promoted to at least float32 (float64 stays float64), and
+      only the output is cast back to ``x.dtype``. bf16 statistics would
+      lose a channel's variance whenever it is small against its mean.
+    - anything else: ``SubsampledBatchNorm`` (there, :125-179). The
+      statistics come from the batch's leading ``max(1, round(N *
+      stats_frac))`` samples (Python's round: half to even), in ``x.dtype``
+      promoted to at least float32, the variance E[x^2] - E[x]^2 unclamped;
+      ``"frozen_var"`` stops the variance's gradient, ``"frozen"`` the
+      mean's too. The output is ``x * mul + add`` in ``x.dtype`` (bf16
+      under autocast), ``mul`` and ``add`` the per-channel affine cast to
+      it, as JAX computes it in the module's dtype.
+
+    The running statistics keep their own dtype. (Flax momentum 0.9 is
+    torch momentum 0.1.)
 
     ``sync_group``: a process group over which train mode takes its batch
     statistics (``parallel/fsdp.py`` sets it): the per-channel sums of x and
     x^2 and the count are all-reduced inside the forward, through the
     differentiable all-reduce, so that the statistics, the gradient and the
     running statistics are the global batch's, as one GSPMD program over the
-    global batch computes them. ``update_statistics`` False (set by
-    ``frozen_statistics``) leaves the running statistics as they are.
+    global batch computes them. A subsampled slice is then the global
+    batch's leading rows: rank r holds global rows [r*b, (r+1)*b) and
+    contributes those below the slice's end. ``update_statistics`` False
+    (set by ``frozen_statistics``) leaves the running statistics as they are.
     """
 
-    def __init__(self, num_features: int) -> None:
+    def __init__(self, num_features: int, stats_frac: float = 1.0,
+                 grad_stats: str = "exact") -> None:
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        check_bn_settings(grad_stats)
+        self.stats_frac = float(stats_frac)
+        self.grad_stats = grad_stats
         self.sync_group = None
         self.update_statistics = True
 
-    def _batch_moments(self, xf: torch.Tensor):
-        """E[x] and E[x^2] per channel, over this rank's batch or the group's."""
+    @property
+    def subsampled(self) -> bool:
+        """True where train mode takes JAX's ``SubsampledBatchNorm`` path."""
+        return self.grad_stats != "fused" and (self.grad_stats != "exact"
+                                               or self.stats_frac < 1.0)
+
+    def _batch_moments(self, xf: torch.Tensor, rows: Optional[int] = None):
+        """E[x] and E[x^2] per channel over this rank's batch or the group's;
+        with ``rows``, over the (global) batch's first ``rows`` samples."""
         if self.sync_group is None:
-            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            xs = xf if rows is None else xf[:rows]
+            return xs.mean(dim=(0, 2, 3)), (xs * xs).mean(dim=(0, 2, 3))
         from torch.distributed.nn.functional import all_reduce
 
+        if rows is not None:  # this rank's global rows [r*b, (r+1)*b) below ``rows``
+            b = xf.shape[0]
+            start = torch.distributed.get_rank(self.sync_group) * b
+            xf = xf[:min(max(rows - start, 0), b)]
         count = xf.new_full((1,), xf.numel() // xf.shape[1])
         sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
                                      count]), group=self.sync_group)
         c = xf.shape[1]
         return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean, mean_sq = self._batch_moments(xf)
-        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         if self.update_statistics:
             with torch.no_grad():
                 # flax's order of operations: 0.9 * running + 0.1 * batch
                 self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
                 self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
                 self.num_batches_tracked += 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if self.subsampled:
+            return self._subsampled(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, mean_sq = self._batch_moments(xf)
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+        self._update_running(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
         return y.to(x.dtype)
+
+    def _subsampled(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        if self.sync_group is not None:
+            n *= torch.distributed.get_world_size(self.sync_group)
+        rows = max(1, int(round(n * self.stats_frac)))
+        mean, mean_sq = self._batch_moments(
+            x.to(torch.promote_types(x.dtype, torch.float32)), rows)
+        var = mean_sq - mean * mean
+        self._update_running(mean, var)
+        if self.grad_stats in ("frozen", "frozen_var"):
+            var = var.detach()
+        if self.grad_stats == "frozen":
+            mean = mean.detach()
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        mul = inv.to(x.dtype)[None, :, None, None]
+        add = (self.bias - mean * inv).to(x.dtype)[None, :, None, None]
+        return x * mul + add
+
+
+def set_batch_norm_mode(module: nn.Module, stats_frac: float = 1.0,
+                        grad_stats: str = "exact") -> None:
+    """Give every ``BatchNorm2d`` of ``module`` the JAX package's
+    ``bn_stats_frac`` and ``bn_grad_stats`` (``BatchNorm2d``'s doc)."""
+    check_bn_settings(grad_stats)
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.stats_frac, m.grad_stats = float(stats_frac), grad_stats
 
 
 @contextlib.contextmanager
@@ -138,21 +205,11 @@ def frozen_statistics(module: nn.Module) -> Iterator[None]:
             m.update_statistics = k
 
 
-def check_bn_settings(bn_grad_stats: str = "exact", bn_stats_frac: float = 1.0) -> None:
-    """Accept the JAX package's exact BatchNorm settings, refuse the divergent ones.
-
-    ``bn_grad_stats: fused`` (exact BN with a hand-written backward) changes
-    no result and builds plain BN here; subsampled statistics
-    (``bn_stats_frac < 1``) and frozen-statistic gradients (``frozen``,
-    ``frozen_var``) were measured to diverge (docs/performance.md:103-122).
-    """
+def check_bn_settings(bn_grad_stats: str = "exact") -> None:
+    """Raise on a BatchNorm mode the JAX package's ``batch_norm`` does not know."""
     if bn_grad_stats not in ("exact", "fused", "frozen", "frozen_var"):
         raise ValueError(
             f"bn_grad_stats must be 'exact', 'fused', 'frozen_var' or 'frozen', got {bn_grad_stats!r}")
-    if bn_grad_stats in ("frozen", "frozen_var") or float(bn_stats_frac) < 1.0:
-        raise NotImplementedError(
-            f"bn_grad_stats={bn_grad_stats!r}, bn_stats_frac={bn_stats_frac} are not ported: "
-            "both were measured to diverge (docs/performance.md:103-122)")
 
 
 def resize_nearest(x: torch.Tensor, height: int, width: int) -> torch.Tensor:

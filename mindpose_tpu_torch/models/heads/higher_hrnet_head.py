@@ -17,6 +17,9 @@ The JAX head's ``s2d_refine`` (on by default) runs each refinement stage in
 same variables (``ConvTranspose_i``, ``BatchNorm_i``, ``BasicBlock_j``,
 ``final_i``). It is accepted here and runs as the plain stage, so one
 converter (``models/convert.py``) serves checkpoints of either form.
+``bn_grad_stats`` is the mode of every BatchNorm of the head (each stage's
+and its BasicBlocks', ``common.BatchNorm2d``), at the whole batch's
+statistics, as in JAX.
 """
 from typing import List, Sequence
 
@@ -25,7 +28,7 @@ from torch import nn
 
 from ...register import register
 from ..backbones.resnet import BasicBlock
-from ..common import BatchNorm2d, check_bn_settings, he_normal_
+from ..common import BatchNorm2d, he_normal_, set_batch_norm_mode
 from .head import Head
 from .simple_baseline_head import DECONV_PADDING
 
@@ -50,7 +53,6 @@ class HigherHRNetHead(Head):
         s2d_refine: bool = True,
     ) -> None:
         super().__init__()
-        check_bn_settings(bn_grad_stats)
         self.num_deconv_layers = num_deconv_layers
         self.cat_outputs = tuple(bool(c) for c in cat_outputs)
         dim_tag = num_joints if tag_per_joint else 1
@@ -83,6 +85,7 @@ class HigherHRNetHead(Head):
             nn.init.zeros_(conv.bias)
         self.final_layers = nn.ModuleList(finals)
         self.deconv_layers = nn.ModuleList(stages)
+        set_batch_norm_mode(self, grad_stats=bn_grad_stats)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         y = self.final_layers[0](x)

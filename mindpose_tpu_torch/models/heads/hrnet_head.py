@@ -1,7 +1,8 @@
 """HRNet head: a single conv with bias over the high-resolution feature.
 
 Counterpart of mindpose_tpu/models/heads/hrnet_head.py, NCHW. The conv is
-named ``head``, as in the JAX package.
+named ``head``, as in the JAX package. ``bn_grad_stats`` is accepted for
+head_setting uniformity, as in the JAX head; this head has no BatchNorm.
 """
 import torch
 from torch import nn
@@ -17,6 +18,7 @@ class HRNetHead(Head):
         in_channels: int = 32,
         num_joints: int = 17,
         final_conv_kernel_size: int = 1,
+        bn_grad_stats: str = "exact",
     ) -> None:
         super().__init__()
         k = final_conv_kernel_size

@@ -10,6 +10,8 @@ False) doubles the map's height and width; torch's ``ConvTranspose2d`` does
 so with padding 1 at k=4 and 0 at k=2, and with the kernel flipped in both
 spatial axes (``models/convert.py`` flips it when it carries JAX weights
 across). The JAX head refuses any other kernel size, and so does this one.
+``bn_grad_stats`` is the mode of the three BatchNorms (``common.BatchNorm2d``),
+at the whole batch's statistics, as in JAX.
 """
 from typing import Sequence
 
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 
 from ...register import register
-from ..common import BatchNorm2d, check_bn_settings, he_normal_
+from ..common import BatchNorm2d, he_normal_, set_batch_norm_mode
 from .head import Head
 
 __all__ = ["SimpleBaselineHead"]
@@ -41,7 +43,6 @@ class SimpleBaselineHead(Head):
         bn_grad_stats: str = "exact",
     ) -> None:
         super().__init__()
-        check_bn_settings(bn_grad_stats)
         layers = []
         channels = in_channels
         for i in range(num_deconv_layers):
@@ -62,6 +63,7 @@ class SimpleBaselineHead(Head):
         # JAX package's final_kernel_init (truncated normal, sd 1e-3) does
         nn.init.trunc_normal_(self.final_layer.weight, 0.0, 1e-3, -2e-3, 2e-3)
         nn.init.zeros_(self.final_layer.bias)
+        set_batch_norm_mode(self, grad_stats=bn_grad_stats)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.final_layer(self.deconv_layers(x))

@@ -6,8 +6,9 @@ exchange unit in the backward (``torch.utils.checkpoint``); the JAX
 package's exact TPU rewrites (``bn_grad_stats: fused``, ``branch0_s2d``,
 ``stem_s2d`` and the head's ``s2d_refine``, the ``s2d*`` variants) build
 the plain layers here, so they time the same net as ``base``; ``bnfrozen``
-was measured to diverge, and the port's HRNet refuses it
-(``NotImplementedError``).
+stops the backbone's BatchNorm statistics' gradients
+(``models/common.BatchNorm2d``), an experiment knob measured to diverge in
+training.
 
     python3 -m mindpose_tpu_torch.tools.bench_bu_variant --variants base,bnfused \\
         [--batch 24] [--iters 10] [--device cpu]

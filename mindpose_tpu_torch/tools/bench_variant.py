@@ -6,9 +6,11 @@ with weight decay 0.05, bf16 autocast: O2) of a backbone and head at batch
 The JAX package's TPU rewrites (``stem_s2d``, ``branch0_s2d``,
 ``bn_grad_stats: fused``) change no result, and the port builds the plain
 layers for them, so ``s2d``, ``b0s2d``, ``bnfused`` and their combinations
-time the same net as ``base``; ``bn4``, ``bn8``, ``s2d_bn4`` (subsampled
-BatchNorm statistics) and ``bnfrozen`` were measured to diverge, and the
-port's HRNet refuses them (``NotImplementedError``). A SimCC head trains on
+time the same net as ``base``; ``bn4`` and ``bn8`` take every BatchNorm's
+statistics from the batch's leading quarter and eighth, ``s2d_bn4`` as
+``bn4`` (JAX's s2d stem takes the plain stem's statistics), ``bnfrozen``
+stops the statistics' gradients (``models/common.BatchNorm2d``): experiment
+knobs, measured to diverge in training. A SimCC head trains on
 ``kl_discret`` with bin-label targets, as ``configs/simcc``; any other head
 on ``joint_mse`` heatmaps. Timed as the JAX tool: 3 warm steps, then
 ``iters`` steps by the host's clock with one ``torch.cuda.synchronize``.

@@ -2,7 +2,11 @@
 with one process per card.
 
 Counterpart of ``tools/train.py:61-517``, in its order: the config and CLI
-overrides; the process group (:63-120); the global numpy seed
+overrides; the gate on divergent training knobs (``check_divergent_knobs``,
+:62: ``backbone_setting.bn_grad_stats`` frozen or frozen_var, or
+``optimizer_setting.radial_projection``, exit unless
+``allow_divergent_knobs: true``, then one warning per knob); the process
+group (:63-120); the global numpy seed
 (``seed + rank``, :105);
 the train and val datasets and loaders (:113-247); the net, its
 pretrained backbone (``backbone_pretrained``, :270-280), the loss and
@@ -70,8 +74,8 @@ base preprocess, for ``joint_mse_distill``.
 
 The entry runs on the current CUDA device unless ``--device`` says
 otherwise, and raises without CUDA, and with more than one visible card
-outside a process group. It raises on a config key it does not read and
-on ``allow_divergent_knobs``; it ignores none.
+outside a process group. It raises on a config key it does not read; it
+ignores none.
 
 Usage:
     python3 -m mindpose_tpu_torch.tools.train --config configs/hrnet/hrnet_w32_tpu.yaml \\
@@ -88,7 +92,7 @@ import numpy as np
 import torch
 
 from ..callbacks import EvalCallback
-from ..config import parse_args
+from ..config import check_divergent_knobs, parse_args
 from ..data import create_dataset, create_pipeline
 from ..data.column_names import FINAL_COLUMN_MAP
 from ..data.device_pipeline import (
@@ -152,25 +156,17 @@ KNOWN_KEYS = frozenset("""
     decoder_setting profile profile_dir
 """.split())
 
-# key -> (refused when, why)
-_REFUSED = {
-    "allow_divergent_knobs": (bool, "the port refuses the divergent BatchNorm and optimizer "
-                                    "knobs themselves, so there is nothing to allow"),
-}
 PARALLEL_MODES = ("data", "fsdp")
 
 
 def check_config(args: Any) -> None:
-    """Raise on a key the entry does not read, or on a setting it does not port."""
+    """Raise on a key the entry does not read, or on an unknown parallel mode."""
     unknown = sorted(set(vars(args)) - KNOWN_KEYS)
     if unknown:
         raise ValueError(f"config keys the train entry does not read: {unknown}")
     parallel_mode = _parallel_mode(args)
     if parallel_mode not in PARALLEL_MODES:
         raise ValueError(f"unknown parallel_mode: {parallel_mode!r}")
-    for key, (refused, why) in _REFUSED.items():
-        if refused(getattr(args, key, None)):
-            raise NotImplementedError(f"{key}={getattr(args, key)!r}: {why}")
 
 
 def _parallel_mode(args: Any) -> str:
@@ -226,6 +222,7 @@ def train(args: Any) -> Dict[str, Any]:
     backbone gave (0 without one), and ``decode_cache``, the decoded-frame
     cache's ``hits`` and ``misses`` (None without one).
     """
+    check_divergent_knobs(args)
     check_config(args)
     rank, world = _distributed(args)
     device = _device(args)

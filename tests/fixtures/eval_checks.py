@@ -47,7 +47,8 @@ def register_port_backbone() -> None:
     stage_cfg = RECORD["stage_cfg"]
 
     def fixture_hrnet(pretrained=False, ckpt_url="", in_channels=3, **kwargs):
-        return HRNet(stage_cfg, in_channels=in_channels)
+        knobs = {k: kwargs[k] for k in ("bn_stats_frac", "bn_grad_stats") if k in kwargs}
+        return HRNet(stage_cfg, in_channels=in_channels, **knobs)
 
     register("backbone", extra_name=name)(fixture_hrnet)
 

@@ -12,7 +12,8 @@ tests/test_torch_hrnet.py's reduced net equal the JAX composition within
 tests/test_torch_predictor.py's tolerance. ``budget_table``'s FLOPs for
 each conv part are 3x the forward convolutions' from the shapes, and its
 bytes for a lone 1x1 conv are x + w + b + y. The variant tables are JAX's,
-and the variants measured to diverge raise. Each tool's ``main`` runs at a
+and the variants measured to diverge time nets in their BatchNorm modes.
+Each tool's ``main`` runs at a
 tiny size with ``--device cpu`` and reports JAX's keys but the ones the
 port drops (listed here), and raises without a card unless given
 ``--device``. The train steps against JAX's: tests/test_torch_bench_steps.py.
@@ -31,6 +32,7 @@ import torch
 from torch import nn
 
 from mindpose_tpu_torch.models import create_network
+from mindpose_tpu_torch.models.common import BatchNorm2d
 from mindpose_tpu_torch.tools import (
     bench,
     bench_bu_variant,
@@ -68,10 +70,29 @@ def test_variant_tables_are_jax_s():
 @pytest.mark.parametrize("tool, variant", [
     (bench_variant, "bn4"), (bench_variant, "bn8"), (bench_variant, "s2d_bn4"),
     (bench_variant, "bnfrozen"), (bench_bu_variant, "bnfrozen")])
-def test_refused_variants_raise(tool, variant):
-    """The variants measured to diverge: the port's HRNet refuses them."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tool.main(["--device", "cpu", "--variants", variant, "--batch", "1", "--iters", "1"])
+def test_refused_variants_raise(tool, variant, monkeypatch):
+    """The variants measured to diverge, refused until the port took the JAX
+    package's BatchNorm modes: each now times its net at batch 1 (the
+    fixture's reduced HRNet), every BatchNorm of the backbone in the
+    variant's mode (s2d_bn4: bn4's, JAX's s2d stem taking the plain stem's
+    statistics)."""
+    built = []
+
+    def create(*args, **kwargs):
+        built.append(tiny_create_network(*args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(bench_variant, "create_network", create)
+    monkeypatch.setattr(bench, "create_network", create)
+    rows = tool.main(["--device", "cpu", "--variants", variant, "--batch", "1", "--iters", "1"])
+    settings = (bench_variant.VARIANTS[variant] if tool is bench_variant
+                else bench_bu_variant.VARIANTS[variant][0])
+    want = (settings.get("bn_stats_frac", 1.0), settings.get("bn_grad_stats", "exact"))
+    assert {(m.stats_frac, m.grad_stats) for m in built[0].backbone.modules()
+            if isinstance(m, BatchNorm2d)} == {want}
+    (row,) = rows
+    assert row["variant"] == variant
+    assert row.get("ms", row.get("higher_hrnet_step_time_ms")) > 0
 
 
 # ---- bench_decode ----

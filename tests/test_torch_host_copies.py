@@ -641,3 +641,39 @@ def test_resolve_skeleton(monkeypatch):
                             (None, 17), ({"skeleton": [[-1, 2], [4, 5]]}, 14)):
         args = type("Args", (), {"dataset_setting": setting, "num_joints": joints})
         assert skeleton.resolve_skeleton(args) == jax_skeleton.resolve_skeleton(args)
+
+
+DIVERGENT_CASES = [
+    {},
+    {"backbone_setting": {"bn_grad_stats": "fused"}},
+    {"backbone_setting": {"bn_stats_frac": 0.25}, "head_setting": {"bn_grad_stats": "frozen"}},
+    {"backbone_setting": {"bn_grad_stats": "frozen_var"}},
+    {"backbone_setting": {"bn_grad_stats": "frozen"},
+     "optimizer_setting": {"radial_projection": True}},
+    {"optimizer_setting": {"radial_projection": True}, "allow_divergent_knobs": True},
+    {"backbone_setting": None, "optimizer_setting": None},
+]
+
+
+@pytest.mark.parametrize("case", DIVERGENT_CASES)
+def test_check_divergent_knobs_is_a_copy(case, caplog):
+    """The training entry's gate, ``mindpose_tpu/config.py:23-56``: the same
+    source, and on each config the same exit text or the same warnings."""
+    import inspect
+    import logging
+    from types import SimpleNamespace
+
+    from mindpose_tpu.config import check_divergent_knobs as jax_check
+    from mindpose_tpu_torch.config import check_divergent_knobs
+
+    assert inspect.getsource(check_divergent_knobs) == inspect.getsource(jax_check)
+    outcomes = []
+    for check in (jax_check, check_divergent_knobs):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            try:
+                check(SimpleNamespace(**case))
+                outcomes.append(("passed", [r.getMessage() for r in caplog.records]))
+            except SystemExit as e:
+                outcomes.append(("exit", str(e)))
+    assert outcomes[0] == outcomes[1]

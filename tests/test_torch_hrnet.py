@@ -39,7 +39,7 @@ from mindpose_tpu_torch.models import (
     create_network_with_loss,
 )
 from mindpose_tpu_torch.models.backbones.hrnet import HRModule, HRNet, w_cfg
-from mindpose_tpu_torch.models.common import resize_nearest
+from mindpose_tpu_torch.models.common import BatchNorm2d, resize_nearest
 from mindpose_tpu_torch.models.convert import convert_net_variables, hrnet_mapping
 from mindpose_tpu_torch.models.heads import HRNetHead
 from mindpose_tpu_torch.models.networks import Net
@@ -173,10 +173,16 @@ def test_tpu_knobs_are_checked():
         create_network("hrnet_w32", "hrnet_head",
                        backbone_args={"stem_s2d": True, "branch0_s2d": True,
                                       "bn_grad_stats": "fused"})
-    with pytest.raises(NotImplementedError, match="performance.md"):
-        create_backbone("hrnet_w32", bn_grad_stats="frozen")
-    with pytest.raises(NotImplementedError, match="performance.md"):
-        create_backbone("hrnet_w32", bn_stats_frac=0.25)
+    # the divergent BatchNorm modes build, every BatchNorm in the mode
+    # (tests/test_torch_divergent_knobs.py holds them to JAX)
+    for knobs, want in (({"bn_grad_stats": "frozen"}, (1.0, "frozen")),
+                        ({"bn_stats_frac": 0.25}, (0.25, "exact"))):
+        with torch.device("meta"):
+            backbone = create_backbone("hrnet_w32", **knobs)
+        assert {(m.stats_frac, m.grad_stats) for m in backbone.modules()
+                if isinstance(m, BatchNorm2d)} == {want}
+    with pytest.raises(ValueError, match="bn_grad_stats"):
+        create_backbone("hrnet_w32", bn_grad_stats="frozen_mean")
     # remat builds, with every exchange unit recomputed (the step: below)
     with torch.device("meta"):
         units = [m for m in create_backbone("hrnet_w32", remat=True).modules()

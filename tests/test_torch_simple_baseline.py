@@ -54,6 +54,7 @@ from mindpose_tpu_torch.models import (
 )
 from mindpose_tpu_torch.models.backbones.hrnet import HRNet
 from mindpose_tpu_torch.models.backbones.resnet import ResNet
+from mindpose_tpu_torch.models.common import BatchNorm2d
 from mindpose_tpu_torch.models.convert import (
     convert_net_variables,
     convert_variables,
@@ -272,8 +273,9 @@ def test_head_settings_are_checked():
         SimpleBaselineHead(num_deconv_kernels=(4, 3, 4))
     with pytest.raises(ValueError, match="Invalid deconv_kernel"):
         JaxHead(num_deconv_kernels=(3, 3, 3)).init(jax.random.PRNGKey(0), jnp.zeros((1, 2, 2, 8)))
-    with pytest.raises(NotImplementedError, match="performance.md"):
-        create_head("simple_baseline_head", in_channels=8, bn_grad_stats="frozen")
+    # the frozen-statistics mode builds (tests/test_torch_divergent_knobs.py holds it to JAX)
+    frozen = create_head("simple_baseline_head", in_channels=8, bn_grad_stats="frozen")
+    assert {m.grad_stats for m in frozen.modules() if isinstance(m, BatchNorm2d)} == {"frozen"}
     head = create_head("simple_baseline_head", in_channels=8, final_conv_kernel_size=3,
                        num_deconv_kernels=(2, 2, 2), bn_grad_stats="fused")
     assert head.final_layer.padding == (1, 1)
@@ -289,10 +291,13 @@ def test_backbone_settings_and_refusals():
         assert create_backbone("resnet50", pretrained=True).block_counts == (3, 4, 6, 3)
         assert isinstance(create_network("resnet50", "simple_baseline_head",
                                          backbone_pretrained=True).backbone, ResNet)
-    with pytest.raises(NotImplementedError, match="performance.md"):
-        create_backbone("resnet50", bn_stats_frac=0.5)
-    with pytest.raises(NotImplementedError, match="performance.md"):
-        create_backbone("resnet50", bn_grad_stats="frozen_var")
+    # the divergent BatchNorm modes build (tests/test_torch_divergent_knobs.py holds them to JAX)
+    with torch.device("meta"):
+        for knobs, want in (({"bn_stats_frac": 0.5}, (0.5, "exact")),
+                            ({"bn_grad_stats": "frozen_var"}, (1.0, "frozen_var"))):
+            backbone = create_backbone("resnet50", **knobs)
+            assert {(m.stats_frac, m.grad_stats) for m in backbone.modules()
+                    if isinstance(m, BatchNorm2d)} == {want}
     with pytest.raises(TypeError):
         create_backbone("resnet50", no_such_setting=1)
 

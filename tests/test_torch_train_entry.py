@@ -6,12 +6,12 @@ hrnet_w32_tpu.yaml for the fixture's reduced HRNet (tests/fixtures, 8
 channels per branch) on tiny_coco's train split, one loader worker, one
 seed. Here: the CLI trains and its last checkpoint gives the callback's
 stats through the eval entry; a failing step leaves a crash checkpoint at
-the step reached; each config key the entry does not support raises
-(``allow_divergent_knobs``; a key it does not read), and so does more than
-one visible GPU outside a process group (tests/test_torch_ddp_entry.py
-trains in two); ``distill_setting`` and ``model_parallel``, refused until
-they were ported, train (tests/test_torch_fsdp_entry.py shards over four
-ranks); ``device_pipeline: true`` with ``device_prefetch`` trains.
+the step reached; an unknown parallel mode and a key the entry does not
+read raise, a divergent knob without ``allow_divergent_knobs`` exits, and
+more than one visible GPU outside a process group raises
+(tests/test_torch_ddp_entry.py trains in two); ``distill_setting``,
+``model_parallel`` and ``allow_divergent_knobs``, refused until they were
+ported, train (tests/test_torch_fsdp_entry.py shards over four ranks); ``device_pipeline: true`` with ``device_prefetch`` trains.
 """
 import json
 import os
@@ -102,12 +102,15 @@ def test_a_failing_step_leaves_a_crash_checkpoint(data, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("options, match", [
     ({"parallel_mode": "pipeline"}, "unknown parallel_mode"),
-    ({"allow_divergent_knobs": True}, "refuses"),
+    # the gate on divergent knobs (JAX's check_divergent_knobs): exits without the flag
+    pytest.param({"allow_divergent_knobs": False,
+                  "optimizer_setting": {"radial_projection": True}},
+                 "Set allow_divergent_knobs=true", id="allow_divergent_knobs-refuses"),
     ({"some_new_knob": 1}, "does not read"),
 ], ids=lambda v: "-".join(map(str, v)) if isinstance(v, dict) else None)
 def test_unsupported_keys_raise(data, tmp_path, options, match):
     args = Config(**dict(vars(_args(str(tmp_path), data)), **options))
-    with pytest.raises((NotImplementedError, ValueError), match=match):
+    with pytest.raises((NotImplementedError, ValueError, SystemExit), match=match):
         port_train.train(args)
 
 
@@ -118,13 +121,21 @@ DISTILL_OPTIONS = {
     "loss": "joint_mse_distill", "loss_setting": {"use_target_weight": True, "alpha": 0.5}}
 
 
-@pytest.mark.parametrize("options", [DISTILL_OPTIONS, {"model_parallel": 2}],
-                         ids=["distill_setting", "model_parallel"])
+DIVERGENT_OPTIONS = {
+    "allow_divergent_knobs": True,
+    "backbone_setting": {"bn_grad_stats": "frozen_var", "bn_stats_frac": 0.5},
+    "optimizer_setting": {"radial_projection": True}}
+
+
+@pytest.mark.parametrize("options", [DISTILL_OPTIONS, {"model_parallel": 2}, DIVERGENT_OPTIONS],
+                         ids=["distill_setting", "model_parallel", "allow_divergent_knobs"])
 def test_once_refused_keys_train(data, tmp_path, options):
     """``distill_setting``: the teacher (the eval fixture's JAX TrainState)
     appends its heatmaps and the callback logs both loss components.
     ``model_parallel`` in one process: not read, as the JAX entry reads it
-    only for an FSDP mesh."""
+    only for an FSDP mesh. ``allow_divergent_knobs`` with frozen-variance,
+    half-batch BatchNorm statistics and the radial projection: trains
+    (tests/test_torch_divergent_knobs.py holds each knob to JAX)."""
     got = port_train.train(_args(str(tmp_path), data, num_epochs=1, val_while_train=False,
                                  **options))
     (epoch,) = got["epochs"]
@@ -138,6 +149,7 @@ def test_once_refused_keys_train(data, tmp_path, options):
                                                                                rel=1e-5)
     else:
         assert "train/loss_1" not in record
+    if "model_parallel" in options:
         parsed = port_train.parse_train_args(["--config", RECIPE, "--cfg-options",
                                               "model_parallel=2"])
         assert parsed.model_parallel == 2

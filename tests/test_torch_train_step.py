@@ -274,13 +274,15 @@ def test_optimizer_matches_optax_over_5_steps(variables, name, filter_bias_and_b
 
 
 @pytest.mark.parametrize("knob, error, match", [
-    ({"radial_projection": True}, NotImplementedError, "ROADMAP"),
+    # the radial projection is ported, for adamw only, as in JAX
+    # (tests/test_torch_divergent_knobs.py holds it to optax's chain)
+    ({"radial_projection": True, "name": "adam"}, ValueError, "only supported with adamw"),
     # layer decay is ported, and needs a block-indexed (ViT) tree, as in JAX
     ({"layer_decay": 0.75}, ValueError, "block-indexed"),
 ])
 def test_optimizer_refuses_unported_knobs(variables, knob, error, match):
     with pytest.raises(error, match=match):
-        create_optimizer(_port_net(variables), name="adamw", **knob)
+        create_optimizer(_port_net(variables), **{"name": "adamw", **knob})
 
 
 def test_train_step_refuses_unknown_amp_level(variables):
