@@ -61,10 +61,11 @@ no result, when there is no CUDA device or when any phase fails:
     batch 128, adamw, host targets, evaluating every ``val_interval`` epochs) on
     synthetic COCO from ``mindpose_tpu_torch/tools/make_synthetic_coco.py``; the overrides are
     the data paths, ``num_epochs``, ``warmup``, ``val_interval`` and
-    ``ckpt_save_dir``. First the train loader alone with 8 threads and with
-    the process pool (crops/s); then per epoch the img/s with the loader
-    feeding the step, the step's median and the wait on the loader, beside
-    phase 9's img/s. It holds: every loss finite, the last epoch's mean
+    ``ckpt_save_dir``. Per epoch the img/s with the loader feeding the
+    step, the step's median and the wait on the loader, beside phase 9's
+    img/s (the process pool's 8 workers start beside this run); then the
+    train loader alone with 8 threads and with the process pool (crops/s).
+    It holds: every loss finite, the last epoch's mean
     loss below the first's, the last evaluation's AP above 0, one decode
     launch per val batch per evaluation, the best and last checkpoints
     written, the last one's 10 COCO stats through the eval entry equal to
@@ -176,7 +177,11 @@ no result, when there is no CUDA device or when any phase fails:
     carries through the softmax);
 23. the same for configs/rle/resnet50_rle_tpu.yaml (``rle_head``, laplace
     NLL; the device targets bit for bit; served joints within 1e-3 px plus
-    twice the mu bound times the crop's size, scores within sigma's bound);
+    twice the mu bound times the crop's size, scores within sigma's bound),
+    first one float64 step of the recipe at full width, batch 2, constant
+    lr, on the card against the CPU (loss, gradients and BatchNorm running
+    statistics within 1e-8); both runs at one loader worker with cuDNN's
+    deterministic algorithms, each step's loss printed, the two runs' equal;
 24. the decode kernel at MPII's heatmaps [32|128,16,64,64], shift on, both
     wrappers bitwise against their plain versions (random heatmaps and exact
     ties, the back-projection on), then timed warm and cold in L2 beside
@@ -221,8 +226,9 @@ no result, when there is no CUDA device or when any phase fails:
     formula of tests/test_torch_ddp.py (the mean of two momentum updates
     against two in sequence); (b) the train entry under ``python3 -m
     torch.distributed.run --nproc_per_node=1`` (nccl, world size 1, DDP
-    over the card; one process for 26 (b) and 27 (b), run beside phases
-    28-33, whose times it shares the card and cores with) on
+    over the card; one process for 26 (b) and 27 (b), run beside the main
+    process's phases from 17 on, whose times it shares the card and cores
+    with) on
     hrnet_w32_tpu.yaml as parsed, phase 12's data, 3
     epochs of 10 steps, evaluating after the last: finite, falling losses,
     AP above 0, one decode launch per val batch, all-reduces issued in the
@@ -321,7 +327,7 @@ no result, when there is no CUDA device or when any phase fails:
     key, decode launches), the five serving presets at 1, 8 and 32 boxes
     and hrnet_w32 with int8 weights (p50 <= p90 <= p99; decode launches for
     the heatmap presets only), bench_e2e's three modes and its bytes-only
-    and loader-only runs (32 records), the variant tools at 2 timed steps
+    and loader-only runs (32 records), the variant tools at 1 timed step
     (batches 32 and 8; bench_variant's base, bn4 and bnfrozen,
     bench_bu_variant's base, bnfrozen and remat), and the budget table
     (every row within 105% of its eager program's bound and of its least
@@ -342,10 +348,25 @@ no result, when there is no CUDA device or when any phase fails:
     ms of base, frozen, frozen_var, bn4 and the radial AdamW, base first and
     last, beside the card's name and power limit.
 
+Some phases run in processes of their own beside the main process's
+phases, on the same card: 34 and 35 (b)-(e) in one beside phases 10-13
+and 15 (which runs before 14); then, after phase 23 (which runs alone,
+right after 24's decode kernel), one process at a time beside phases 17-22
+and 24 (b)-33, 36, 26 (b) and 27 (b)'s torchrun process, 35 (a)
+(``tools/bench.py``) and 25; 26 (a)'s and 27 (a)'s ranks start beside
+phase 20. These processes run on all of the host's cores but two, which
+the main process keeps. None runs beside phase 9 (the one full timing of
+the train step) or a phase that times a kernel for the kernels line (3, 7,
+8, 14, 16, and 24's decode kernel, which runs right after 16; its training
+runs after 23). Each such process's output is printed once it has ended,
+and after a group of phases over which one ran the script says so on a
+line of its own: those phases' times were taken on a shared card and
+host.
+
 Every process the run starts ends before it does: the script adopts each
 one whose parent ends first (a child subreaper), stops the process pool's
 forkserver and resource tracker after phase 12, and fails if any process it
-started is still there after phase 36. After each group of phases it
+started is still there at the end. After each group of phases it
 prints ``time: phases ... took N s``, and at the end the whole run's
 seconds by its own clock.
 
@@ -735,6 +756,11 @@ RLE_YAML = os.path.join(CONFIGS, "rle", "resnet50_rle_tpu.yaml")
 MPII_YAML = os.path.join(CONFIGS, "mpii", "hrnet_w32_mpii_tpu.yaml")
 FAMILY_EPOCHS = 2
 FAMILY_DEVICE_EPOCHS = 2
+# phase 23's loader workers: one, so that both runs train on the same
+# batches on every call (the recipe's 8 threads draw the augmentations in the
+# order they reach numpy's stream: a run on unchanged code read epoch losses
+# 2.500 then 3.034 against 0.83-1.05 in others)
+RLE_WORKERS = 1
 # the SimCC device labels against the host transform's on the same warped
 # keypoints: float32 exp on the card against numpy's and each row's sum in
 # another order, a few ulps of each label (the regression targets divide
@@ -762,6 +788,14 @@ FULL_CROP_ATOL = 0.05  # the warp on the card against the CPU's, 0-255 scale
 # a batch of the same kind
 FULL_HOST_ATOL = 2 * 255 / 64 + 0.5
 FULL_TARGET_ATOL = 1e-5
+# phase 25's input modes beside phase 12's host targets, as the train entry's
+# options; both at the yaml's loader workers
+INPUT_MODES = {
+    "device": ("device_pipeline=True",),
+    "full": ("device_pipeline=full", f"image_bucket={FULL_BUCKET}",
+             f"decode_cache_mb={FULL_CACHE_MB}", "frame_grouped_shuffle=True",
+             "patch_grouped_batching=True", "profile=True"),
+}
 # phase 26: data-parallel training. (a) two ranks on this one card over gloo
 # (nccl refuses two ranks on one card), each given 16 crops of a batch of 32,
 # against one process at accum_steps=2 on the 32; (b) the train entry under
@@ -811,13 +845,22 @@ DIVERGENT_CASES = {"frozen": ({"bn_grad_stats": "frozen"}, False),
 DIVERGENT_VARIANTS = {"base": ({}, False), "frozen": ({"bn_grad_stats": "frozen"}, False),
                       "frozen_var": ({"bn_grad_stats": "frozen_var"}, False),
                       "bn4": ({"bn_stats_frac": 0.25}, False), "radial": ({}, True)}
-DIVERGENT_WARMUP_STEPS = 2
-DIVERGENT_TIMED_STEPS = 4
+# one warm-up step an arm: phase 36 (b) has run the same step's shapes in
+# the same process (its kernels' plans are made); the median of 3
+DIVERGENT_WARMUP_STEPS = 1
+DIVERGENT_TIMED_STEPS = 3
 # (a), (b): the largest |<u, w>| / (|u| |w|) over the output channels of a
 # projected filter, u the update's Adam part, against a float32 update read
 # back from the weights (~1e-5 of rounding); an unprojected update of a
 # 3x3 x C filter sits near 1 / sqrt(9 C), 0.02 at C = 256
 RADIAL_COS_BOUND = 1e-3
+# phases 34-35, 36 and 25 run in processes of their own beside the main
+# process's phases (``run_phases``); each such process's time limit
+PHASES_TIMEOUT_S = 900
+# host cores that the processes beside the main process's phases leave to it
+# (``Background``): its step issue and loader threads would otherwise wait
+# behind theirs
+MAIN_CORES = 2
 PR_SET_CHILD_SUBREAPER = 36  # prctl option, <linux/prctl.h>
 
 
@@ -859,6 +902,69 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+class Background:
+    """Work that runs beside the main process's phases on the same card: each
+    job, a function on a pool thread that starts a process of its own
+    (``run_processes``), has a label and the span it ran over; ``serial``
+    jobs run one after another on a pool of one thread, in the order they
+    were submitted. A job's thread, and so every process it starts, runs on
+    the host's cores but the first ``MAIN_CORES``. ``sharers`` names the jobs
+    that ran during a span of the main process, whose timings then shared
+    the card (and the host's other cores) with them."""
+
+    def __init__(self, pool: ThreadPoolExecutor, serial: ThreadPoolExecutor) -> None:
+        self.pool, self.serial = pool, serial
+        self.spans = {}
+
+    def submit(self, label: str, fn, *args, serial: bool = False):
+        span = self.spans[label] = [None, None]
+
+        def run():
+            cores = sorted(os.sched_getaffinity(0))
+            if len(cores) > 2 * MAIN_CORES:
+                os.sched_setaffinity(0, cores[MAIN_CORES:])  # this thread's, inherited
+            span[0] = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                span[1] = time.perf_counter()
+
+        return (self.serial if serial else self.pool).submit(run)
+
+    def sharers(self, start: float, end: float) -> list:
+        return [label for label, (s, e) in self.spans.items()
+                if s is not None and s < end and (e is None or e > start)]
+
+
+def run_phases(phases: str, root: str, job: dict) -> dict:
+    """Phases ``phases`` in a process of their own (``chip_smoke.py --phases``,
+    ``phases_process``) on the same card, with ``job`` (JSON) and ``root``;
+    returns their log and what they wrote. Raises with the log's tail if the
+    process fails or outlives ``PHASES_TIMEOUT_S``."""
+    out_dir = os.path.join(root, f"phases_{phases}")
+    os.makedirs(out_dir, exist_ok=True)
+    job_path = os.path.join(out_dir, "job.json")
+    result_path = os.path.join(out_dir, "result.json")
+    with open(job_path, "w") as f:
+        json.dump(dict(job, root=root, out=result_path), f)
+    start = time.perf_counter()
+    (log,) = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--phases", phases, job_path]],
+        [os.path.join(out_dir, "log")], PHASES_TIMEOUT_S, f"phases {phases}",
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    with open(result_path) as f:
+        return {"log": log, "result": json.load(f), "seconds": time.perf_counter() - start}
+
+
+def joined(label: str, done: dict) -> dict:
+    """Print the log of a ``run_phases`` job once it is joined; returns its result."""
+    print(f"--- {label}, in a process of their own ({done['seconds']:.1f} s from its start to "
+          f"its end), sharing the card with the main process's phases:")
+    print(done["log"].rstrip())
+    print(f"--- end of {label}")
+    return done["result"]
 
 
 def time_ms(fn, queued: bool, iters: int = 100, repeats: int = 7) -> float:
@@ -1966,11 +2072,13 @@ def compare_train_with_cpu(device: torch.device) -> None:
                              "tolerances")
 
 
-def time_train_loader(args: Config) -> dict:
-    """Phase 12: the recipe's train loader alone (train transforms, batch 128,
-    the yaml's workers), over 2 epochs with threads, then 2 with the process
-    pool (whose first epoch includes starting it). Returns crops/s of each
-    second epoch."""
+def train_loaders(args: Config) -> tuple:
+    """Phase 12: the recipe's train loader (train transforms, batch 128, the
+    yaml's workers) with threads and with the process pool, and the thread
+    that starts the pool's workers (each importing this script) beside the
+    entry's run: it takes the pool's first batch and drops it (the workers,
+    not this process, draw its augmentations). ``time_train_loader`` times
+    both loaders after the run."""
     dataset = create_dataset(args.train_root, args.train_label,
                              dataset_format=args.dataset_format, is_train=True,
                              num_workers=args.num_parallel_workers, config=args.dataset_setting)
@@ -1985,7 +2093,25 @@ def time_train_loader(args: Config) -> dict:
                            normalize_mean=args.normalize_mean, normalize_std=args.normalize_std,
                            num_workers=args.num_parallel_workers, seed=SEED,
                            worker_mode="process")
+
+    def start_pool() -> None:
+        batches = iter(processes)
+        next(batches)
+        batches.close()
+
+    starter = threading.Thread(target=start_pool, name="pool-start")
+    starter.start()
+    return threads, processes, starter
+
+
+def time_train_loader(args: Config, threads: DataLoader, processes: DataLoader,
+                      starter: threading.Thread) -> dict:
+    """Phase 12: ``train_loaders``' loaders alone over 2 epochs each (the
+    process pool started beside the entry's run by ``starter``: its first
+    epoch no longer includes the start). Returns crops/s of each second
+    epoch; closes the pool."""
     out = {}
+    starter.join()
     try:
         for name, loader in (("threads", threads), ("processes", processes)):
             rates = []
@@ -1995,7 +2121,8 @@ def time_train_loader(args: Config) -> dict:
                 rates.append(crops / (time.perf_counter() - start))
             print(f"train loader alone, {args.num_parallel_workers} {name}: {crops} crops per "
                   f"epoch ({len(loader)} batches of {args.batch_size}), {rates[0]:.1f} crops/s "
-                  f"in the first epoch, {rates[1]:.1f} in the second")
+                  f"in the first epoch, {rates[1]:.1f} in the second"
+                  + (" (the pool started beside the entry's run)" if loader is processes else ""))
             out[name] = rates[1]
     finally:
         processes.close()
@@ -2024,7 +2151,7 @@ def train_through_entry(root: str, phase9: dict, device: torch.device) -> dict:
     ckpt_dir = os.path.join(root, "entry")
     args = parse(ckpt_dir, f"num_epochs={ENTRY_EPOCHS}", f"warmup={ENTRY_WARMUP}",
                  f"val_interval={ENTRY_VAL_INTERVAL}")
-    loader_rates = time_train_loader(args)
+    loaders = train_loaders(args)
 
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -2032,6 +2159,7 @@ def train_through_entry(root: str, phase9: dict, device: torch.device) -> dict:
     result = train_entry.train(args)
     launches = argmax_shift_decode.launches
     train_s = time.perf_counter() - start
+    loader_rates = time_train_loader(args, *loaders)
     epochs = result["epochs"]
     base = phase9["images_per_sec"]
     for e in epochs:
@@ -2137,21 +2265,41 @@ def recipe_args(recipe: str, data: dict, ckpt_dir: str, device: torch.device,
                                          "--device", str(device)])
 
 
+@contextlib.contextmanager
+def step_losses():
+    """Within the block, the train entry's callback also keeps each step's
+    summed loss in the list it yields (device scalars: read them after the
+    run, as the callback does, so that no step waits for its loss)."""
+    losses = []
+    on_step_end = train_entry.EvalCallback.on_step_end
+
+    def recorded(callback, loss_vector):
+        losses.append(loss_vector.detach().sum())
+        on_step_end(callback, loss_vector)
+
+    train_entry.EvalCallback.on_step_end = recorded
+    try:
+        yield losses
+    finally:
+        train_entry.EvalCallback.on_step_end = on_step_end
+
+
 def train_recipe(args: Config, label: str) -> dict:
     """Phases 22-24: ``args`` through the train entry on the card, recording
     what its callback evaluated (``recording_entry``). Prints each epoch (img/s
     with the loader feeding the step, the step median, the wait on the
-    loader), then epochs 2 on, the peak memory and the losses; holds finite
-    losses, the last epoch's below the first's. Returns the run's numbers,
-    the decode kernel's launches in it and the record. An earlier phase's net
-    and optimizer may still be allocated, held in reference cycles: they are
-    collected first, so that the peak is this run's own."""
+    loader), then epochs 2 on, the peak memory, the losses and each step's
+    loss; holds finite losses, the last epoch's below the first's. Returns
+    the run's numbers, the decode kernel's launches in it and the record. An
+    earlier phase's net and optimizer may still be allocated, held in
+    reference cycles: they are collected first, so that the peak is this
+    run's own."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     argmax_shift_decode.launches = 0
-    with recording_entry(train_entry) as seen:
+    with recording_entry(train_entry) as seen, step_losses() as per_step:
         result = train_entry.train(args)
     launches = argmax_shift_decode.launches
     train_s = time.perf_counter() - start
@@ -2162,6 +2310,7 @@ def train_recipe(args: Config, label: str) -> dict:
     wait = sum(e["wait_total_s"] for e in warm) / sum(e["steps"] for e in warm)
     step_median_ms = statistics.median(e["step_median_s"] for e in warm) * 1e3
     losses = [e["loss"] for e in epochs]
+    per_step = torch.stack(per_step).tolist()
     print(f"{label} ({args.backbone_name} + {args.head_name}, {args.amp_level}, batch "
           f"{args.batch_size}, device_pipeline {getattr(args, 'device_pipeline', False)}): "
           f"epochs 2-{len(epochs)} {rate:.1f} img/s with the loader feeding the step, median of "
@@ -2169,12 +2318,14 @@ def train_recipe(args: Config, label: str) -> dict:
           f"{wait * 1e3:.1f} ms per step; {result['step']} steps in {train_s:.1f} s with the "
           f"evaluation; peak torch.cuda.max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); "
           f"losses {losses}; decode kernel launches {launches}")
+    print(f"{label}: each step's loss " + ", ".join(f"{v:.9g}" for v in per_step))
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}'s losses are not finite or did not fall: {losses}")
     evals = [e for e in epochs if e["metrics"]]
     return {"result": result, "seen": seen, "launches": launches, "images_per_sec": rate,
             "wait_per_step_ms": wait * 1e3, "step_median_ms": step_median_ms,
-            "peak_bytes": peak, "losses": losses, "evaluations": len(evals),
+            "peak_bytes": peak, "losses": losses, "step_losses": per_step,
+            "evaluations": len(evals),
             "stats": {k: float(v) for k, v in evals[-1]["metrics"].items()} if evals else {}}
 
 
@@ -3030,9 +3181,9 @@ def compare_bottomup_train_with_cpu(root: str, device: torch.device) -> dict:
     np.random.seed(SEED)
     dataset = create_dataset(img_root, ann, dataset_format="coco_bottomup", is_train=True,
                              config=setting)
-    batch = next(iter(create_pipeline(dataset, recipe.train_transforms, method="bottomup",
-                                      batch_size=BU_CPU_BATCH, is_train=True, config=setting,
-                                      num_workers=1, seed=SEED)))
+    batch = first_batch(create_pipeline(dataset, recipe.train_transforms, method="bottomup",
+                                        batch_size=BU_CPU_BATCH, is_train=True, config=setting,
+                                        num_workers=1, seed=SEED))
     loss_setting = dict(recipe.loss_setting, stage_sizes=setting["heatmap_sizes"])
     cpu = torch.device("cpu")
 
@@ -3307,7 +3458,7 @@ def check_device_targets(args: Config, device: torch.device) -> dict:
                              is_train=True, normalize=False, config=args.dataset_setting,
                              num_workers=args.num_parallel_workers, seed=SEED,
                              final_columns=BOTTOMUP_DEVICE_FINAL_COLUMNS)
-    batch = next(iter(loader))
+    batch = first_batch(loader)
     preprocess = build_bottomup_preprocess(args.dataset_setting["heatmap_sizes"],
                                            args.normalize_mean, args.normalize_std, sigma=sigma)
     inputs = [torch.from_numpy(batch[c]).to(device) for c in BOTTOMUP_DEVICE_FINAL_COLUMNS]
@@ -3559,6 +3710,22 @@ def vitpose_recipes(root: str, data: dict, device: torch.device) -> dict:
     return out
 
 
+def first_batch(loader) -> dict:
+    """``loader``'s first batch. Its producer thread makes the next batches
+    ahead and, once the iteration is closed, stops after the batch it is
+    making: it is waited for here, so that the draws of that batch's train
+    augmentations from numpy's global stream end here and not inside a run
+    that seeds the stream after this."""
+    before = set(threading.enumerate())
+    batches = iter(loader)
+    batch = next(batches)
+    batches.close()
+    for thread in set(threading.enumerate()) - before:
+        if thread.name == "loader-prefetch":
+            thread.join()
+    return batch
+
+
 def check_topdown_device_targets(args: Config, device: torch.device) -> dict:
     """Phases 22-23: one batch of the ``device_pipeline: true`` loader (the
     host stops at the affine crop), its targets rendered on the card by
@@ -3575,7 +3742,7 @@ def check_topdown_device_targets(args: Config, device: torch.device) -> dict:
                              is_train=True, normalize=False, config=args.dataset_setting,
                              num_workers=args.num_parallel_workers, seed=SEED,
                              final_columns=["image", "keypoints"])
-    batch = next(iter(loader))
+    batch = first_batch(loader)
     preprocess = build_topdown_preprocess(
         args.dataset_setting["image_size"], args.dataset_setting["heatmap_size"],
         args.normalize_mean, args.normalize_std, **target_kwargs)
@@ -3712,6 +3879,66 @@ def serve_family(recipe: str, ckpt: str, device: torch.device, regression: bool)
     return {"latency_ms": medians, **compared}
 
 
+def compare_rle_step_with_cpu(device: torch.device) -> dict:
+    """Phase 23: one step of resnet50_rle_tpu.yaml's net, loss and optimizer
+    at full width (ResNet-50 + ``rle_head``), batch ``TRAIN_CPU_BATCH``,
+    float64, the yaml's lr held constant, on the card and on the port on the
+    CPU from the same weights (``random_weights_``, the head's Linear layers
+    then drawn at 1/sqrt(fan-in) so that ``mu`` and ``sigma`` sit in the
+    range a trained head gives): the loss, every gradient and every
+    BatchNorm running statistic within ``TRAIN_F64_RTOL`` of each tensor's
+    largest, as phase 11 holds HRNet. Also prints the update's largest
+    card-CPU difference in units of lr."""
+    cpu = torch.device("cpu")
+    args = train_entry.parse_train_args(["--config", RLE_YAML])
+    w, h = args.dataset_setting["image_size"]
+    rng = np.random.RandomState(SEED + 23)
+    image = torch.from_numpy(rng.standard_normal((TRAIN_CPU_BATCH, 3, h, w)))
+    target = torch.from_numpy(rng.uniform(0, 1, (TRAIN_CPU_BATCH, args.num_joints, 2)))
+    weight = torch.from_numpy(
+        (rng.uniform(0, 1, (TRAIN_CPU_BATCH, args.num_joints)) < 0.8).astype(np.float64))
+    net = create_network(args.backbone_name, args.head_name, num_joints=args.num_joints,
+                         backbone_args=args.backbone_setting, head_args=args.head_setting)
+    random_weights_(net, device)
+    with torch.no_grad():
+        for layer in (net.head.fc_coord, net.head.fc_sigma):
+            fan_in = layer.weight.shape[1]
+            layer.weight.copy_(torch.from_numpy(
+                rng.standard_normal(tuple(layer.weight.shape)) / np.sqrt(fan_in)))
+            layer.bias.zero_()
+    net.double()
+    runs = {}
+    for side, side_net, dev in (("gpu", net, device), ("cpu", copy.deepcopy(net).cpu(), cpu)):
+        optimizer = create_optimizer(side_net, args.optimizer, learning_rate=args.lr,
+                                     weight_decay=args.weight_decay,
+                                     filter_bias_and_bn=args.filter_bias_and_bn,
+                                     **args.optimizer_setting)
+        step = build_train_step(create_network_with_loss(
+            side_net, create_loss(args.loss, **args.loss_setting),
+            has_extra_inputs=args.loss_with_extra_input), optimizer)
+        start = {k: p.detach().to("cpu", copy=True) for k, p in side_net.named_parameters()}
+        loss = step(image.to(dev), target.to(dev), weight.to(dev))
+        grads, stats = _grads_and_stats(side_net)
+        moved = {k: p.detach().cpu() - start[k] for k, p in side_net.named_parameters()}
+        runs[side] = (loss.cpu(), grads, stats, moved)
+        del step, optimizer
+    del net
+    torch.cuda.empty_cache()
+    gpu, on_cpu = runs["gpu"], runs["cpu"]
+    loss_err = float(((gpu[0] - on_cpu[0]).abs() / on_cpu[0].abs()).max())
+    grads, stats = _errors(gpu[1], on_cpu[1]), _errors(gpu[2], on_cpu[2])
+    update_lr = max(float((gpu[3][k] - on_cpu[3][k]).abs().max()) for k in gpu[3]) / args.lr
+    print(f"phase 23 RLE step card-vs-CPU, float64, batch {TRAIN_CPU_BATCH}, lr {args.lr} "
+          f"constant: loss {gpu[0].tolist()} against the CPU's {on_cpu[0].tolist()} "
+          f"({loss_err:.3e}); {len(grads)} gradients {_summary(grads)}; {len(stats)} running "
+          f"statistics {max(stats.values()):.3e} (bound {TRAIN_F64_RTOL} each); the update's "
+          f"largest card-CPU difference {update_lr:.3e} lr")
+    if max(loss_err, max(grads.values()), max(stats.values())) > TRAIN_F64_RTOL:
+        raise AssertionError("phase 23: the card's float64 RLE step disagrees with the CPU's")
+    return {"loss_rel_err": loss_err, "grad_rel_err": max(grads.values()),
+            "stats_rel_err": max(stats.values()), "update_max_lr": update_lr}
+
+
 def family_training(root: str, data: dict, device: torch.device, recipe: str) -> dict:
     """Phase 22 (``SIMCC_YAML``) or 23 (``RLE_YAML``): the recipe as parsed
     (ResNet-50 at 256x192, O2, batch 128, adamw, host targets) through the
@@ -3719,35 +3946,60 @@ def family_training(root: str, data: dict, device: torch.device, recipe: str) ->
     TTA on); the last checkpoint through the eval entry; one batch of device
     targets against the host's, then a run with ``device_pipeline: true``;
     the serving entry. No decode launch anywhere: SimCC and RLE decode with
-    plain PyTorch, as the JAX package decodes them with plain XLA."""
+    plain PyTorch, as the JAX package decodes them with plain XLA.
+
+    Phase 23 first holds one float64 step on the card against the CPU
+    (``compare_rle_step_with_cpu``), then trains with ``RLE_WORKERS`` loader
+    worker and cuDNN's deterministic algorithms (the previous setting
+    restored after the phase): with more workers the threads draw the
+    augmentations from numpy's global stream in the order they reach it, as
+    the JAX package's loader does, so no two runs train on the same batches
+    (tests/test_torch_loader_threads.py), and RLE's first 20 steps at the
+    full lr once rose instead of falling (``RLE_WORKERS``). Both runs then
+    train on the same batches, so their per-step losses must be equal."""
     name = os.path.splitext(os.path.basename(recipe))[0]
     regression = recipe == RLE_YAML
+    options = (f"num_parallel_workers={RLE_WORKERS}",) if regression else ()
     ckpt_dir = os.path.join(root, name)
-    args = recipe_args(recipe, data, ckpt_dir, device, f"num_epochs={FAMILY_EPOCHS}",
-                       f"warmup={ENTRY_WARMUP}", f"val_interval={FAMILY_EPOCHS}")
-    host = train_recipe(args, name)
-    val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
-    print(f"{name}: {host['evaluations']} evaluation(s) of {val_batches} batch(es), hflip TTA "
-          f"{args.eval_setting['hflip_tta']}; stats {json.dumps(host['stats'])}")
-    if host["launches"] or host["evaluations"] != 1 or not host["stats"]["AP"] >= 0:
-        raise AssertionError(f"{name}: {host['evaluations']} evaluations, "
-                             f"{host['launches']} decode launches")
-    last = os.path.join(ckpt_dir, f"{name}_last.ckpt")
-    evaluated = eval_recipe_checkpoint(root, args, host, last, device, name)
-    del host["seen"]
-    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        step = compare_rle_step_with_cpu(device) if regression else None
+        torch.backends.cudnn.deterministic = deterministic or regression
+        args = recipe_args(recipe, data, ckpt_dir, device, f"num_epochs={FAMILY_EPOCHS}",
+                           f"warmup={ENTRY_WARMUP}", f"val_interval={FAMILY_EPOCHS}", *options)
+        host = train_recipe(args, name)
+        val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // args.batch_size)
+        print(f"{name}: {host['evaluations']} evaluation(s) of {val_batches} batch(es), hflip "
+              f"TTA {args.eval_setting['hflip_tta']}; stats {json.dumps(host['stats'])}")
+        if host["launches"] or host["evaluations"] != 1 or not host["stats"]["AP"] >= 0:
+            raise AssertionError(f"{name}: {host['evaluations']} evaluations, "
+                                 f"{host['launches']} decode launches")
+        last = os.path.join(ckpt_dir, f"{name}_last.ckpt")
+        evaluated = eval_recipe_checkpoint(root, args, host, last, device, name)
+        del host["seen"]
+        torch.cuda.empty_cache()
 
-    device_args = recipe_args(recipe, data, os.path.join(root, f"{name}_device"), device,
-                              f"num_epochs={FAMILY_DEVICE_EPOCHS}", f"warmup={ENTRY_WARMUP}",
-                              "val_while_train=False", "device_pipeline=True")
-    targets = check_topdown_device_targets(device_args, device)
-    on_device = train_recipe(device_args, f"{name}, device_pipeline: true")
-    del on_device["seen"]
-    torch.cuda.empty_cache()
-    served = serve_family(recipe, last, device, regression)
-    torch.cuda.empty_cache()
+        device_args = recipe_args(recipe, data, os.path.join(root, f"{name}_device"), device,
+                                  f"num_epochs={FAMILY_DEVICE_EPOCHS}", f"warmup={ENTRY_WARMUP}",
+                                  "val_while_train=False", "device_pipeline=True", *options)
+        targets = check_topdown_device_targets(device_args, device)
+        on_device = train_recipe(device_args, f"{name}, device_pipeline: true")
+        del on_device["seen"]
+        torch.cuda.empty_cache()
+        if regression:
+            same = on_device["step_losses"] == host["step_losses"]
+            print(f"{name}: {RLE_WORKERS} loader worker, cuDNN's deterministic algorithms; the "
+                  f"device_pipeline run's {len(on_device['step_losses'])} per-step losses equal "
+                  f"to the host run's: {same}")
+            if not same:
+                raise AssertionError(f"{name}: the two runs' per-step losses differ on the same "
+                                     "batches")
+        served = serve_family(recipe, last, device, regression)
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     return {"host": host, "device": on_device, "targets": targets, "eval": evaluated,
-            "served": served}
+            "served": served, "step": step}
 
 
 def mpii_decode_bound_ms(n: int) -> float:
@@ -4034,22 +4286,16 @@ def input_modes_training(root: str, data: dict, device: torch.device) -> dict:
     after the last, in two input modes beside phase 12's host targets:
     ``device_pipeline: true``; ``device_pipeline: full`` with ``image_bucket`` 64, the decode
     cache, frame-grouped shuffling, patch-grouped batching and ``profile:
-    true``. First full mode's first batch (``check_full_mode_batch``). Each
-    run holds finite, falling losses, AP above 0 and one decode launch per
+    true`` (``INPUT_MODES``). First full mode's first batch
+    (``check_full_mode_batch``). Each run holds finite, falling losses, AP above 0 and one decode launch per
     val batch; the full run's epoch-2 trace holds CUDA kernels. Then a
     ``convert_ckpt`` round trip of the full run's backbone. Returns each run's
     numbers, the decode launches and the checks'."""
     base = recipe_args(RECIPE_YAML, data, os.path.join(root, "input_check"), device)
     first = check_full_mode_batch(base, device)
-    modes = {  # host targets: phase 12's run of the same yaml
-        "device": ("device_pipeline=True",),
-        "full": ("device_pipeline=full", f"image_bucket={FULL_BUCKET}",
-                 f"decode_cache_mb={FULL_CACHE_MB}", "frame_grouped_shuffle=True",
-                 "patch_grouped_batching=True", "profile=True"),
-    }
     val_batches = -(-ENTRY_VAL_IMAGES * ENTRY_PEOPLE // base.batch_size)
     runs, launches = {}, 0
-    for mode, options in modes.items():
+    for mode, options in INPUT_MODES.items():  # host targets: phase 12's run
         ckpt_dir = os.path.join(root, f"input_{mode}")
         args = recipe_args(RECIPE_YAML, data, ckpt_dir, device, f"num_epochs={INPUT_EPOCHS}",
                            f"warmup={INPUT_WARMUP}", f"val_interval={INPUT_EPOCHS}", *options)
@@ -4136,7 +4382,31 @@ def ddp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
-def ddp_on_one_card(root: str, device: torch.device) -> dict:
+def start_ddp_ranks(root: str, device: torch.device, background: Background) -> dict:
+    """Phase 26 (a)'s two rank processes (``ddp_rank``), started on
+    ``background`` from the state of a fresh full-width net (drawn with
+    cuDNN's deterministic algorithms, ``start.pt``), which
+    ``ddp_on_one_card`` then steps as the one process they are held to."""
+    out_dir = os.path.join(root, "ddp_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    commands = [[sys.executable, os.path.abspath(__file__), "--ddp-rank", str(rank),
+                 str(DDP_WORLD), str(port), out_dir] for rank in range(DDP_WORLD)]
+    logs = [os.path.join(out_dir, f"rank{rank}.log") for rank in range(DDP_WORLD)]
+    start = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = training_net(device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.save(net.state_dict(), os.path.join(out_dir, "start.pt"))  # the ranks' start
+    return {"out_dir": out_dir, "net": net, "start": start,
+            "future": background.submit("phase 26 (a)'s two ranks", run_processes, commands,
+                                        logs, DDP_TIMEOUT_S, "phase 26 (a)")}
+
+
+def ddp_on_one_card(device: torch.device, started: dict) -> dict:
     """Phase 26 (a): two ranks on the one card over gloo (``ddp_rank``),
     against one process at ``accum_steps=2`` on the same batch of
     ``DDP_WORLD * DDP_RANK_BATCH`` crops, ``DDP_STEPS`` steps each at the yaml's lr
@@ -4153,50 +4423,40 @@ def ddp_on_one_card(root: str, device: torch.device) -> dict:
     / 2 from the ranks' own prev, with (1 - m) s_1 = A1 - m prev_1 and
     (1 - m) s_2 = A2 - m A1 from the one process's statistics after its
     first (A1) and second (A2) microbatch, within ``DDP_STATS_RTOL`` of
-    each tensor's largest."""
-    out_dir = os.path.join(root, "ddp_ranks")
-    os.makedirs(out_dir, exist_ok=True)
-    port = free_port()
-    commands = [[sys.executable, os.path.abspath(__file__), "--ddp-rank", str(rank),
-                 str(DDP_WORLD), str(port), out_dir] for rank in range(DDP_WORLD)]
-    logs = [os.path.join(out_dir, f"rank{rank}.log") for rank in range(DDP_WORLD)]
-    start = time.perf_counter()
+    each tensor's largest. The ranks were started by ``start_ddp_ranks``."""
+    out_dir, net, ranks, start = (started[k] for k in ("out_dir", "net", "future", "start"))
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    net = training_net(device)
-    torch.save(net.state_dict(), os.path.join(out_dir, "start.pt"))  # the ranks' start
-    with ThreadPoolExecutor(1) as pool:
-        ranks = pool.submit(run_processes, commands, logs, DDP_TIMEOUT_S, "phase 26 (a)")
-        # meanwhile the one process, on the same card
-        step = recipe_step(net, "O0", accum_steps=DDP_WORLD)
-        image, keypoints = train_batch(np.random.RandomState(SEED + 26),
-                                       DDP_WORLD * DDP_RANK_BATCH, device)
-        bns = {m: n for n, m in net.named_modules() if isinstance(m, nn.BatchNorm2d)}
-        seen = []
+    # the one process, on the same card
+    step = recipe_step(net, "O0", accum_steps=DDP_WORLD)
+    image, keypoints = train_batch(np.random.RandomState(SEED + 26),
+                                   DDP_WORLD * DDP_RANK_BATCH, device)
+    bns = {m: n for n, m in net.named_modules() if isinstance(m, nn.BatchNorm2d)}
+    seen = []
 
-        def record(module, _, __):
-            if len(seen) < len(bns):  # the first microbatch's forward
-                seen.append((bns[module], module.running_mean.detach().cpu().clone(),
-                             module.running_var.detach().cpu().clone()))
+    def record(module, _, __):
+        if len(seen) < len(bns):  # the first microbatch's forward
+            seen.append((bns[module], module.running_mean.detach().cpu().clone(),
+                         module.running_var.detach().cpu().clone()))
 
-        hooks = [m.register_forward_hook(record) for m in bns]
-        params = dict(net.named_parameters())
-        tiny = {n: torch.zeros_like(p, dtype=torch.bool) for n, p in params.items()}
-        reference = []
-        for _ in range(DDP_STEPS):
-            before = _statistics(net)
-            seen.clear()
-            step(image, keypoints)
-            for n, p in params.items():
-                tiny[n] |= p.grad.abs() < 1e-4 * p.grad.abs().max()
-            first = {}
-            for name, mean, var in seen:
-                first[f"{name}.running_mean"], first[f"{name}.running_var"] = mean, var
-            reference.append({"before": before, "first": first, "after": _statistics(net)})
-        for h in hooks:
-            h.remove()
-        torch.backends.cudnn.deterministic = deterministic
-        ranks.result()
+    hooks = [m.register_forward_hook(record) for m in bns]
+    params = dict(net.named_parameters())
+    tiny = {n: torch.zeros_like(p, dtype=torch.bool) for n, p in params.items()}
+    reference = []
+    for _ in range(DDP_STEPS):
+        before = _statistics(net)
+        seen.clear()
+        step(image, keypoints)
+        for n, p in params.items():
+            tiny[n] |= p.grad.abs() < 1e-4 * p.grad.abs().max()
+        first = {}
+        for name, mean, var in seen:
+            first[f"{name}.running_mean"], first[f"{name}.running_var"] = mean, var
+        reference.append({"before": before, "first": first, "after": _statistics(net)})
+    for h in hooks:
+        h.remove()
+    torch.backends.cudnn.deterministic = deterministic
+    ranks.result()
     rank_s = time.perf_counter() - start
     got = [torch.load(os.path.join(out_dir, f"ddp_rank{r}.pt")) for r in range(DDP_WORLD)]
     for i in range(DDP_STEPS):
@@ -4233,7 +4493,8 @@ def ddp_on_one_card(root: str, device: torch.device) -> dict:
           f"{2.0 * lr * DDP_STEPS:g} where a gradient was below 1e-4 of its tensor's largest); "
           f"running statistics against the formula {stats_err:.3e} of each tensor's largest "
           f"(tolerance {DDP_STATS_RTOL}), against the one process's own {gap:.3e}; "
-          f"{rank_s:.1f} s for the ranks and the one process")
+          f"{rank_s:.1f} s from the ranks' start (beside earlier phases) to the one process's "
+          f"end")
     if beyond or stats_err > DDP_STATS_RTOL or not gap > 10 * stats_err:
         raise AssertionError("phase 26 (a): the two ranks do not match one process at "
                              "accum_steps=2")
@@ -4513,9 +4774,9 @@ def fsdp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
-def start_fsdp_ranks(root: str, pool: ThreadPoolExecutor) -> dict:
-    """Phase 27 (a)'s two rank processes (``fsdp_rank``), started on ``pool``
-    beside phase 26 (a)'s, which they need nothing from."""
+def start_fsdp_ranks(root: str, background: Background) -> dict:
+    """Phase 27 (a)'s two rank processes (``fsdp_rank``), started on
+    ``background`` beside phase 26 (a)'s, which they need nothing from."""
     out_dir = os.path.join(root, "fsdp_ranks")
     os.makedirs(out_dir, exist_ok=True)
     port = free_port()
@@ -4523,7 +4784,8 @@ def start_fsdp_ranks(root: str, pool: ThreadPoolExecutor) -> dict:
                  str(FSDP_WORLD), str(port), out_dir] for rank in range(FSDP_WORLD)]
     logs = [os.path.join(out_dir, f"rank{rank}.log") for rank in range(FSDP_WORLD)]
     return {"out_dir": out_dir, "start": time.perf_counter(),
-            "future": pool.submit(run_processes, commands, logs, FSDP_TIMEOUT_S, "phase 27 (a)")}
+            "future": background.submit("phase 27 (a)'s two ranks", run_processes, commands,
+                                        logs, FSDP_TIMEOUT_S, "phase 27 (a)")}
 
 
 def fsdp_on_one_card(device: torch.device, ranks: dict) -> dict:
@@ -4542,7 +4804,7 @@ def fsdp_on_one_card(device: torch.device, ranks: dict) -> dict:
     ranks' shards, within ``FSDP_GRAD_RTOL`` of each tensor's largest
     (float64 sums in another order). Each rank's parameters and AdamW
     moments are printed beside the whole ones. ``ranks`` are the rank
-    processes ``start_fsdp_ranks`` started, during phase 26 (a)."""
+    processes ``start_fsdp_ranks`` started beside earlier phases."""
     out_dir = ranks["out_dir"]
     args = vitpose_h_args(device)
     # the one process, on the same card
@@ -4585,8 +4847,8 @@ def fsdp_on_one_card(device: torch.device, ranks: dict) -> dict:
           f"{loss_err:.3e} apart "
           f"(tolerance {FSDP_LOSS_RTOL}); the first step's reduced gradients against the one "
           f"process's {grad_err:.3e} of each tensor's largest at worst ({worst_name}; "
-          f"tolerance {FSDP_GRAD_RTOL}; bitwise equal: {equal}); {seconds:.1f} s for the ranks "
-          f"(beside phase 26 (a)'s) and the one process")
+          f"tolerance {FSDP_GRAD_RTOL}; bitwise equal: {equal}); {seconds:.1f} s from the ranks' "
+          f"start (beside phase 26 (a)'s and earlier phases) to the one process's end")
     for g in got:
         if not (g["params"][0] * FSDP_WORLD <= g["params"][1] + 2**20
                 and g["moments"][0] * FSDP_WORLD <= g["moments"][1] + 2**21):
@@ -5496,12 +5758,14 @@ def experiment_tools(root: str, gpu: str) -> dict:
 
 BENCH_E2E_IMAGES = "4"  # phase 35: 32 records, one batch of 32 an epoch
 BENCH_E2E_BATCH = "32"
-BENCH_ITERS = "2"  # phase 35: timed calls of the serving, variant and budget tools
-# phase 35 (a): tools/bench.py's parts with their loops cut (keyword -> value
-# over each default): the train step's 3 loops of 2 steps (20), the
-# bottom-up step's of 1 (10), e2e 2 epochs (4); the decode at its defaults
-BENCH_CUTS = {"bench_train_step": {"iters": 2}, "bench_bottomup_step": {"iters": 1},
+BENCH_ITERS = "1"  # phase 35: timed calls of the serving, variant and budget tools (least)
+# phase 35 (a): tools/bench.py's parts with their loops cut to their least
+# (keyword -> value over each default): the train step's 3 loops of 1 step
+# (20), the bottom-up step's of 1 (10), e2e 2 epochs, the first untimed (4);
+# the decode at its defaults
+BENCH_CUTS = {"bench_train_step": {"iters": 1}, "bench_bottomup_step": {"iters": 1},
               "bench_e2e_encode": {"epochs": 2}}
+BENCH_TIMEOUT_S = 600
 VARIANT_BATCH = "32"  # phase 35: bench_variant's batch (its default, 128, is bench's step)
 BU_VARIANT_BATCH = "8"  # bench_bu_variant's (its default, 24, is bench's bottom-up step)
 SERVE_PRESETS = ("resnet50", "hrnet_w32", "vit_b", "simcc", "rle")
@@ -5518,29 +5782,71 @@ BENCH_EXTRA = {
 BUDGET_MAX_PCT = 105.0
 
 
+def start_bench(root: str, background: Background):
+    """Phase 35 (a): ``tools/bench.py``'s ``main`` whole in a process of its
+    own on ``background``, its loops cut (``BENCH_CUTS``), its output to a
+    log; ``bench_report`` reads it once the process has ended."""
+    code = ("import functools, json; from mindpose_tpu_torch.tools import bench\n"
+            f"for name, kw in json.loads({json.dumps(BENCH_CUTS)!r}).items():\n"
+            "    fn = getattr(bench, name)\n"
+            "    setattr(bench, name, functools.update_wrapper(functools.partial(fn, **kw), fn))\n"
+            "bench.main()\n")
+    out_dir = os.path.join(root, "bench")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def run():
+        start = time.perf_counter()
+        (log,) = run_processes([[sys.executable, "-c", code]], [os.path.join(out_dir, "log")],
+                               BENCH_TIMEOUT_S, "phase 35 (a): tools/bench.py")
+        return log, time.perf_counter() - start
+
+    return background.submit("phase 35 (a): tools/bench.py", run, serial=True)
+
+
+def bench_report(started) -> dict:
+    """Phase 35 (a), once ``start_bench``'s process has ended: each part's
+    seconds, then its last line, which must parse with ``value`` > 0,
+    ``vs_baseline`` 1.0, the extra keys ``BENCH_EXTRA``, no ``*_error`` key,
+    and the decode kernel launched by ``bench_decode``. Returns the report."""
+    log, seconds = started.result()
+    lines = [ln for ln in log.splitlines() if ln.strip()]
+    for line in lines:  # each part's seconds, from its standard error
+        if "| bench: " in line:
+            print(f"phase 35 {line.split('| ', 1)[1]}")
+    report = json.loads(next(ln for ln in reversed(lines) if ln.startswith("{")))
+    extra = report["extra"]
+    errors = sorted(k for k in extra if k == "error" or k.endswith("_error"))
+    print(f"phase 35 bench: {seconds:.1f} s from its start to its end, in a process of its own "
+          f"beside the main process's phases, sharing the card with them")
+    print(f"phase 35 bench: {json.dumps(report)}")
+    if (set(report) != {"metric", "value", "unit", "vs_baseline", "extra"}
+            or not report["value"] > 0 or report["vs_baseline"] != 1.0 or errors
+            or set(extra) != BENCH_EXTRA or extra["decode_kernel_launches"] < 1):
+        raise AssertionError(f"phase 35 (a): {report}")
+    return report
+
+
 def bench_tools(root: str, gpu: str) -> dict:
     """Phase 35: the six bench tools on the current card, at full width.
 
-    (a) ``tools/bench.py``'s ``main`` whole in a process of its own, its
-    loops cut (``BENCH_CUTS``): its last line parses, ``value`` > 0,
-    ``vs_baseline`` 1.0, the extra keys ``BENCH_EXTRA``, no ``*_error`` key,
-    and the decode kernel launched by ``bench_decode``; (b) ``bench_serve``,
-    the five presets at 1, 8 and 32 boxes, 2 timed requests each, float32,
-    then hrnet_w32 with int8 weights: p50 <= p90 <= p99, and decode launches
-    for the heatmap presets only; (c) ``bench_e2e`` in host, encode and full
-    mode (4 frames: one batch of 32 an epoch, 2 epochs), then
+    (a) ``tools/bench.py`` runs in a process of its own (``start_bench``,
+    ``bench_report``); here (b) ``bench_serve``, the five presets at 1, 8
+    and 32 boxes, ``BENCH_ITERS`` timed requests each, float32, then
+    hrnet_w32 with int8 weights: p50 <= p90 <= p99, and decode launches for
+    the heatmap presets only; (c) ``bench_e2e`` in host, encode and full
+    mode (4 frames: one batch of 32 an epoch, 2 epochs, its least), then
     ``--bytes-only`` over the five modes and ``--loader-only``; (d)
     ``bench_variant`` (base, bn4, bnfrozen; batch 32) and ``bench_bu_variant``
-    (base, bnfrozen, remat; batch 8) at 2 timed steps; (e) ``budget_table`` at 2
-    timed calls: every row with FLOPs or bytes, its shares of the eager
-    program's bound and of the shape-derived least bytes' roofline bound in
-    (0, 105], and the least bytes no more than the counted ones. Prints each tool's rows and seconds beside the card's name and
-    power limit."""
+    (base, bnfrozen, remat; batch 8) at ``BENCH_ITERS`` timed steps; (e)
+    ``budget_table`` at ``BENCH_ITERS`` timed calls: every row with FLOPs or
+    bytes, its shares of the eager program's bound and of the shape-derived
+    least bytes' roofline bound in (0, 105], and the least bytes no more
+    than the counted ones. Prints each tool's rows and seconds beside the
+    card's name and power limit. Returns the decode launches of (b)."""
     from mindpose_tpu_torch.tools import (
         bench_bu_variant, bench_e2e, bench_serve, bench_variant, budget_table)
 
-    out = {"seconds": {}}
-    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"seconds": {}, "launches": 0}
 
     def timed(name, fn):
         start = time.perf_counter()
@@ -5550,34 +5856,6 @@ def bench_tools(root: str, gpu: str) -> dict:
         torch.cuda.empty_cache()
         print(f"phase 35 {name}: {out['seconds'][name]:.1f} s")
         return result
-
-    def run_bench():
-        code = ("import functools, json; from mindpose_tpu_torch.tools import bench\n"
-                f"for name, kw in json.loads({json.dumps(BENCH_CUTS)!r}).items():\n"
-                "    fn = getattr(bench, name)\n"
-                "    setattr(bench, name, functools.update_wrapper(functools.partial(fn, **kw), fn))\n"
-                "bench.main()\n")
-        done = subprocess.run([sys.executable, "-c", code],
-                              capture_output=True, text=True, cwd=here, timeout=600)
-        lines = done.stdout.strip().splitlines()
-        if done.returncode != 0 or not lines:
-            raise AssertionError(f"phase 35 (a): bench exited {done.returncode}:\n"
-                                 f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
-        for line in done.stderr.splitlines():  # each part's seconds
-            if "| bench: " in line:
-                print(f"phase 35 {line.split('| ', 1)[1]}")
-        return json.loads(lines[-1])
-
-    report = timed("bench", run_bench)
-    extra = report["extra"]
-    errors = sorted(k for k in extra if k == "error" or k.endswith("_error"))
-    print(f"phase 35 bench: {json.dumps(report)}")
-    if (set(report) != {"metric", "value", "unit", "vs_baseline", "extra"}
-            or not report["value"] > 0 or report["vs_baseline"] != 1.0 or errors
-            or set(extra) != BENCH_EXTRA or extra["decode_kernel_launches"] < 1):
-        raise AssertionError(f"phase 35 (a): {report}")
-    out["bench"] = report
-    out["launches"] = extra["decode_kernel_launches"]
 
     out["serve"] = {}
     for name, quantize in [(p, "") for p in SERVE_PRESETS] + [("hrnet_w32", "int8")]:
@@ -5843,18 +6121,59 @@ def divergent_knobs(root: str, data: dict, device: torch.device, gpu: str) -> di
             "ms": time_divergent_variants(device, gpu)}
 
 
+def phases_process(phases: str, job_path: str) -> None:
+    """Phases 34-35 ((b)-(e); (a) is ``start_bench``'s), 36 or 25 in a
+    process of their own, started by ``run_phases`` beside the main
+    process's phases: with the job's ``root`` (and ``data``, phase 12's, for
+    36 and 25); writes the launch counts the kernels line takes to the job's
+    ``out``."""
+    with open(job_path) as f:
+        job = json.load(f)
+    device = torch.device("cuda", 0)
+    gpu = gpu_name_and_power()
+    print(f"phases {phases} beside the main process's phases on the same card: every time "
+          f"below shares the card and the host's cores with them; {gpu}")
+    start = time.perf_counter()
+    if phases == "34-35":
+        experiments = experiment_tools(job["root"], gpu)
+        middle = time.perf_counter()
+        print(f"time: phase 34 took {middle - start:.1f} s in its process")
+        benched = bench_tools(job["root"], gpu)
+        print(f"time: phase 35 (b)-(e) took {time.perf_counter() - middle:.1f} s in its process")
+        result = {key: experiments[key] for key in
+                  ("accuracy_launches", "warmstart_launches", "grouping_launches")}
+        result["bench_tools_launches"] = benched["launches"]
+    elif phases == "25":
+        modes = input_modes_training(job["root"], job["data"], device)
+        print(f"time: phase 25 took {time.perf_counter() - start:.1f} s in its process")
+        result = {"input_modes_launches": modes["launches"]}
+    elif phases == "36":
+        divergent = divergent_knobs(job["root"], job["data"], device, gpu)
+        print(f"time: phase 36 took {time.perf_counter() - start:.1f} s in its process")
+        result = {"divergent_launches": divergent["entry"]["launches"]}
+    else:
+        raise ValueError(f"no phases {phases!r} run in a process of their own")
+    with open(job["out"], "w") as f:
+        json.dump(result, f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
     adopt_orphans()
     device = torch.device("cuda", 0)
-    clock = {"start": time.perf_counter(), "last": time.perf_counter()}
+    clock = {"start": time.perf_counter(), "last": time.perf_counter(), "background": None}
 
     def lap(phases: str) -> None:
         now = time.perf_counter()
         print(f"time: phases {phases} took {now - clock['last']:.1f} s "
               f"({now - clock['start']:.1f} s in all)")
+        sharers = clock["background"].sharers(clock["last"], now) if clock["background"] else []
+        if sharers:
+            print(f"phases {phases} shared the card and the host's cores with: "
+                  f"{'; '.join(sharers)} (each a process of its own): their times above are "
+                  f"taken beside them")
         clock["last"] = now
 
     gpu = gpu_name_and_power()
@@ -5904,13 +6223,24 @@ def main() -> int:
 
     phase9 = train_throughput(device)
     lap("9")
-    check_loss_falls(device)
-    lap("10")
-    compare_train_with_cpu(device)
-    torch.cuda.empty_cache()
-    lap("11")
 
-    with tempfile.TemporaryDirectory() as root:
+    # Phases 34-35 (b)-(e), 35 (a), 36, 26 (b)-27 (b) and 25 run in processes
+    # of their own beside the main process's phases, never beside a phase
+    # that times a kernel for the kernels line (3, 7, 8, 14, 16 and 24's
+    # decode, which runs after 16) or beside phase 9, the one full timing of
+    # the step; a lap over which one ran says so on a line of its own
+    with contextlib.ExitStack() as stack:
+        root = stack.enter_context(tempfile.TemporaryDirectory())
+        pool, serial = ThreadPoolExecutor(3), ThreadPoolExecutor(1)
+        for executor in (pool, serial):  # a failed phase ends the run without waiting
+            stack.callback(executor.shutdown, wait=True, cancel_futures=True)
+        background = clock["background"] = Background(pool, serial)
+        tools = background.submit("phases 34-35 (b)-(e)", run_phases, "34-35", root, {})
+        check_loss_falls(device)
+        lap("10")
+        compare_train_with_cpu(device)
+        torch.cuda.empty_cache()
+        lap("11")
         entry = train_through_entry(root, phase9, device)
         stop_worker_servers()
         torch.cuda.empty_cache()
@@ -5920,14 +6250,36 @@ def main() -> int:
         plain = train_simple_baseline(root, entry["data"], device, SB_YAML)
         torch.cuda.empty_cache()
         lap("13")
+        sb_served = serve_simple_baseline(root, trained, device)  # before 14: no kernel timing
+        torch.cuda.empty_cache()
+        lap("15")
+        tools = joined("phases 34-35 (b)-(e)", tools.result())  # before phase 14's timings
+        lap("34-35 (b)-(e): the rest of their process")
         plain_eval = eval_checkpoint(root, plain, device, dark=False)
         sb_eval = eval_simple_baseline(root, trained, device)
         lap("14")
-        sb_served = serve_simple_baseline(root, trained, device)
-        torch.cuda.empty_cache()
-        lap("15")
         grouped = check_grouping(device)
         lap("16")
+        mpii_kernel = mpii_decode(device)
+        lap("24 (a): the decode kernel at MPII's shapes")
+
+        # phase 23 before the processes below start: its one loader thread
+        # waited 0.9-1.9 s a step beside them
+        rle = family_training(root, entry["data"], device, RLE_YAML)
+        lap("23")
+
+        # one at a time, in this order, beside phases 17-33: phase 36, the
+        # torchrun process of 26 (b) and 27 (b) (on phase 21's data, written
+        # here), tools/bench.py, phase 25
+        vit_data = write_synthetic_coco(os.path.join(root, "vit_small"), VIT_SMALL_IMAGES,
+                                        VIT_SMALL_VAL_IMAGES, ENTRY_PEOPLE)
+        divergent = background.submit("phase 36", run_phases, "36", root,
+                                      {"data": entry["data"]}, serial=True)
+        torchrun = background.submit("phases 26 (b) and 27 (b): the torchrun process",
+                                     launch_entries, root, entry["data"], vit_data, serial=True)
+        bench = start_bench(root, background)
+        inputs = background.submit("phase 25", run_phases, "25", root, {"data": entry["data"]},
+                                   serial=True)
         bu_eval = bottomup_evaluation(root, device)
         lap("17")
         bu_served = serve_bottomup(root, bu_eval["ckpt"], device)
@@ -5936,76 +6288,65 @@ def main() -> int:
         bu_trained = bottomup_training(root, device)
         torch.cuda.empty_cache()
         lap("19")
+        # phases 26 (a)'s and 27 (a)'s ranks start beside phase 20: they end
+        # before 24 (b), whose MPII training takes the most memory of the
+        # later phases
+        ddp_ranks = start_ddp_ranks(root, device, background)
+        fsdp_ranks = start_fsdp_ranks(root, background)
         vit = vitpose_training(root, entry["data"], device)
         torch.cuda.empty_cache()
         lap("20")
-        vit_data = write_synthetic_coco(os.path.join(root, "vit_small"), VIT_SMALL_IMAGES,
-                                        VIT_SMALL_VAL_IMAGES, ENTRY_PEOPLE)
         vit_recipes = vitpose_recipes(root, vit_data, device)
         torch.cuda.empty_cache()
         lap("21")
         simcc = family_training(root, entry["data"], device, SIMCC_YAML)
         lap("22")
-        rle = family_training(root, entry["data"], device, RLE_YAML)
-        lap("23")
-        mpii_kernel = mpii_decode(device)
         mpii_run = mpii_training(root, device)
         torch.cuda.empty_cache()
-        lap("24")
-        input_modes = input_modes_training(root, entry["data"], device)
+        lap("24 (b)")
+        ddp_on_one_card(device, ddp_ranks)
         torch.cuda.empty_cache()
-        lap("25")
-        with ThreadPoolExecutor(1) as background:
-            fsdp_ranks = start_fsdp_ranks(root, background)  # beside phase 26 (a)
-            ddp_on_one_card(root, device)
-            torch.cuda.empty_cache()
-            lap("26 (a)")
-            fsdp_on_one_card(device, fsdp_ranks)
-            torch.cuda.empty_cache()
-            lap("27 (a)")
-            # phases 26 (b) and 27 (b)'s torchrun process runs beside phases
-            # 28-33, which share the card and the host's cores with it
-            torchrun = background.submit(launch_entries, root, entry["data"], vit_data)
-            distilled = distill_training(root, entry["data"], device)
-            torch.cuda.empty_cache()
-            lap("28")
-            remat_step(device)
-            torch.cuda.empty_cache()
-            lap("29")
-            int8 = int8_serving(root, device)
-            torch.cuda.empty_cache()
-            lap("30")
-            exported = export_serving(root, int8["ckpt"], SB_YAML, plain["ckpt"], device)
-            torch.cuda.empty_cache()
-            lap("31")
-            demoed = demos(root, entry["data"],
-                           os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
-                           bu_eval["ckpt"], device)
-            torch.cuda.empty_cache()
-            lap("32")
-            visual = visual_tools(root, entry["data"],
-                                  os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
-                                  bu_eval["ckpt"])
-            resized = resize_evaluation(root, entry["data"], bu_eval["ckpt"], device)
-            torch.cuda.empty_cache()
-            photometric = photometric_training(root, device)
-            torch.cuda.empty_cache()
-            native_evaluator(root, evaluated, gpu)
-            lap("33")
-            torchrun.result()
-            lap("26 (b) and 27 (b): the rest of the torchrun process")
+        lap("26 (a)")
+        fsdp_on_one_card(device, fsdp_ranks)
+        torch.cuda.empty_cache()
+        lap("27 (a)")
+        distilled = distill_training(root, entry["data"], device)
+        torch.cuda.empty_cache()
+        lap("28")
+        remat_step(device)
+        torch.cuda.empty_cache()
+        lap("29")
+        int8 = int8_serving(root, device)
+        torch.cuda.empty_cache()
+        lap("30")
+        exported = export_serving(root, int8["ckpt"], SB_YAML, plain["ckpt"], device)
+        torch.cuda.empty_cache()
+        lap("31")
+        demoed = demos(root, entry["data"],
+                       os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
+                       bu_eval["ckpt"], device)
+        torch.cuda.empty_cache()
+        lap("32")
+        visual = visual_tools(root, entry["data"],
+                              os.path.join(root, "entry", "hrnet_w32_tpu_last.ckpt"),
+                              bu_eval["ckpt"])
+        resized = resize_evaluation(root, entry["data"], bu_eval["ckpt"], device)
+        torch.cuda.empty_cache()
+        photometric = photometric_training(root, device)
+        torch.cuda.empty_cache()
+        native_evaluator(root, evaluated, gpu)
+        lap("33")
+        divergent = joined("phase 36", divergent.result())
+        benched = bench_report(bench)
+        torchrun.result()
+        lap("36, 35 (a), 26 (b) and 27 (b): the rest of their processes")
         ddp = ddp_entry(root, device, entry)
         lap("26 (b)")
         fsdp = fsdp_entry(root, vit_data, device)
         torch.cuda.empty_cache()
         lap("27 (b)")
-        experiments = experiment_tools(root, gpu)
-        lap("34")
-        benched = bench_tools(root, gpu)
-        lap("35")
-        divergent = divergent_knobs(root, entry["data"], device, gpu)
-        torch.cuda.empty_cache()
-        lap("36")
+        input_modes = joined("phase 25", inputs.result())
+        lap("25: the rest of its process")
     check_no_processes_left()
     print(f"time: the whole run took {time.perf_counter() - clock['start']:.1f} s by its clock")
     vit_launches = {"vitpose_b_tpu": {key: vit[key] for key in
@@ -6027,6 +6368,8 @@ def main() -> int:
     chain = next(r for r in probed["rows"] if r["b"] == HRNET_W32["batch_size"])
     warm_ms, plain_ms = decode[(BATCH_SIZE, False, True)]
     timed = grouped["timed"][str(BATCH_SIZE)]
+    # phase 35: tools/bench.py's own process's and bench_serve's (phases 34-35's process)
+    bench_launches = benched["extra"]["decode_kernel_launches"] + tools["bench_tools_launches"]
     kernels = [{
         "name": "argmax_shift_decode",
         "route": "cuda",
@@ -6042,18 +6385,18 @@ def main() -> int:
                      + trained["launches"] + plain["launches"] + plain_eval["launches"]
                      + sb_eval["launches"] + sb_eval["dark_launches"] + sb_served["launches"]
                      + sum(sum(r.values()) for r in vit_launches.values())
-                     + sum(mpii_launches.values()) + input_modes["launches"]
+                     + sum(mpii_launches.values()) + input_modes["input_modes_launches"]
                      + ddp["launches"] + distilled["launches"] + int8["launches"]
                      + exported["launches"] + demoed["launches"]
                      + visual["topdown"]["launches"] + photometric["launches"]
-                     + experiments["accuracy_launches"] + experiments["warmstart_launches"]
-                     + benched["launches"] + divergent["entry"]["launches"]),
+                     + tools["accuracy_launches"] + tools["warmstart_launches"]
+                     + bench_launches + divergent["divergent_launches"]),
         "vitpose_launches": vit_launches,
         # phase 24: the MPII callback's (1 per eval batch), the eval entry's
         # (1 per batch) and the serving entry's (1 per 32-crop chunk)
         "mpii_launches": mpii_launches,
         # phase 25: the callback's evaluation of each input mode's run (1 batch each)
-        "input_modes_launches": input_modes["launches"],
+        "input_modes_launches": input_modes["input_modes_launches"],
         # phase 26 (b): rank 0's callback under torchrun (1 per eval batch)
         "ddp_entry_launches": ddp["launches"],
         # phase 27 (b): rank 0's callback on its unsharded copy under torchrun
@@ -6072,15 +6415,17 @@ def main() -> int:
         "visual_launches": visual["topdown"]["launches"],
         "photometric_launches": photometric["launches"],
         # phase 34: ablate_accuracy's evaluation and exp_warmstart's (1 per eval batch)
-        "experiment_launches": experiments["accuracy_launches"]
-        + experiments["warmstart_launches"],
+        "experiment_launches": tools["accuracy_launches"] + tools["warmstart_launches"],
         # phase 35: bench_decode in tools/bench.py's process (1 per call:
-        # 1 warm, 50 single, 5 x 100 back to back) and bench_serve's heatmap
-        # presets (1 per request of at most 32 boxes), this phase's own count
-        "bench_tools_launches": benched["launches"],
+        # 1 warm, 50 single, 5 x 100 back to back: 551) and bench_serve's
+        # heatmap presets (1 per request of at most 32 boxes: a warm and
+        # BENCH_ITERS timed requests at 1, 8 and 32 boxes, 6 for each of
+        # resnet50, hrnet_w32, vit_b and hrnet_w32 int8; 9 each, and 688 in
+        # all, before BENCH_ITERS went from 2 to 1), this phase's own count
+        "bench_tools_launches": bench_launches,
         # phase 36 (b): the divergent knobs' run through the entry, its
         # callback's evaluation (1 per eval batch)
-        "divergent_launches": divergent["entry"]["launches"],
+        "divergent_launches": divergent["divergent_launches"],
         "eval_launches": evaluated["launches"] + plain_eval["launches"] + sb_eval["launches"],
         "train_eval_launches": entry["launches"] + trained["launches"] + plain["launches"],
         "dark_launches": sb_eval["dark_launches"],
@@ -6142,7 +6487,7 @@ def main() -> int:
         # (phase 32: one per image)
         "launches": (bu_eval["launches"] + bu_served["launches"] + bu_trained["launches"]
                      + demoed["grouping_launches"] + visual["ae"]["grouping_launches"]
-                     + resized["launches"] + experiments["grouping_launches"]),
+                     + resized["launches"] + tools["grouping_launches"]),
         "eval_launches": bu_eval["launches"],
         "serve_launches": bu_served["launches"],
         "train_eval_launches": bu_trained["launches"],
@@ -6152,7 +6497,7 @@ def main() -> int:
         "visual_launches": visual["ae"]["grouping_launches"],
         "resize_eval_launches": resized["launches"],
         # phase 34: exp_grouping's device arm (1 per eval batch)
-        "experiment_launches": experiments["grouping_launches"],
+        "experiment_launches": tools["grouping_launches"],
         "resize_eval_ap": resized["ap"],
         "sets_checked": grouped["sets"],
         "max_abs_err": grouped["max_abs_err"],
@@ -6198,6 +6543,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--fsdp-rank"]:  # phase 27 (a): one rank
         rank, world, port = map(int, sys.argv[2:5])
         fsdp_rank(rank, world, port, sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phases"]:  # phases 34-35, 36 or 25 in a process of their own
+        phases_process(sys.argv[2], sys.argv[3])
         sys.exit(0)
     try:
         code = main()
